@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) end to end on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printed as JSON records; any failure exits non-zero:
+
+1. card: ``nvidia-smi`` name and power limit, and the kernel build (nvcc,
+   from the sources in this checkout).
+2. kernel vs plain: K1 (``ops.distance_topk`` on CUDA tensors) against
+   ``ref.distance_topk_blocked`` on the same CUDA tensors, for l2/ip/cos,
+   k in {10, 100, 200}, D in {50, 128, 960, 2048}, ragged B and N,
+   n_valid < N, k > N and N == 0.  rtol = atol = 3e-4; ids equal up to one
+   swap per row between near-equal distances at the k-th place.
+3. paper protocol: SIFT1M shape (paper Table 1), 2 shards x 4 RH segments,
+   alpha 0.15, scan engine, l2, topk 100, batches of 1024: build seconds,
+   QPS, recall@{1,10,100} against brute force on the card, and the id-set
+   overlap with the same index built on the CPU (plain path).
+4. deployment scale: 10M x 512 fp32 in 8 shards x 8 RH segments (halved
+   until it fits the host and the card): QPS, p50/p99 batch latency, the
+   route/candidates/merge split, recall@100 on 1,000 queries.
+5. the kernel line: launches on the main path (phases 3-4), max error,
+   K1 / plain / library times at a main-path shape, and K1's bound.
+
+Needs torch with CUDA, nvcc and one card; exits non-zero without them.
+"""
+
+from __future__ import annotations
+
+import gc
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+TOL = 3e-4
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+K1_SOURCE = "src/repro_torch/kernels/csrc/distance_topk.cu"
+K1_REPLACES = "src/repro/kernels/distance_topk.py:84"
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` runs (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare_topk(d_k, i_k, d_p, i_p, label: str) -> tuple[float, int]:
+    """Hold kernel output against the plain version's: finite pattern equal,
+    distances within TOL, ids equal as sets per row up to one swap at the
+    k-th place between near-equal distances.  Returns (max abs error,
+    rows with a swap)."""
+    d_k, i_k, d_p, i_p = (t.cpu().numpy() for t in (d_k, i_k, d_p, i_p))
+    if d_k.shape != d_p.shape or i_k.shape != i_p.shape:
+        raise AssertionError(f"{label}: shapes {d_k.shape} vs {d_p.shape}")
+    fin = np.isfinite(d_p)
+    if not np.array_equal(fin, np.isfinite(d_k)):
+        raise AssertionError(f"{label}: finite patterns differ")
+    if not np.array_equal(i_k[~fin], i_p[~fin]) or np.any(i_k[~fin] != -1):
+        raise AssertionError(f"{label}: padding ids differ")
+    err = float(np.abs(d_k[fin] - d_p[fin]).max()) if fin.any() else 0.0
+    if not np.allclose(d_k[fin], d_p[fin], rtol=TOL, atol=TOL):
+        raise AssertionError(f"{label}: distances differ, max abs err {err}")
+    swaps = 0
+    for r in range(d_p.shape[0]):
+        f = fin[r]
+        sk, sp = set(i_k[r][f].tolist()), set(i_p[r][f].tolist())
+        if sk == sp:
+            continue
+        if len(sk ^ sp) != 2:
+            raise AssertionError(f"{label}: row {r} id sets differ by {len(sk ^ sp)}")
+        kth = d_p[r][f][-1]
+        (extra,) = sk - sp
+        d_extra = d_k[r][list(i_k[r]).index(extra)]
+        if abs(d_extra - kth) > TOL * (1 + abs(kth)):
+            raise AssertionError(f"{label}: row {r} swap is not a k-th place tie")
+        swaps += 1
+    return err, swaps
+
+
+def phase_card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    ptxas = [
+        line.strip() for log in logs.values() for line in log.splitlines()
+        if "registers" in line or "spill" in line or "Compiling entry" in line
+    ]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sources": list(logs), "ptxas": ptxas})
+    return smi
+
+
+def phase_kernel_vs_plain() -> float:
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for metric in ("l2", "ip", "cos"):
+        for k in (10, 100, 200):
+            for D in (50, 128, 960, 2048):
+                cases.append((metric, k, D, 37, 5003, None))
+    cases += [
+        ("l2", 100, 128, 19, 5003, 3001),  # n_valid < N
+        ("ip", 200, 50, 9, 4097, 257),     # n_valid < N, several chunks
+        ("l2", 200, 128, 5, 150, None),    # k > N
+        ("cos", 100, 960, 3, 64, 40),      # k > N and n_valid < N
+        ("l2", 10, 128, 1000, 200_000, None),  # split across many chunks
+        ("l2", 10, 64, 4, 0, None),        # N == 0
+    ]
+    max_err, swaps = 0.0, 0
+    for metric, k, D, B, N, nv in cases:
+        q = torch.randn(B, D, generator=gen, device="cuda")
+        x = torch.randn(N, D, generator=gen, device="cuda")
+        d_k, i_k = ops.distance_topk(q, x, k, metric, n_valid=nv)
+        torch.cuda.synchronize()
+        if N == 0:
+            if not (torch.isinf(d_k).all() and (i_k == -1).all()):
+                raise AssertionError("N == 0 must give (inf, -1)")
+            continue
+        d_p, i_p = ref.distance_topk_blocked(q, x, k, metric, n_valid=nv)
+        err, sw = compare_topk(d_k, i_k, d_p, i_p, f"{metric} k={k} D={D} B={B} N={N} nv={nv}")
+        max_err, swaps = max(max_err, err), swaps + sw
+    emit({"phase": "kernel_vs_plain", "cases": len(cases), "max_abs_err": max_err,
+          "tie_swaps": swaps, "rtol": TOL, "atol": TOL})
+    return max_err
+
+
+def time_kernel(q: torch.Tensor, x: torch.Tensor, k: int, label: str) -> dict:
+    """K1 at one main-path shape: agreement with the plain version, K1 /
+    plain / library milliseconds, and K1's bound."""
+    from repro_torch.common.utils import next_pow2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.distance_topk import distance_topk_cuda
+
+    B, D = q.shape
+    N = x.shape[0]
+    k_pad = max(next_pow2(k), 128)
+    kern = lambda: distance_topk_cuda(q, x, k_pad=k_pad, n_valid=N, metric="l2")
+    plain = lambda: ref.distance_topk_blocked(q, x, k, "l2")
+
+    def library():
+        xn = (x * x).sum(-1)
+        return torch.topk(torch.addmm(xn, q, x.T, alpha=-2.0), k, dim=1, largest=False)
+
+    d_k, i_k = kern()
+    qn = (q * q).sum(-1, keepdim=True)
+    d_k = torch.where(torch.isinf(d_k[:, :k]), d_k[:, :k], d_k[:, :k] + qn)
+    d_p, i_p = plain()
+    err, _ = compare_topk(d_k, i_k[:, :k], d_p, i_p, f"main-path shape {label}")
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain, iters=5)
+    library_ms = cuda_ms(library)
+    flops = 2.0 * B * N * D + 2.0 * N * D  # q.x for every pair, ||x||^2 per row
+    nbytes = 4.0 * (B * D + N * D) + 8.0 * B * k_pad
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    rec = {"shape": label, "B": B, "N": N, "D": D, "k": k, "k_pad": k_pad,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+    emit({"phase": "kernel_timing", **rec})
+    return rec
+
+
+def stage_split(idx, batches, topk: int) -> dict:
+    """Mean ms per batch of the executor's route / candidates / merge
+    stages, each closed by a CUDA event; "host_other" is the rest of a
+    whole ``query`` call (upload, result copy, Python)."""
+    ex = idx._exec
+    split = {"route": 0.0, "candidates": 0.0, "merge": 0.0, "host_other": 0.0}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    for qb in batches:
+        ev[4].record()
+        idx.query(qb, topk)
+        ev[5].record()
+        q_dev = torch.from_numpy(qb).cuda()
+        ev[0].record()
+        plan = ex.plan(q_dev, topk)
+        ev[1].record()
+        ex.candidates(plan)
+        ev[2].record()
+        ex.merge(plan)
+        ev[3].record()
+        ev[3].synchronize()
+        for name, a, b in (("route", 0, 1), ("candidates", 1, 2), ("merge", 2, 3)):
+            split[name] += ev[a].elapsed_time(ev[b]) / len(batches)
+        split["host_other"] += (ev[4].elapsed_time(ev[5]) - ev[0].elapsed_time(ev[3])) / len(batches)
+    return split
+
+
+def overlap(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean per-row |set(a) & set(b)| / |set(b)| over valid ids."""
+    vals = []
+    for ra, rb in zip(a, b):
+        sb = {int(v) for v in rb if v >= 0}
+        sa = {int(v) for v in ra if v >= 0}
+        vals.append(len(sa & sb) / max(len(sb), 1))
+    return float(np.mean(vals))
+
+
+def check_results(d: np.ndarray, i: np.ndarray, B: int, k: int, n: int, label: str) -> None:
+    if d.shape != (B, k) or i.shape != (B, k):
+        raise AssertionError(f"{label}: shapes {d.shape} {i.shape}")
+    valid = i >= 0
+    if not (np.isfinite(d[valid]).all() and np.isinf(d[~valid]).all()):
+        raise AssertionError(f"{label}: distances do not match the id pattern")
+    if i.max() >= n or not valid.any():
+        raise AssertionError(f"{label}: ids out of range")
+    if np.any(np.diff(np.where(valid, d, np.inf), axis=1) < 0):
+        raise AssertionError(f"{label}: rows not ascending")
+
+
+def phase_paper(n: int = 1_000_000, n_queries: int = 10_000, batch: int = 1024,
+                topk: int = 100) -> dict:
+    from repro_torch.core import LannsConfig, LannsIndex, brute_force_topk, recall_table
+    from repro_torch.data.synthetic import sift_like
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    corpus, queries = sift_like(n=n, d=128, n_queries=n_queries, seed=0)
+    gen_s = time.perf_counter() - t0
+    cfg = LannsConfig(num_shards=2, num_segments=4, segmenter="rh", alpha=0.15,
+                      engine="scan", metric="l2")
+    idx = LannsIndex(cfg)
+    t0 = time.perf_counter()
+    idx.build(corpus)
+    build_s = time.perf_counter() - t0
+    idx.query(queries[:batch], topk)  # warm-up: allocator, first launch
+
+    ops.reset_launches()
+    ids, dists = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(queries), batch):
+        d, i = idx.query(queries[s: s + batch], topk)
+        dists.append(d)
+        ids.append(i)
+    query_s = time.perf_counter() - t0
+    launches_query = ops.KERNEL_LAUNCHES["distance_topk"]
+    _, gt_i = brute_force_topk(queries, corpus, topk)
+    launches = ops.KERNEL_LAUNCHES["distance_topk"]
+    d_all, i_all = np.concatenate(dists), np.concatenate(ids)
+    check_results(d_all, i_all, len(queries), topk, len(corpus), "paper")
+    split = stage_split(
+        idx, [queries[s: s + batch] for s in range(0, min(8 * batch, len(queries)), batch)], topk
+    )
+    rec = recall_table(i_all, gt_i, (1, 10, 100))
+
+    cpu = LannsIndex(cfg, device="cpu").build(corpus)
+    n_cpu = 256
+    _, i_cpu = cpu.query(queries[:n_cpu], topk)
+    ov = overlap(i_all[:n_cpu], i_cpu)
+    emit({"phase": "paper", "n": len(corpus), "d": 128, "queries": len(queries),
+          "config": "2 shards x 4 RH segments, alpha 0.15, scan, l2",
+          "topk": topk, "batch": batch, "datagen_s": gen_s, "build_s": build_s,
+          "build_stats": {k: idx.build_stats[k] for k in
+                          ("segmenter_fit_seconds", "assign_seconds", "build_wall_seconds")},
+          "qps": len(queries) / query_s,
+          "k1_launches_per_batch": launches_query / -(-len(queries) // batch),
+          "split_ms": split,
+          "recall": {f"R@{k}": v for k, v in rec.items()},
+          "cpu_overlap_256": ov})
+    if ov < 0.999:
+        raise AssertionError(f"GPU vs CPU id-set overlap {ov} < 0.999")
+    if rec[100] < 0.5:
+        raise AssertionError(f"recall@100 {rec[100]} is implausibly low")
+    # a main-path shape for the kernel line: partition (0, 0)'s routed batch
+    q_dev = torch.from_numpy(queries[:batch]).cuda()
+    plan = idx._exec.plan(q_dev, topk)
+    sel = plan.sels[0]
+    timing = time_kernel(q_dev.index_select(0, sel).contiguous(), idx.partitions[(0, 0)].vectors,
+                         plan.pstk, "paper: partition (0,0), first batch")
+    # and the ground truth's shape: one 4096-query block over the corpus
+    time_kernel(torch.from_numpy(queries[:4096]).cuda(), torch.from_numpy(corpus).cuda(),
+                topk, "paper: brute-force query block")
+    return {"launches": launches, "timing": timing}
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("MemAvailable not in /proc/meminfo")
+
+
+def sift_like_on_device(n, d, seed, center_seed, n_clusters, out: np.ndarray, chunk=1 << 20):
+    """The sift_like mixture (unit-norm centers, 1/i spectrum, std 0.15)
+    drawn on the card in float32 chunks into the host array ``out``."""
+    spec = 1.0 / torch.arange(1, d + 1, dtype=torch.float32, device="cuda")
+    spec = spec / spec.pow(2).mean().sqrt()
+    g_c = torch.Generator(device="cuda").manual_seed(center_seed)
+    centers = torch.randn(n_clusters, d, generator=g_c, device="cuda") * spec
+    centers = centers / centers.norm(dim=1, keepdim=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        a = torch.randint(0, n_clusters, (m,), generator=g, device="cuda")
+        x = centers[a] + 0.15 * torch.randn(m, d, generator=g, device="cuda") * spec
+        torch.from_numpy(out[s: s + m]).copy_(x)
+
+
+def phase_deployment(n_full: int = 10_000_000, batch: int = 1024, topk: int = 100) -> dict:
+    from repro_torch.core import LannsConfig, LannsIndex, brute_force_topk, recall_at_k
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = 512
+    n = n_full
+    # host: the corpus plus one partition copy; card: the index plus the
+    # brute-force copy of the corpus.  Halve n until both fit.
+    free_dev, _ = torch.cuda.mem_get_info()
+    while n * d * 4 * 1.3 > host_available_bytes() or n * d * 4 * 2.2 > free_dev:
+        n //= 2
+    t0 = time.perf_counter()
+    nc = max(32, n // 300)
+    corpus = np.empty((n, d), np.float32)
+    sift_like_on_device(n, d, seed=0, center_seed=0, n_clusters=nc, out=corpus)
+    n_q = 8 * batch
+    queries = np.empty((n_q, d), np.float32)
+    sift_like_on_device(n_q, d, seed=1, center_seed=0, n_clusters=nc, out=queries)
+    gen_s = time.perf_counter() - t0
+
+    cfg = LannsConfig(num_shards=8, num_segments=8, segmenter="rh", alpha=0.15,
+                      engine="scan", metric="l2")
+    idx = LannsIndex(cfg)
+    t0 = time.perf_counter()
+    idx.build(corpus)
+    build_s = time.perf_counter() - t0
+    resident = sum(p.vectors.numel() * 4 + p.keys.numel() * 8 for p in idx.partitions.values())
+    batches = [queries[s: s + batch] for s in range(0, n_q, batch)]
+    idx.query(batches[0], topk)  # warm-up
+
+    ops.reset_launches()
+    lat = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        for qb in batches:
+            start.record()
+            d_b, i_b = idx.query(qb, topk)
+            end.record()
+            end.synchronize()
+            lat.append(start.elapsed_time(end))
+    check_results(d_b, i_b, batch, topk, n, "deployment")
+    launches_query = ops.KERNEL_LAUNCHES["distance_topk"]
+
+    split = stage_split(idx, batches, topk)
+    plan = idx._exec.plan(torch.from_numpy(batches[0]).cuda(), topk)
+    g = int(np.argmax([s.numel() for s in plan.sels]))
+    timing = time_kernel(
+        plan.queries.index_select(0, plan.sels[g]).contiguous(),
+        idx.partitions[(0, g)].vectors, plan.pstk, f"deployment: partition (0,{g}), first batch",
+    )
+
+    n_rec = 1000
+    ops.reset_launches()
+    _, i_r = idx.query(queries[:n_rec], topk)
+    _, gt_i = brute_force_topk(queries[:n_rec], corpus, topk)
+    launches = launches_query + ops.KERNEL_LAUNCHES["distance_topk"]
+    r100 = recall_at_k(i_r, gt_i, topk)
+    lat = np.asarray(lat)
+    emit({"phase": "deployment", "n": n, "d": d, "reduced": n != n_full,
+          "config": "8 shards x 8 RH segments, alpha 0.15, scan, l2",
+          "topk": topk, "batch": batch, "datagen_s": gen_s, "build_s": build_s,
+          "resident_bytes": resident,
+          "partition_rows_min_max": [min(p.size for p in idx.partitions.values()),
+                                     max(p.size for p in idx.partitions.values())],
+          "qps": batch * len(lat) / (lat.sum() / 1e3),
+          "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+          "batches_timed": len(lat), "split_ms": split,
+          "k1_launches_per_batch": launches_query / len(lat),
+          "recall_at_100_1000q": r100})
+    if r100 < 0.5:
+        raise AssertionError(f"deployment recall@100 {r100} is implausibly low")
+    return {"launches": launches, "timing": timing}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = phase_card()
+    max_err = phase_kernel_vs_plain()
+    paper = phase_paper()
+    deploy = phase_deployment()
+    launches = paper["launches"] + deploy["launches"]
+    if launches <= 0:
+        raise AssertionError("the main path launched K1 no time")
+    t = paper["timing"]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"kernels": [{
+        "name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
+        "replaces": K1_REPLACES, "launches": launches,
+        "max_abs_err": max(max_err, t["max_abs_err"], deploy["timing"]["max_abs_err"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

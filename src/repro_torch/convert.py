@@ -1,0 +1,32 @@
+"""Carry a built index across from the JAX package's numpy state.
+
+LANNS's counterpart of loading weights: the JAX index's config, fitted
+segmenter tree and per-partition corpora become a port ``LannsIndex``
+without refitting or re-partitioning, so both packages query the same
+partitions.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.lanns import LannsConfig, LannsIndex, _Partition
+
+
+def index_from_numpy_state(config: dict, tree, partitions: dict, mips_M2=None, device=None):
+    """Build a port index from numpy state.
+
+    config: ``dataclasses.asdict`` of the reference ``LannsConfig``.
+    tree: ``segmenter.tree_arrays()`` of the reference (None for RS).
+    partitions: ``{(s, g): {"vectors": (n, d) float32, "keys": (n,) int}}``
+    — every (shard, segment) the reference built, empty ones included.
+    mips_M2: the reference's stored ``_mips_M2`` (metric 'mips' only).
+    """
+    cfg = LannsConfig(**config)
+    index = LannsIndex(cfg, device=device)
+    if tree is not None:
+        index.partitioner.segmenter.set_tree(tree["hyperplanes"], tree["split"], tree["lo"], tree["hi"])
+    index.partitioner._fitted = True
+    for (s, g), part in partitions.items():
+        index.partitions[(s, g)] = _Partition(part["vectors"], part["keys"], cfg, index.device)
+    if mips_M2 is not None:
+        index._mips_M2 = float(mips_M2)
+    return index

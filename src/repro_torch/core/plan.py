@@ -1,0 +1,209 @@
+"""Staged query executor: route -> candidates -> merge (scan engine).
+
+The port of ``repro.core.plan`` for ``engine="scan"``, ``quantized="none"``:
+
+    route       virtual-spill segment routing on the device, the compact
+                per-route slot layout and perShardTopK.  The host reads the
+                (B, m) routing mask back once, to size the per-segment
+                launches.
+    candidates  for each (shard, segment) partition, one fused distance +
+                top-k call over the segment's routed queries; results
+                scatter into device candidate buffers (B, S, max_routes,
+                pstk).
+    merge       the merge-path decision (``choose_merge_path``), the
+                dedup-free or two-level merge on the device, then the mips
+                augmented-L2 -> inner-product conversion.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.merge import merge_topk_disjoint, merge_topk_vec, per_shard_topk
+
+
+def knob_groups(topk, ef, B: int):
+    """Normalize (topk, ef) — scalars or per-request arrays — into groups.
+
+    Returns ``(scalar, groups)``: ``scalar`` True with ``[(topk, ef, None)]``
+    when the whole batch shares one knob pair (all-equal arrays collapse
+    here); else ``[(topk, ef, rows)]`` sorted by ``(topk, ef)`` with
+    ``rows`` ascending.  ``ef`` entries <= 0 (or None) mean "index
+    default"; ``topk`` entries must be >= 1.
+    """
+    topk_arr = np.asarray(topk)
+    ef_arr = None if ef is None else np.asarray(ef)
+    mixed = topk_arr.ndim > 0 or (ef_arr is not None and ef_arr.ndim > 0)
+    if not mixed:
+        tk = int(topk_arr)
+        if tk < 1:
+            raise ValueError(f"topk={tk} must be >= 1")
+        efv = None if ef is None else int(ef_arr)
+        if efv is not None and efv <= 0:
+            efv = None
+        return True, [(tk, efv, None)]
+    tks = (
+        np.broadcast_to(topk_arr, (B,)).astype(np.int64)
+        if topk_arr.ndim == 0
+        else topk_arr.astype(np.int64)
+    )
+    if tks.shape != (B,):
+        raise ValueError(f"per-request topk has shape {tks.shape} — expected ({B},)")
+    if B and tks.min() < 1:
+        raise ValueError("per-request topk entries must be >= 1")
+    if ef_arr is None:
+        efs = np.zeros((B,), np.int64)
+    else:
+        if ef_arr.ndim > 0 and ef_arr.shape != (B,):
+            raise ValueError(f"per-request ef has shape {ef_arr.shape} — expected ({B},)")
+        efs = np.maximum(np.broadcast_to(ef_arr, (B,)).astype(np.int64), 0)
+    groups = []
+    for tk, efv in sorted({(int(t), int(e)) for t, e in zip(tks, efs)}):
+        rows = np.nonzero((tks == tk) & (efs == efv))[0]
+        groups.append((tk, efv if efv > 0 else None, rows))
+    if len(groups) == 1:
+        tk, efv, _ = groups[0]
+        return True, [(tk, efv, None)]
+    return False, groups
+
+
+def choose_merge_path(config) -> str:
+    """'disjoint' (dedup-free top-k) vs 'two_level' (dedup merge).
+
+    Virtual spill stores each point in exactly ONE (shard, segment), so scan
+    candidates are disjoint across lanes and need no dedup; physical spill
+    duplicates ids across segments, and the HNSW engine keeps the two-level
+    merge.
+    """
+    if config.engine != "scan" or config.spill != "virtual":
+        return "two_level"
+    return "disjoint"
+
+
+def query_stats(pstk, segments_visited, merge_path="two_level", knob_groups_count=1):
+    """Routing stats — the schema of ``repro.core.plan.query_stats``.  The
+    four ``*_traces`` keys count jit traces there; eager PyTorch keeps no
+    trace cache, so they report -1 (unavailable)."""
+    empty = segments_visited.size == 0
+    return {
+        "per_shard_topk": pstk,
+        "merge_path": merge_path,
+        "knob_groups": knob_groups_count,
+        "mean_segments_visited": 0.0 if empty else float(segments_visited.mean()),
+        "max_segments_visited": 0 if empty else int(segments_visited.max()),
+        "beam_traces": -1,
+        "beam_traces_flat": -1,
+        "scan_traces": -1,
+        "scan_traces_q8": -1,
+    }
+
+
+@dataclasses.dataclass
+class QueryPlan:
+    """Routing result + the batch's topk flowing through the stages."""
+
+    queries: torch.Tensor  # (B, d) fp32 on the device, mips-augmented
+    topk: int
+    pstk: int
+    slot: torch.Tensor  # (B, m) position of segment among the query's routes
+    sels: list  # per-segment routed query rows (device int64)
+    segments_visited: np.ndarray  # (B,) host
+    max_routes: int
+    cand_d: torch.Tensor  # (B, S, max_routes, pstk)
+    cand_i: torch.Tensor
+    merge_path: str = ""
+
+
+class QueryPlanExecutor:
+    """Runs ``QueryPlan``s against one ``LannsIndex``'s partitions."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def plan(self, queries: torch.Tensor, topk: int) -> QueryPlan:
+        """Route the batch and lay out the compact candidate slots."""
+        index = self.index
+        cfg = index.config
+        dev = queries.device
+        B = queries.shape[0]
+        S = cfg.num_shards
+        pstk = per_shard_topk(topk, S, cfg.topk_confidence)
+        seg_mask = index.partitioner.route_queries(queries)  # (B, m)
+        mask_h = seg_mask.cpu().numpy()  # the host's one read of the routing
+        segments_visited = mask_h.sum(axis=1)
+        slot = torch.cumsum(seg_mask.to(torch.int64), dim=1) - 1
+        max_routes = max(int(segments_visited.max()), 1)
+        cand_d = torch.full((B, S, max_routes, pstk), float("inf"), device=dev)
+        cand_i = torch.full((B, S, max_routes, pstk), -1, dtype=torch.int64, device=dev)
+        sels = [
+            torch.from_numpy(np.nonzero(mask_h[:, g])[0]).to(dev)
+            for g in range(cfg.num_segments)
+        ]
+        return QueryPlan(
+            queries=queries, topk=topk, pstk=pstk, slot=slot, sels=sels,
+            segments_visited=segments_visited, max_routes=max_routes,
+            cand_d=cand_d, cand_i=cand_i,
+        )
+
+    def candidates(self, plan: QueryPlan) -> QueryPlan:
+        """Fill the plan's candidate slots; every partition exactly once."""
+        index = self.index
+        cfg = index.config
+        for g in range(cfg.num_segments):
+            sel = plan.sels[g]
+            if sel.numel() == 0:
+                continue
+            q_sel = plan.queries.index_select(0, sel)
+            sl = plan.slot[sel, g]
+            for s in range(cfg.num_shards):
+                part = index.partitions.get((s, g))
+                if part is None or part.size == 0:
+                    continue
+                # the SHARD-level perShardTopK propagates to the segments
+                # (never a per-segment trim) — §5.3.2.
+                d, i = part.search(q_sel, plan.pstk)
+                plan.cand_d[:, s][sel, sl] = d
+                plan.cand_i[:, s][sel, sl] = i
+        return plan
+
+    def merge(self, plan: QueryPlan):
+        """Dedup-free or two-level merge + the mips conversion."""
+        index = self.index
+        cfg = index.config
+        B = plan.queries.shape[0]
+        S = cfg.num_shards
+        plan.merge_path = choose_merge_path(cfg)
+        if plan.merge_path == "disjoint":
+            out_d, out_i = merge_topk_disjoint(
+                plan.cand_d.reshape(B, -1), plan.cand_i.reshape(B, -1), plan.topk
+            )
+        else:
+            # level 1: segment merge inside each shard; level 2: broker
+            shard_d, shard_i = merge_topk_vec(
+                plan.cand_d.reshape(B * S, -1), plan.cand_i.reshape(B * S, -1), plan.pstk
+            )
+            out_d, out_i = merge_topk_vec(
+                shard_d.reshape(B, S * plan.pstk), shard_i.reshape(B, S * plan.pstk),
+                plan.topk,
+            )
+        if cfg.metric == "mips":
+            # augmented-L2 back to negated inner products:
+            #   d^2 = M^2 + |q|^2 - 2<q, x>  =>  -<q, x> = (d^2 - M^2 - |q|^2) / 2
+            q_raw = plan.queries[:, :-1]
+            qn = (q_raw * q_raw).sum(-1)
+            out_d = torch.where(
+                torch.isfinite(out_d),
+                (out_d - index._mips_M2 - qn[:, None]) / 2.0,
+                float("inf"),
+            )
+        return out_d, out_i
+
+    def execute(self, queries: torch.Tensor, topk: int):
+        """route -> candidates -> merge for ONE topk group; device outputs."""
+        plan = self.plan(queries, topk)
+        self.candidates(plan)
+        out_d, out_i = self.merge(plan)
+        return out_d, out_i, plan
