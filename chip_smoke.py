@@ -5,22 +5,41 @@
 
 Phases, each printed as JSON records; any failure exits non-zero:
 
-1. card: ``nvidia-smi`` name and power limit, and the kernel build (nvcc,
-   from the sources in this checkout).
-2. kernel vs plain: K1 (``ops.distance_topk`` on CUDA tensors) against
-   ``ref.distance_topk_blocked`` on the same CUDA tensors, for l2/ip/cos,
-   k in {10, 100, 200}, D in {50, 128, 960, 2048}, ragged B and N,
-   n_valid < N, k > N and N == 0.  rtol = atol = 3e-4; ids equal up to one
-   swap per row between near-equal distances at the k-th place.
+1. card: ``nvidia-smi`` name and power limit, and the kernel build (one
+   nvcc per source, all started together, from the sources in this
+   checkout).
+2. K1 vs plain: ``ops.distance_topk`` on CUDA tensors against
+   ``ref.distance_topk_blocked`` on the same tensors, for l2/ip/cos,
+   k in {10, 100, 200, 400} (k_pad 128/256/512), D in {50, 128, 960, 2048},
+   ragged B and N, n_valid < N, k > N and N == 0.  rtol = atol = 3e-4; ids
+   equal up to one swap per row between near-equal distances at the k-th
+   place.
+2b. K2 vs plain: ``ops.distance_topk_q8`` (int8 codes on the card) against
+   ``ref.distance_topk_q8_blocked`` on the same tensors, for l2/ip/cos,
+   k in {10, 38, 120, 228, 400}, D in {50, 128, 512, 960, 2048}, ragged B
+   and N, n_valid < N, k > N and N == 0.  Scores BIT-EQUAL; ids equal up to
+   swaps between equal scores at the k-th place, and every returned id
+   carries its own plain score.  The torch query codes are bit-equal to the
+   numpy codec's.
 3. paper protocol: SIFT1M shape (paper Table 1), 2 shards x 4 RH segments,
    alpha 0.15, scan engine, l2, topk 100, batches of 1024: build seconds,
    QPS, recall@{1,10,100} against brute force on the card, and the id-set
    overlap with the same index built on the CPU (plain path).
+3b. paper protocol, int8 two-stage scan (``quantized="q8"``,
+   rerank_factor 2, exact re-rank on the card) on phase 3's data: build
+   seconds (encode included), QPS, recall@{1,10,100}, recall relative to
+   phase 3's fp32 ids (>= 0.99), K2 launches per batch, the route / stage-1
+   / rerank / merge split, and the overlap with the CPU q8 index (>= 0.999).
 4. deployment scale: 10M x 512 fp32 in 8 shards x 8 RH segments (halved
    until it fits the host and the card): QPS, p50/p99 batch latency, the
    route/candidates/merge split, recall@100 on 1,000 queries.
-5. the kernel line: launches on the main path (phases 3-4), max error,
-   K1 / plain / library times at a main-path shape, and K1's bound.
+4b. deployment scale, q8, on phase 4's corpus, queries and ground truth,
+   after the fp32 index is freed: QPS, p50/p99, the stage split, recall@100,
+   resident scan bytes (codes + scales + bias + keys), the exact store's
+   device bytes, host encode seconds; one batch with the exact store on the
+   host, checked against the device store.
+5. the kernels line: launches on the main path (phases 3-4b), max error,
+   kernel / plain / library times at a main-path shape, and each bound.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
@@ -39,11 +58,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TOL = 3e-4
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# int8 tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 K1_SOURCE = "src/repro_torch/kernels/csrc/distance_topk.cu"
 K1_REPLACES = "src/repro/kernels/distance_topk.py:84"
+K2_SOURCE = "src/repro_torch/kernels/csrc/distance_topk_q8.cu"
+K2_REPLACES = "src/repro/kernels/distance_topk_q8.py:38"
 
 
 def emit(record: dict) -> None:
@@ -64,10 +87,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare_topk(d_k, i_k, d_p, i_p, label: str) -> tuple[float, int]:
+def compare_topk(d_k, i_k, d_p, i_p, label: str, tol: float = TOL) -> tuple[float, int]:
     """Hold kernel output against the plain version's: finite pattern equal,
-    distances within TOL, ids equal as sets per row up to one swap at the
-    k-th place between near-equal distances.  Returns (max abs error,
+    distances within ``tol``, ids equal as sets per row up to one swap at
+    the k-th place between near-equal distances.  Returns (max abs error,
     rows with a swap)."""
     d_k, i_k, d_p, i_p = (t.cpu().numpy() for t in (d_k, i_k, d_p, i_p))
     if d_k.shape != d_p.shape or i_k.shape != i_p.shape:
@@ -78,7 +101,7 @@ def compare_topk(d_k, i_k, d_p, i_p, label: str) -> tuple[float, int]:
     if not np.array_equal(i_k[~fin], i_p[~fin]) or np.any(i_k[~fin] != -1):
         raise AssertionError(f"{label}: padding ids differ")
     err = float(np.abs(d_k[fin] - d_p[fin]).max()) if fin.any() else 0.0
-    if not np.allclose(d_k[fin], d_p[fin], rtol=TOL, atol=TOL):
+    if not np.allclose(d_k[fin], d_p[fin], rtol=tol, atol=tol):
         raise AssertionError(f"{label}: distances differ, max abs err {err}")
     swaps = 0
     for r in range(d_p.shape[0]):
@@ -91,7 +114,7 @@ def compare_topk(d_k, i_k, d_p, i_p, label: str) -> tuple[float, int]:
         kth = d_p[r][f][-1]
         (extra,) = sk - sp
         d_extra = d_k[r][list(i_k[r]).index(extra)]
-        if abs(d_extra - kth) > TOL * (1 + abs(kth)):
+        if abs(d_extra - kth) > tol * (1 + abs(kth)):
             raise AssertionError(f"{label}: row {r} swap is not a k-th place tie")
         swaps += 1
     return err, swaps
@@ -122,7 +145,7 @@ def phase_kernel_vs_plain() -> float:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for metric in ("l2", "ip", "cos"):
-        for k in (10, 100, 200):
+        for k in (10, 100, 200, 400):
             for D in (50, 128, 960, 2048):
                 cases.append((metric, k, D, 37, 5003, None))
     cases += [
@@ -188,30 +211,219 @@ def time_kernel(q: torch.Tensor, x: torch.Tensor, k: int, label: str) -> dict:
     return rec
 
 
+def compare_q8_topk(d_k, i_k, d_p, i_p, scores_of, label: str) -> tuple[float, int]:
+    """Hold K2's output against its plain version's: scores bit-equal, ids
+    equal up to swaps between equal scores at the k-th place, each row's
+    ids distinct, and every id the kernel returns carries its own plain
+    score (``scores_of(row, ids)``).  Returns (max abs score difference,
+    rows with a tie swap)."""
+    d_k, i_k, d_p, i_p = (t.cpu().numpy() for t in (d_k, i_k, d_p, i_p))
+    if d_k.shape != d_p.shape or i_k.shape != i_p.shape:
+        raise AssertionError(f"{label}: shapes {d_k.shape} vs {d_p.shape}")
+    fin = np.isfinite(d_p)
+    err = float(np.abs(d_k[fin] - d_p[fin]).max()) if fin.any() else 0.0
+    if not np.array_equal(d_k, d_p):
+        raise AssertionError(f"{label}: scores not bit-equal, max abs diff {err}")
+    swaps = 0
+    for r in range(d_k.shape[0]):
+        fin = np.isfinite(d_k[r])
+        if np.any(i_k[r][~fin] != -1) or len(set(i_k[r][fin].tolist())) != fin.sum():
+            raise AssertionError(f"{label}: row {r} padding or duplicate ids")
+        if not fin.any():
+            continue
+        kth = d_k[r][fin][-1]
+        better = d_k[r] < kth
+        if set(i_k[r][better].tolist()) != set(i_p[r][better].tolist()):
+            raise AssertionError(f"{label}: row {r} ids differ above the k-th score")
+        if not np.array_equal(scores_of(r, i_k[r][fin]), d_k[r][fin]):
+            raise AssertionError(f"{label}: row {r} ids do not carry their scores")
+        swaps += int(set(i_k[r][fin].tolist()) != set(i_p[r][fin].tolist()))
+    return err, swaps
+
+
+def q8_case(q: torch.Tensor, x: np.ndarray, metric: str):
+    """Encode ``x`` with the numpy codec, upload it, and quantize ``q`` on
+    the card; checks the torch query codes against the numpy codec's."""
+    from repro_torch.quant.codec import quantize_q8, quantize_queries_q8, quantize_queries_q8_t
+
+    qc = quantize_q8(x, metric)
+    codes = torch.from_numpy(qc.codes).cuda()
+    scales = torch.from_numpy(qc.scales).cuda()
+    norms2 = torch.from_numpy(qc.norms2).cuda()
+    q_eff = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12) if metric == "cos" else q
+    q_codes, q_scale = quantize_queries_q8_t(q_eff, scales)
+    ref_codes, ref_scale = quantize_queries_q8(q_eff.cpu().numpy(), qc.scales)
+    if not (np.array_equal(q_codes.cpu().numpy(), ref_codes)
+            and np.array_equal(q_scale.cpu().numpy(), ref_scale)):
+        raise AssertionError(f"torch query codes differ from the numpy codec ({metric})")
+    return codes, scales, norms2, q_codes, q_scale
+
+
+def phase_q8_kernel_vs_plain() -> float:
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(0)
+    cases = []
+    for metric in ("l2", "ip", "cos"):
+        for k in (10, 38, 120, 228, 400):
+            for D in (50, 128, 512, 960, 2048):
+                cases.append((metric, k, D, 37, 5003, None))
+    cases += [
+        ("l2", 120, 128, 19, 5003, 3001),  # n_valid < N
+        ("ip", 228, 50, 9, 4097, 257),     # n_valid < N, several chunks
+        ("l2", 400, 128, 5, 150, None),    # k > N
+        ("cos", 100, 960, 3, 64, 40),      # k > N and n_valid < N
+        ("l2", 38, 512, 345, 156_773, None),  # deployment partition shape
+        ("ip", 400, 2048, 1000, 50_001, None),  # k_pad 512, many query tiles
+        ("l2", 10, 128, 4, 0, None),       # N == 0
+    ]
+    max_err, swaps = 0.0, 0
+    for metric, k, D, B, N, nv in cases:
+        label = f"q8 {metric} k={k} D={D} B={B} N={N} nv={nv}"
+        q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).cuda()
+        x = rng.standard_normal((N, D)).astype(np.float32)
+        codes, scales, norms2, q_codes, q_scale = q8_case(q, x, metric)
+        corpus = type("Q8", (), {"codes": codes, "scales": scales, "norms2": norms2,
+                                 "metric": metric})()
+        d_w, i_w = ops.distance_topk_q8(q, corpus, k, metric, n_valid=nv)
+        torch.cuda.synchronize()
+        if N == 0:
+            if not (torch.isinf(d_w).all() and (i_w == -1).all()):
+                raise AssertionError("N == 0 must give (inf, -1)")
+            continue
+        metric_k = "l2" if metric == "l2" else "ip"
+        d_k, i_k = ops.distance_topk_q8_codes(q_codes, codes, q_scale, norms2, k, metric_k,
+                                              n_valid=nv)
+        d_p, i_p = ref.distance_topk_q8_blocked(q_codes, codes, q_scale, norms2, k, metric_k,
+                                                n_valid=nv)
+
+        def scores_of(r, ids):
+            idx = torch.from_numpy(ids.astype(np.int64)).cuda()
+            return ref.q8_score_matrix(q_codes[r: r + 1], codes[idx], q_scale[r: r + 1],
+                                       norms2[idx], metric_k)[0].cpu().numpy()
+
+        err, sw = compare_q8_topk(d_k, i_k, d_p, i_p, scores_of, label)
+        max_err, swaps = max(max_err, err), swaps + sw
+        # the wrapper returns the same id sets (k > N pads with (inf, -1))
+        kk = min(k, N)
+        for r_w, r_k in zip(i_w[:, :kk].tolist(), i_k[:, :kk].tolist()):
+            if set(r_w) - {-1} != set(r_k) - {-1}:
+                raise AssertionError(f"{label}: wrapper ids differ from the kernel's")
+    emit({"phase": "q8_kernel_vs_plain", "cases": len(cases), "scores": "bit-equal",
+          "max_abs_err": max_err, "tie_swaps": swaps})
+    return max_err
+
+
+def time_q8_kernel(part, q_lane: torch.Tensor, C: int, label: str) -> dict:
+    """K2 at one main-path shape (a q8 partition and its routed queries):
+    bit-equality with the plain version, K2 / plain / library milliseconds,
+    and K2's bound."""
+    from repro_torch.common.utils import next_pow2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.distance_topk_q8 import distance_topk_q8_cuda
+    from repro_torch.quant.codec import quantize_queries_q8_t
+
+    q_codes, q_scale = quantize_queries_q8_t(q_lane, part.scales)
+    codes, bias = part.codes, part.bias
+    metric_k = "l2" if part.metric == "l2" else "ip"
+    B, D = q_codes.shape
+    N = codes.shape[0]
+    k_pad = max(next_pow2(C), 128)
+    kern = lambda: distance_topk_q8_cuda(q_codes, codes, q_scale, bias, k_pad=k_pad,
+                                         n_valid=N, metric=metric_k)
+    plain = lambda: ref.distance_topk_q8_blocked(q_codes, codes, q_scale, bias, C, metric_k)
+    # yardstick: cuBLASLt int8 GEMM + rescale + torch.topk (rows padded to a
+    # multiple of 8 for _int_mm, outside the timed call)
+    n8 = -(-N // 8) * 8
+    x_t = torch.nn.functional.pad(codes, (0, 0, 0, n8 - N)).T
+    bias8 = torch.nn.functional.pad(bias, (0, n8 - N), value=float("inf"))
+
+    def library():
+        qx = torch._int_mm(q_codes, x_t).to(torch.float32) * q_scale[:, None]
+        s = bias8[None, :] - 2.0 * qx if metric_k == "l2" else -qx
+        return torch.topk(s, C, dim=1, largest=False)
+
+    d_k, i_k = kern()
+    d_p, i_p = plain()
+
+    def scores_of(r, ids):
+        idx = torch.from_numpy(ids.astype(np.int64)).cuda()
+        return ref.q8_score_matrix(q_codes[r: r + 1], codes[idx], q_scale[r: r + 1], bias[idx],
+                                   metric_k)[0].cpu().numpy()
+
+    err, _ = compare_q8_topk(d_k[:, :C], i_k[:, :C], d_p, i_p, scores_of,
+                             f"main-path shape {label}")
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain, iters=5)
+    library_ms = cuda_ms(library)
+    ops_ = 2.0 * B * N * D
+    nbytes = N * D + 4.0 * N + B * D + 4.0 * B + 8.0 * B * k_pad
+    t_ops, t_bytes = ops_ / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    rec = {"shape": label, "B": B, "N": N, "D": D, "k": C, "k_pad": k_pad, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "achieved_tops": ops_ / (ms * 1e-3) / 1e12}
+    emit({"phase": "q8_kernel_timing", **rec})
+    return rec
+
+
 def stage_split(idx, batches, topk: int) -> dict:
     """Mean ms per batch of the executor's route / candidates / merge
     stages, each closed by a CUDA event; "host_other" is the rest of a
-    whole ``query`` call (upload, result copy, Python)."""
+    whole ``query`` call (upload, result copy, Python).  For a q8 index the
+    candidates stage is split into stage 1 and the exact re-rank, timed by
+    a host clock that synchronizes the card (so in these batches host and
+    device work do not overlap), and the K2 launches of each batch are
+    checked against its routed partitions with C < n."""
+    from repro_torch.kernels import ops
+
     ex = idx._exec
+    cfg = idx.config
+    q8 = cfg.quantized == "q8"
     split = {"route": 0.0, "candidates": 0.0, "merge": 0.0, "host_other": 0.0}
+    if q8:
+        split.update(stage1=0.0, rerank=0.0)
+        ex.rerank_clock = lambda: (torch.cuda.synchronize(), time.perf_counter())[1]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    for qb in batches:
-        ev[4].record()
-        idx.query(qb, topk)
-        ev[5].record()
-        q_dev = torch.from_numpy(qb).cuda()
-        ev[0].record()
-        plan = ex.plan(q_dev, topk)
-        ev[1].record()
-        ex.candidates(plan)
-        ev[2].record()
-        ex.merge(plan)
-        ev[3].record()
-        ev[3].synchronize()
-        for name, a, b in (("route", 0, 1), ("candidates", 1, 2), ("merge", 2, 3)):
-            split[name] += ev[a].elapsed_time(ev[b]) / len(batches)
-        split["host_other"] += (ev[4].elapsed_time(ev[5]) - ev[0].elapsed_time(ev[3])) / len(batches)
+    try:
+        for qb in batches:
+            ev[4].record()
+            idx.query(qb, topk)
+            ev[5].record()
+            q_dev = torch.from_numpy(qb).cuda()
+            ev[0].record()
+            plan = ex.plan(q_dev, topk)
+            ev[1].record()
+            ops.reset_launches()
+            ex.candidates(plan)
+            ev[2].record()
+            launched = ops.KERNEL_LAUNCHES["distance_topk_q8"]
+            ex.merge(plan)
+            ev[3].record()
+            ev[3].synchronize()
+            for name, a, b in (("route", 0, 1), ("candidates", 1, 2), ("merge", 2, 3)):
+                split[name] += ev[a].elapsed_time(ev[b]) / len(batches)
+            split["host_other"] += (ev[4].elapsed_time(ev[5]) - ev[0].elapsed_time(ev[3])) / len(batches)
+            if q8:
+                rr_ms = 1e3 * plan.rerank_s
+                split["rerank"] += rr_ms / len(batches)
+                split["stage1"] += (ev[1].elapsed_time(ev[2]) - rr_ms) / len(batches)
+                C = cfg.rerank_factor * plan.pstk
+                want = sum(1 for (s, g), p in idx.partitions.items()
+                           if plan.sels[g].numel() and C < p.size)
+                if launched != want:
+                    raise AssertionError(f"K2 launched {launched} times for {want} partitions")
+    finally:
+        ex.rerank_clock = None
     return split
+
+
+def build_split(idx) -> dict:
+    """Seconds of the build's fit / assign / partition stages (the last
+    includes the int8 encode of a q8 index, also given on its own)."""
+    keys = ("segmenter_fit_seconds", "assign_seconds", "build_wall_seconds", "q8_encode_seconds")
+    return {k: idx.build_stats[k] for k in keys if k in idx.build_stats}
 
 
 def overlap(a: np.ndarray, b: np.ndarray) -> float:
@@ -279,8 +491,7 @@ def phase_paper(n: int = 1_000_000, n_queries: int = 10_000, batch: int = 1024,
     emit({"phase": "paper", "n": len(corpus), "d": 128, "queries": len(queries),
           "config": "2 shards x 4 RH segments, alpha 0.15, scan, l2",
           "topk": topk, "batch": batch, "datagen_s": gen_s, "build_s": build_s,
-          "build_stats": {k: idx.build_stats[k] for k in
-                          ("segmenter_fit_seconds", "assign_seconds", "build_wall_seconds")},
+          "build_stats": build_split(idx),
           "qps": len(queries) / query_s,
           "k1_launches_per_batch": launches_query / -(-len(queries) // batch),
           "split_ms": split,
@@ -294,12 +505,79 @@ def phase_paper(n: int = 1_000_000, n_queries: int = 10_000, batch: int = 1024,
     q_dev = torch.from_numpy(queries[:batch]).cuda()
     plan = idx._exec.plan(q_dev, topk)
     sel = plan.sels[0]
-    timing = time_kernel(q_dev.index_select(0, sel).contiguous(), idx.partitions[(0, 0)].vectors,
-                         plan.pstk, "paper: partition (0,0), first batch")
+    q_sel = q_dev.index_select(0, sel).contiguous()
+    timing = time_kernel(q_sel, idx.partitions[(0, 0)].vectors, plan.pstk,
+                         "paper: partition (0,0), first batch")
+    time_kernel(q_sel, idx.partitions[(0, 0)].vectors, 400, "paper: partition (0,0), k_pad 512")
     # and the ground truth's shape: one 4096-query block over the corpus
     time_kernel(torch.from_numpy(queries[:4096]).cuda(), torch.from_numpy(corpus).cuda(),
                 topk, "paper: brute-force query block")
-    return {"launches": launches, "timing": timing}
+    return {"launches": launches, "timing": timing,
+            "data": (corpus, queries, gt_i, i_all)}
+
+
+def phase_paper_q8(corpus, queries, gt_i, fp32_ids, batch: int = 1024, topk: int = 100) -> dict:
+    from repro_torch.core import LannsConfig, LannsIndex, recall_at_k, recall_table
+    from repro_torch.kernels import ops
+
+    cfg = LannsConfig(num_shards=2, num_segments=4, segmenter="rh", alpha=0.15,
+                      engine="scan", metric="l2", quantized="q8", rerank_factor=2,
+                      rerank_store="auto")
+    idx = LannsIndex(cfg)
+    t0 = time.perf_counter()
+    idx.build(corpus)
+    build_s = time.perf_counter() - t0
+    idx.query(queries[:batch], topk)  # warm-up: exact-store upload, first launch
+
+    ops.reset_launches()
+    ids, dists = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(queries), batch):
+        d, i = idx.query(queries[s: s + batch], topk)
+        dists.append(d)
+        ids.append(i)
+    query_s = time.perf_counter() - t0
+    launches = dict(ops.KERNEL_LAUNCHES)
+    if launches["distance_topk_q8"] <= 0 or launches["distance_topk"] != 0:
+        raise AssertionError(f"paper q8: launches {launches}")
+    d_all, i_all = np.concatenate(dists), np.concatenate(ids)
+    check_results(d_all, i_all, len(queries), topk, len(corpus), "paper q8")
+    split = stage_split(
+        idx, [queries[s: s + batch] for s in range(0, min(8 * batch, len(queries)), batch)], topk
+    )
+    rec = recall_table(i_all, gt_i, (1, 10, 100))
+    rel = recall_at_k(i_all, fp32_ids, topk)
+
+    cpu = LannsIndex(cfg, device="cpu").build(corpus)
+    n_cpu = 256
+    _, i_cpu = cpu.query(queries[:n_cpu], topk)
+    ov = overlap(i_all[:n_cpu], i_cpu)
+    ex = idx._q8_executor()
+    emit({"phase": "paper_q8", "n": len(corpus), "d": corpus.shape[1], "queries": len(queries),
+          "config": "2 shards x 4 RH segments, alpha 0.15, scan, l2, q8, rerank_factor 2, "
+                    f"rerank_store auto ({ex.rerank_store})",
+          "topk": topk, "batch": batch, "build_s": build_s,
+          "q8_encode_s": idx.build_stats["q8_encode_seconds"],
+          "qps": len(queries) / query_s,
+          "k2_launches_per_batch": launches["distance_topk_q8"] / -(-len(queries) // batch),
+          "split_ms": split,
+          "recall": {f"R@{k}": v for k, v in rec.items()},
+          "recall_rel_fp32_at_100": rel, "cpu_overlap_256": ov,
+          "resident_scan_bytes": ex.resident_bytes(),
+          "exact_store_device_bytes": ex.exact_store_device_bytes()})
+    if rel < 0.99:
+        raise AssertionError(f"q8 recall relative to fp32 {rel} < 0.99")
+    if ov < 0.999:
+        raise AssertionError(f"q8 GPU vs CPU id-set overlap {ov} < 0.999")
+    # a main-path shape for the kernel line: partition (0, 0)'s routed batch
+    q_dev = torch.from_numpy(queries[:batch]).cuda()
+    plan = idx._exec.plan(q_dev, topk)
+    q_sel = q_dev.index_select(0, plan.sels[0])
+    timing = time_q8_kernel(ex.parts[(0, 0)], q_sel, cfg.rerank_factor * plan.pstk,
+                            "paper q8: partition (0,0), first batch")
+    time_q8_kernel(ex.parts[(0, 0)], q_sel, 400, "paper q8: partition (0,0), k_pad 512")
+    return {"launches": launches["distance_topk_q8"], "timing": timing}
 
 
 def host_available_bytes() -> int:
@@ -384,11 +662,14 @@ def phase_deployment(n_full: int = 10_000_000, batch: int = 1024, topk: int = 10
     _, i_r = idx.query(queries[:n_rec], topk)
     _, gt_i = brute_force_topk(queries[:n_rec], corpus, topk)
     launches = launches_query + ops.KERNEL_LAUNCHES["distance_topk"]
+    if ops.KERNEL_LAUNCHES["distance_topk_q8"] != 0:
+        raise AssertionError("the fp32 path launched K2")
     r100 = recall_at_k(i_r, gt_i, topk)
     lat = np.asarray(lat)
     emit({"phase": "deployment", "n": n, "d": d, "reduced": n != n_full,
           "config": "8 shards x 8 RH segments, alpha 0.15, scan, l2",
           "topk": topk, "batch": batch, "datagen_s": gen_s, "build_s": build_s,
+          "build_stats": build_split(idx),
           "resident_bytes": resident,
           "partition_rows_min_max": [min(p.size for p in idx.partitions.values()),
                                      max(p.size for p in idx.partitions.values())],
@@ -399,7 +680,95 @@ def phase_deployment(n_full: int = 10_000_000, batch: int = 1024, topk: int = 10
           "recall_at_100_1000q": r100})
     if r100 < 0.5:
         raise AssertionError(f"deployment recall@100 {r100} is implausibly low")
+    return {"launches": launches, "timing": timing,
+            "data": (corpus, queries, gt_i, i_r, n_full)}
+
+
+def phase_deployment_q8(corpus, queries, gt_i, fp32_ids, n_full: int, batch: int = 1024,
+                        topk: int = 100) -> dict:
+    from repro_torch.core import LannsConfig, LannsIndex, recall_at_k
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 4's fp32 index is gone
+    n, d = corpus.shape
+    cfg = LannsConfig(num_shards=8, num_segments=8, segmenter="rh", alpha=0.15,
+                      engine="scan", metric="l2", quantized="q8", rerank_factor=2,
+                      rerank_store="auto")
+    idx = LannsIndex(cfg)
+    t0 = time.perf_counter()
+    idx.build(corpus)
+    build_s = time.perf_counter() - t0
+    ex = idx._q8_executor()
+    batches = [queries[s: s + batch] for s in range(0, len(queries), batch)]
+    t0 = time.perf_counter()
+    idx.query(batches[0], topk)  # warm-up: uploads the exact store
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    ops.reset_launches()
+    lat = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        for qb in batches:
+            start.record()
+            d_b, i_b = idx.query(qb, topk)
+            end.record()
+            end.synchronize()
+            lat.append(start.elapsed_time(end))
+    launches_timed = ops.KERNEL_LAUNCHES["distance_topk_q8"]
+    if launches_timed <= 0 or ops.KERNEL_LAUNCHES["distance_topk"] != 0:
+        raise AssertionError(f"deployment q8: launches {dict(ops.KERNEL_LAUNCHES)}")
+    check_results(d_b, i_b, batch, topk, n, "deployment q8")
+    split = stage_split(idx, batches, topk)
+
+    # one batch with the exact store on the host (the footprint file's
+    # placement), against the device store
+    d_dev, i_dev = idx.query(batches[0], topk)
+    ex.rerank_store = "host"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_host, i_host = idx.query(batches[0], topk)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        ex.rerank_store = "device"
+    err, host_swaps = compare_topk(torch.from_numpy(d_host), torch.from_numpy(i_host),
+                                   torch.from_numpy(d_dev), torch.from_numpy(i_dev),
+                                   "deployment q8: host vs device store", tol=1e-4)
+
+    plan = idx._exec.plan(torch.from_numpy(batches[0]).cuda(), topk)
+    g = int(np.argmax([s.numel() for s in plan.sels]))
+    timing = time_q8_kernel(ex.parts[(0, g)], plan.queries.index_select(0, plan.sels[g]),
+                            cfg.rerank_factor * plan.pstk,
+                            f"deployment q8: partition (0,{g}), first batch")
+
+    n_rec = len(gt_i)
+    ops.reset_launches()
+    _, i_r = idx.query(queries[:n_rec], topk)
+    launches = launches_timed + ops.KERNEL_LAUNCHES["distance_topk_q8"]
+    r100 = recall_at_k(i_r, gt_i, topk)
+    rel = recall_at_k(i_r, fp32_ids, topk)
+    lat = np.asarray(lat)
+    emit({"phase": "deployment_q8", "n": n, "d": d, "reduced": n != n_full,
+          "config": "8 shards x 8 RH segments, alpha 0.15, scan, l2, q8, rerank_factor 2, "
+                    f"rerank_store auto ({ex.rerank_store})",
+          "topk": topk, "batch": batch, "build_s": build_s,
+          "q8_encode_s": idx.build_stats["q8_encode_seconds"], "build_stats": build_split(idx),
+          "warmup_query_s": warm_s,
+          "resident_scan_bytes": ex.resident_bytes(),
+          "exact_store_device_bytes": ex.exact_store_device_bytes(),
+          "qps": batch * len(lat) / (lat.sum() / 1e3),
+          "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+          "batches_timed": len(lat), "split_ms": split,
+          "k2_launches_per_batch": launches_timed / len(lat),
+          "host_store_batch_ms": host_ms, "host_vs_device_max_abs_err": err,
+          "host_vs_device_tie_swaps": host_swaps,
+          "recall_at_100_1000q": r100, "recall_rel_fp32_at_100_1000q": rel})
+    if r100 < 0.5:
+        raise AssertionError(f"deployment q8 recall@100 {r100} is implausibly low")
     return {"launches": launches, "timing": timing}
+
 
 
 def main() -> int:
@@ -410,22 +779,40 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    smi = phase_card()
-    max_err = phase_kernel_vs_plain()
-    paper = phase_paper()
-    deploy = phase_deployment()
-    launches = paper["launches"] + deploy["launches"]
-    if launches <= 0:
-        raise AssertionError("the main path launched K1 no time")
-    t = paper["timing"]
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    emit({"kernels": [{
-        "name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max(max_err, t["max_abs_err"], deploy["timing"]["max_abs_err"]),
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-    }]})
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("1", phase_card)
+    max_err = timed("2", phase_kernel_vs_plain)
+    max_err_q8 = timed("2b", phase_q8_kernel_vs_plain)
+    paper = timed("3", phase_paper)
+    paper_q8 = timed("3b", phase_paper_q8, *paper.pop("data"))
+    deploy = timed("4", phase_deployment)
+    deploy_q8 = timed("4b", phase_deployment_q8, *deploy.pop("data"))
+    k1_launches = paper["launches"] + deploy["launches"]
+    k2_launches = paper_q8["launches"] + deploy_q8["launches"]
+    if k1_launches <= 0 or k2_launches <= 0:
+        raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
+                             f"K2 {k2_launches}")
+    t1, t2 = paper["timing"], paper_q8["timing"]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
+    emit({"kernels": [
+        {"name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": k1_launches,
+         "max_abs_err": max(max_err, t1["max_abs_err"], deploy["timing"]["max_abs_err"]),
+         "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
+         "bound_by": t1["bound_by"], "library_ms": t1["library_ms"]},
+        {"name": "distance_topk_q8", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_REPLACES, "launches": k2_launches,
+         "max_abs_err": max(max_err_q8, t2["max_abs_err"], deploy_q8["timing"]["max_abs_err"]),
+         "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
+         "bound_by": t2["bound_by"], "library_ms": t2["library_ms"]},
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,7 +8,8 @@ partitions.
 
 from __future__ import annotations
 
-from repro_torch.core.lanns import LannsConfig, LannsIndex, _Partition
+from repro_torch.core.lanns import LannsConfig, LannsIndex, _Partition, _scan_metric
+from repro_torch.quant.codec import Q8Corpus
 
 
 def index_from_numpy_state(config: dict, tree, partitions: dict, mips_M2=None, device=None):
@@ -17,7 +18,10 @@ def index_from_numpy_state(config: dict, tree, partitions: dict, mips_M2=None, d
     config: ``dataclasses.asdict`` of the reference ``LannsConfig``.
     tree: ``segmenter.tree_arrays()`` of the reference (None for RS).
     partitions: ``{(s, g): {"vectors": (n, d) float32, "keys": (n,) int}}``
-    — every (shard, segment) the reference built, empty ones included.
+    — every (shard, segment) the reference built, empty ones included.  For
+    ``quantized="q8"`` an entry may add ``"q8_codes"``, ``"q8_scales"`` and
+    ``"q8_norms2"`` (the reference partition's ``q8`` fields), so the port
+    scans the reference's own codes; without them the port encodes.
     mips_M2: the reference's stored ``_mips_M2`` (metric 'mips' only).
     """
     cfg = LannsConfig(**config)
@@ -26,7 +30,14 @@ def index_from_numpy_state(config: dict, tree, partitions: dict, mips_M2=None, d
         index.partitioner.segmenter.set_tree(tree["hyperplanes"], tree["split"], tree["lo"], tree["hi"])
     index.partitioner._fitted = True
     for (s, g), part in partitions.items():
-        index.partitions[(s, g)] = _Partition(part["vectors"], part["keys"], cfg, index.device)
+        q8 = None
+        if cfg.quantized == "q8" and part.get("q8_codes") is not None:
+            q8 = Q8Corpus(
+                codes=part["q8_codes"], scales=part["q8_scales"], norms2=part["q8_norms2"],
+                metric=_scan_metric(cfg),
+            )
+        index.partitions[(s, g)] = _Partition(part["vectors"], part["keys"], cfg, index.device,
+                                              q8=q8)
     if mips_M2 is not None:
         index._mips_M2 = float(mips_M2)
     return index

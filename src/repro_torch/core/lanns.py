@@ -7,17 +7,20 @@
      distance + top-k kernel, merge (§5.3.2).  A query batch is uploaded
      once; the host reads the routing mask once and the results once.
 
-Ported: ``engine="scan"`` with ``quantized="none"``, metrics l2/ip/cos/mips,
-virtual and physical spill, per-request ``topk`` arrays.  Not yet ported
-(each raises ``NotImplementedError`` naming its ROADMAP item): the HNSW
-engine, int8 quantized serving, telemetry, the build process pool and
-persistence.
+Ported: ``engine="scan"`` with ``quantized="none"`` (fp32 scan, K1) and
+``quantized="q8"`` (int8 two-stage scan: K2 candidates, exact fp32
+re-rank), metrics l2/ip/cos/mips, virtual and physical spill, per-request
+``topk`` arrays.  Not yet ported (each raises ``NotImplementedError``
+naming its ROADMAP item): the HNSW engine (and with it the q8 beam),
+telemetry, the build process pool and persistence.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -29,6 +32,8 @@ from repro_torch.core.plan import QueryPlanExecutor, choose_merge_path, knob_gro
 from repro_torch.core.segmenter import SegmenterConfig
 from repro_torch.core.sharding import TwoLevelPartitioner
 from repro_torch.kernels import ops
+from repro_torch.quant.codec import Q8Corpus, quantize_q8
+from repro_torch.quant.twostage import QuantizedScanExecutor, _Q8Partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +75,22 @@ class LannsConfig:
         )
 
 
+def _scan_metric(config: LannsConfig) -> str:
+    """The metric partitions are scanned and encoded with: mips rows are
+    augmented at build and served as l2."""
+    return "l2" if config.metric == "mips" else config.metric
+
+
+def _host_map(fn, items: list) -> list:
+    """``[fn(x) for x in items]`` on host threads, one item per thread at a
+    time: the partition row gathers and int8 encodes are numpy array loops,
+    which release the GIL, and each result is the same as a serial call's."""
+    if not items:
+        return []
+    with ThreadPoolExecutor(max_workers=min(len(items), os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, items))
+
+
 def _summarize_seconds(secs: list) -> dict:
     if not secs:
         return {}
@@ -83,21 +104,38 @@ def _summarize_seconds(secs: list) -> dict:
 
 
 class _Partition:
-    """A built (shard, segment) scan engine: its corpus and keys, resident
-    on the device."""
+    """A built (shard, segment) scan engine.
 
-    def __init__(self, vectors, keys, config: LannsConfig, device: torch.device):
+    fp32 (``quantized="none"``): the corpus and keys are resident on the
+    device.  q8: the keys are, and ``q8`` holds the int8 encoding; the fp32
+    rows stay on the host (``host_vectors``) for the exact re-rank store and
+    are never uploaded for scanning.
+    """
+
+    def __init__(self, vectors, keys, config: LannsConfig, device: torch.device,
+                 q8: Optional[Q8Corpus] = None):
         self.config = config
-        self.vectors = torch.as_tensor(np.asarray(vectors, np.float32)).to(device)
+        vectors = np.asarray(vectors, np.float32)
+        self.n = vectors.shape[0]
         self.keys = torch.as_tensor(np.asarray(keys, np.int64)).to(device)
+        self.vectors = None
+        self.host_vectors = None
+        self.q8 = None
+        if config.quantized == "q8":
+            self.host_vectors = vectors
+            if self.n > 0:
+                self.q8 = q8 if q8 is not None else quantize_q8(vectors, _scan_metric(config))
+        else:
+            self.vectors = torch.as_tensor(vectors).to(device)
 
     @property
     def size(self) -> int:
-        return self.vectors.shape[0]
+        return self.n
 
     def search(self, queries: torch.Tensor, k: int):
         """(dists (B, k) float32, keys (B, k) int64) on the device; (inf, -1)
-        past the partition's size."""
+        past the partition's size.  fp32 partitions only: q8 partitions are
+        searched by the two-stage executor."""
         B = queries.shape[0]
         dev = queries.device
         if self.size == 0:
@@ -106,8 +144,7 @@ class _Partition:
                 torch.full((B, k), -1, dtype=torch.int64, device=dev),
             )
         k_eff = min(k, self.size)
-        metric = "l2" if self.config.metric == "mips" else self.config.metric
-        d, i = ops.distance_topk(queries, self.vectors, k_eff, metric)
+        d, i = ops.distance_topk(queries, self.vectors, k_eff, _scan_metric(self.config))
         i = i.to(torch.int64)
         i = torch.where(i >= 0, self.keys[i.clamp_min(0)], -1)
         if k_eff < k:
@@ -134,10 +171,6 @@ class LannsIndex:
             )
         if config.engine != "scan":
             raise ValueError(f"engine={config.engine!r} — expected 'hnsw' or 'scan'")
-        if config.quantized == "q8":
-            raise NotImplementedError(
-                "quantized='q8' is not ported yet (ROADMAP 'Modules to port' item 7)"
-            )
         self.config = config
         self.device = resolve_device(device)
         self.partitioner = TwoLevelPartitioner(
@@ -145,12 +178,28 @@ class LannsIndex:
         )
         self.partitions: dict[tuple, _Partition] = {}
         self.build_stats: dict = {}
+        self._q8_exec = None  # the two-stage executor, built at first use
         self._exec = QueryPlanExecutor(self)
 
     def attach_telemetry(self, telemetry) -> "LannsIndex":
         raise NotImplementedError(
             "telemetry is not ported yet (ROADMAP 'Modules to port' item 8)"
         )
+
+    def _q8_executor(self):
+        """Two-stage quantized scan executor over every non-empty partition
+        (codes upload once, at the first call, and stay on the device)."""
+        if self._q8_exec is None:
+            metric = _scan_metric(self.config)
+            parts = {
+                sg: _Q8Partition(p.q8, p.host_vectors, p.keys, metric, self.device)
+                for sg, p in sorted(self.partitions.items())
+                if p.size > 0 and p.q8 is not None
+            }
+            self._q8_exec = QuantizedScanExecutor(
+                parts, metric, self.config.rerank_factor, self.config.rerank_store, self.device
+            )
+        return self._q8_exec
 
     # -- build ---------------------------------------------------------------
 
@@ -162,7 +211,8 @@ class LannsIndex:
 
     def build(self, data: np.ndarray, keys: Optional[np.ndarray] = None, *, workers: int = 0):
         """Partition ``data`` (host numpy) and upload each (shard, segment)
-        corpus to the device once.  In-process only: ``workers > 0`` raises."""
+        corpus to the device once — for ``quantized="q8"`` its int8 codes,
+        encoded here on the host.  In-process only: ``workers > 0`` raises."""
         if workers:
             raise NotImplementedError(
                 "build(workers>0): the process pool is not ported yet "
@@ -184,15 +234,31 @@ class LannsIndex:
         with Timer() as t_assign:
             assignment = self.partitioner.assign(data, keys)
         per_partition_seconds = {}
+        sgs = [(s, g) for s in range(cfg.num_shards) for g in range(cfg.num_segments)]
         with Timer() as t_build:
-            for s in range(cfg.num_shards):
-                for g in range(cfg.num_segments):
-                    rows = assignment.rows[s][g]
-                    t0 = time.perf_counter()
-                    self.partitions[(s, g)] = _Partition(data[rows], keys[rows], cfg, self.device)
-                    per_partition_seconds[f"{s}/{g}"] = time.perf_counter() - t0
+            vecs = dict(zip(sgs, _host_map(lambda sg: data[assignment.rows[sg[0]][sg[1]]], sgs)))
+            q8s = {}
+            with Timer() as t_encode:
+                if cfg.quantized == "q8":
+                    todo = [sg for sg in sgs if len(vecs[sg])]
+                    q8s = dict(zip(todo, _host_map(
+                        lambda sg: quantize_q8(vecs[sg], _scan_metric(cfg)), todo
+                    )))
+            for s, g in sgs:
+                rows = assignment.rows[s][g]
+                t0 = time.perf_counter()
+                self.partitions[(s, g)] = _Partition(
+                    vecs[(s, g)], keys[rows], cfg, self.device, q8=q8s.get((s, g))
+                )
+                per_partition_seconds[f"{s}/{g}"] = time.perf_counter() - t0
+            del vecs
+            self._q8_exec = None
+            if cfg.quantized == "q8":
+                self._q8_executor()  # upload the codes now, not at the first query
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        if cfg.quantized == "q8":
+            self.build_stats["q8_encode_seconds"] = t_encode.seconds
         self.build_stats.update(
             assign_seconds=t_assign.seconds,
             build_wall_seconds=t_build.seconds,

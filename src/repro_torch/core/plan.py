@@ -1,18 +1,20 @@
 """Staged query executor: route -> candidates -> merge (scan engine).
 
-The port of ``repro.core.plan`` for ``engine="scan"``, ``quantized="none"``:
+The port of ``repro.core.plan`` for ``engine="scan"``, fp32 and q8:
 
     route       virtual-spill segment routing on the device, the compact
                 per-route slot layout and perShardTopK.  The host reads the
                 (B, m) routing mask back once, to size the per-segment
                 launches.
-    candidates  for each (shard, segment) partition, one fused distance +
-                top-k call over the segment's routed queries; results
-                scatter into device candidate buffers (B, S, max_routes,
-                pstk).
+    candidates  fp32: for each (shard, segment) partition, one fused
+                distance + top-k call (K1) over the segment's routed
+                queries.  q8: the two-stage executor (``quant/twostage.py``:
+                K2 candidates, exact re-rank).  Results scatter into device
+                candidate buffers (B, S, max_routes, lane_width).
     merge       the merge-path decision (``choose_merge_path``), the
-                dedup-free or two-level merge on the device, then the mips
-                augmented-L2 -> inner-product conversion.
+                dedup-free or two-level merge on the device, the q8 ||q||^2
+                add-back, then the mips augmented-L2 -> inner-product
+                conversion.
 """
 
 from __future__ import annotations
@@ -70,16 +72,22 @@ def knob_groups(topk, ef, B: int):
     return False, groups
 
 
-def choose_merge_path(config) -> str:
+def choose_merge_path(config, handled=None, partitions=None) -> str:
     """'disjoint' (dedup-free top-k) vs 'two_level' (dedup merge).
 
     Virtual spill stores each point in exactly ONE (shard, segment), so scan
     candidates are disjoint across lanes and need no dedup; physical spill
     duplicates ids across segments, and the HNSW engine keeps the two-level
-    merge.
+    merge.  A q8 scan batch takes 'disjoint' only when the two-stage
+    executor handled EVERY non-empty partition (its lanes are
+    candidate-wide); pass ``handled``/``partitions`` to apply that rule.
     """
     if config.engine != "scan" or config.spill != "virtual":
         return "two_level"
+    if config.quantized == "q8" and handled is not None and partitions is not None:
+        nonempty = {sg for sg, p in partitions.items() if p.size > 0}
+        if not handled >= nonempty:
+            return "two_level"
     return "disjoint"
 
 
@@ -108,20 +116,30 @@ class QueryPlan:
     queries: torch.Tensor  # (B, d) fp32 on the device, mips-augmented
     topk: int
     pstk: int
+    lane_width: int  # candidate slots per (query, shard, route) lane
     slot: torch.Tensor  # (B, m) position of segment among the query's routes
     sels: list  # per-segment routed query rows (device int64)
     segments_visited: np.ndarray  # (B,) host
     max_routes: int
-    cand_d: torch.Tensor  # (B, S, max_routes, pstk)
+    cand_d: torch.Tensor  # (B, S, max_routes, lane_width)
     cand_i: torch.Tensor
+    handled: set = dataclasses.field(default_factory=set)
     merge_path: str = ""
+    # the q8 exact re-rank's share of the candidates stage, accumulated only
+    # while ``QueryPlanExecutor.rerank_clock`` is set
+    rerank_s: float = 0.0
 
 
 class QueryPlanExecutor:
-    """Runs ``QueryPlan``s against one ``LannsIndex``'s partitions."""
+    """Runs ``QueryPlan``s against one ``LannsIndex``'s partitions.
+
+    ``rerank_clock``: None (the default) reads no clock; a callable makes
+    the q8 candidates stage time its exact re-rank with it (``plan.rerank_s``).
+    """
 
     def __init__(self, index):
         self.index = index
+        self.rerank_clock = None
 
     def plan(self, queries: torch.Tensor, topk: int) -> QueryPlan:
         """Route the batch and lay out the compact candidate slots."""
@@ -136,14 +154,24 @@ class QueryPlanExecutor:
         segments_visited = mask_h.sum(axis=1)
         slot = torch.cumsum(seg_mask.to(torch.int64), dim=1) - 1
         max_routes = max(int(segments_visited.max()), 1)
-        cand_d = torch.full((B, S, max_routes, pstk), float("inf"), device=dev)
-        cand_i = torch.full((B, S, max_routes, pstk), -1, dtype=torch.int64, device=dev)
+        # q8 scan lanes stay candidate-wide (rerank_factor * pstk exactly
+        # scored rows each) so the dedup-free merge sees every candidate;
+        # all other lanes are trimmed to pstk.
+        lane_w = pstk
+        if cfg.quantized == "q8" and cfg.spill == "virtual":
+            lane_w = min(
+                cfg.rerank_factor * pstk,
+                max((p.size for p in index.partitions.values()), default=pstk),
+            )
+            lane_w = max(lane_w, pstk)
+        cand_d = torch.full((B, S, max_routes, lane_w), float("inf"), device=dev)
+        cand_i = torch.full((B, S, max_routes, lane_w), -1, dtype=torch.int64, device=dev)
         sels = [
             torch.from_numpy(np.nonzero(mask_h[:, g])[0]).to(dev)
             for g in range(cfg.num_segments)
         ]
         return QueryPlan(
-            queries=queries, topk=topk, pstk=pstk, slot=slot, sels=sels,
+            queries=queries, topk=topk, pstk=pstk, lane_width=lane_w, slot=slot, sels=sels,
             segments_visited=segments_visited, max_routes=max_routes,
             cand_d=cand_d, cand_i=cand_i,
         )
@@ -152,6 +180,16 @@ class QueryPlanExecutor:
         """Fill the plan's candidate slots; every partition exactly once."""
         index = self.index
         cfg = index.config
+        if cfg.quantized == "q8":  # every non-empty partition is a q8 one
+            clock = self.rerank_clock
+            acc = None if clock is None else [0.0]
+            plan.handled |= index._q8_executor().run(
+                plan.queries, plan.sels, plan.slot, plan.cand_d, plan.cand_i, plan.pstk,
+                lane_width=plan.lane_width, rerank_s=acc, clock=clock,
+            )
+            if acc is not None:
+                plan.rerank_s += acc[0]
+            return plan
         for g in range(cfg.num_segments):
             sel = plan.sels[g]
             if sel.numel() == 0:
@@ -175,7 +213,7 @@ class QueryPlanExecutor:
         cfg = index.config
         B = plan.queries.shape[0]
         S = cfg.num_shards
-        plan.merge_path = choose_merge_path(cfg)
+        plan.merge_path = choose_merge_path(cfg, plan.handled, index.partitions)
         if plan.merge_path == "disjoint":
             out_d, out_i = merge_topk_disjoint(
                 plan.cand_d.reshape(B, -1), plan.cand_i.reshape(B, -1), plan.topk
@@ -189,6 +227,12 @@ class QueryPlanExecutor:
                 shard_d.reshape(B, S * plan.pstk), shard_i.reshape(B, S * plan.pstk),
                 plan.topk,
             )
+        if cfg.quantized == "q8" and cfg.metric in ("l2", "mips"):
+            # q8 lane distances omit the per-query ||q||^2 constant (it
+            # cannot change any within-query ordering); restore true squared
+            # distances with one (B, topk) add.
+            qn8 = (plan.queries * plan.queries).sum(-1)
+            out_d = torch.where(torch.isfinite(out_d), out_d + qn8[:, None], out_d)
         if cfg.metric == "mips":
             # augmented-L2 back to negated inner products:
             #   d^2 = M^2 + |q|^2 - 2<q, x>  =>  -<q, x> = (d^2 - M^2 - |q|^2) / 2

@@ -2,9 +2,10 @@
 
 Each source compiles with ``nvcc`` into its own library with a plain C
 interface, loaded with ``ctypes``.  A library's file name carries a hash of
-its source and flags, so an edited source rebuilds and an unchanged one is
-reused.  Libraries go to ``build/repro_torch_kernels/`` at the repository
-root (listed in ``.gitignore``).
+its source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  Libraries go to
+``build/repro_torch_kernels/`` at the repository root (listed in
+``.gitignore``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: every kernel source of the package
-SOURCES = ("distance_topk.cu",)
+SOURCES = ("distance_topk.cu", "distance_topk_q8.cu")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -39,9 +40,11 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{digest}.so"
 
 

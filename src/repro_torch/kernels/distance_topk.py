@@ -15,11 +15,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE_Q = 32  # queries per block
 TILE_N = 128  # corpus rows per tile
-K_PADS = (128, 256)
-#: resident blocks per SM, as shared memory allows (101 KB / 165 KB a block)
-BLOCKS_PER_SM = {128: 2, 256: 1}
+K_PADS = (128, 256, 512)
+#: queries per block, by k_pad (csrc/topk.cuh ``QTile``)
+TILE_Q = {128: 32, 256: 32, 512: 16}
+#: resident blocks per SM, as shared memory allows (101 / 165 / 155 KB a block)
+BLOCKS_PER_SM = {128: 2, 256: 1, 512: 1}
 _METRIC = {"l2": 0, "ip": 1}
 _INT32_MAX = 2**31 - 1
 
@@ -38,14 +39,15 @@ def _kernel():
 
 def split_plan(B: int, n_valid: int, sm_count: int, k_pad: int) -> tuple[int, int]:
     """(nsplit, chunk): how many corpus chunks each query tile is split
-    into, and the rows per chunk (a multiple of the tile).
+    into, and the rows per chunk (a multiple of the tile).  K1 and K2 share
+    the block shape and shared-memory size, so both use this plan.
 
     Fills at most two waves of resident blocks (never a sliver of a third),
     with at least four tiles per chunk so that a chunk's running top-k
     settles before its end.
     """
     n_tiles = -(-n_valid // TILE_N)
-    q_tiles = -(-B // TILE_Q)
+    q_tiles = -(-B // TILE_Q[k_pad])
     waves = 2 * sm_count * BLOCKS_PER_SM[k_pad]
     nsplit = max(1, min(waves // q_tiles, n_tiles // 4, 65535))
     chunk = -(-n_tiles // nsplit) * TILE_N

@@ -1,12 +1,13 @@
-"""Public wrapper around the kernels: the one entry point the rest of the
+"""Public wrappers around the kernels: the entry points the rest of the
 package uses.
 
-``distance_topk`` keeps the wrapper contract of ``repro.kernels.ops``:
-empty corpora and ``k > N`` pad with (inf, -1), ``cos`` normalizes once and
-scores as ``ip``, ``l2`` adds ``||q||^2`` back, inf maps to id -1.  Which
-code runs follows the tensors: on CPU tensors the plain PyTorch version
-(``ref.distance_topk_blocked``), on CUDA tensors the K1 kernel — never a
-fallback from one to the other.
+``distance_topk`` and ``distance_topk_q8`` keep the wrapper contract of
+``repro.kernels.ops``: empty corpora and ``k > N`` pad with (inf, -1),
+``cos`` normalizes once and scores as ``ip``, ``l2`` adds ``||q||^2`` back,
+inf maps to id -1.  Which code runs follows the tensors: on CPU tensors the
+plain PyTorch versions (``ref.distance_topk_blocked``,
+``ref.distance_topk_q8_blocked``), on CUDA tensors the K1 / K2 kernels —
+never a fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -16,16 +17,45 @@ import torch
 from repro_torch.common.utils import next_pow2
 from repro_torch.kernels import ref
 from repro_torch.kernels.distance_topk import distance_topk_cuda
+from repro_torch.kernels.distance_topk_q8 import distance_topk_q8_cuda
+from repro_torch.quant.codec import quantize_queries_q8_t
 
 LANE = 128
+#: the largest per-query list the kernels keep (csrc/topk.cuh)
+K_PAD_MAX = 512
 
 #: kernel launches by the wrappers of this module, by kernel name
-KERNEL_LAUNCHES = {"distance_topk": 0}
+KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0}
 
 
 def reset_launches() -> None:
     for name in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[name] = 0
+
+
+def _cuda_k_pad(k: int, name: str) -> int:
+    k_pad = max(next_pow2(k), LANE)
+    if k_pad > K_PAD_MAX:
+        raise NotImplementedError(
+            f"{name}: k={k} needs k_pad={k_pad} > {K_PAD_MAX} on CUDA "
+            "(ROADMAP 'TPU kernels to port': k_pad > 512 on CUDA)"
+        )
+    return k_pad
+
+
+def _empty_topk(B: int, k: int, dev):
+    return (
+        torch.full((B, k), float("inf"), dtype=torch.float32, device=dev),
+        torch.full((B, k), -1, dtype=torch.int32, device=dev),
+    )
+
+
+def _pad_topk(d: torch.Tensor, i: torch.Tensor, k: int):
+    """Pad (B, n) results to (B, k) with (inf, -1)."""
+    B, n = d.shape
+    pad_d = torch.full((B, k - n), float("inf"), dtype=d.dtype, device=d.device)
+    pad_i = torch.full((B, k - n), -1, dtype=i.dtype, device=i.device)
+    return torch.cat([d, pad_d], 1), torch.cat([i, pad_i], 1)
 
 
 def distance_topk(q, x, k: int, metric: str = "l2", *, n_valid: int | None = None):
@@ -47,15 +77,10 @@ def distance_topk(q, x, k: int, metric: str = "l2", *, n_valid: int | None = Non
     N = x.shape[0]
     nv = N if n_valid is None else min(int(n_valid), N)
     if N == 0 or nv == 0:
-        return (
-            torch.full((B, k), float("inf"), dtype=torch.float32, device=dev),
-            torch.full((B, k), -1, dtype=torch.int32, device=dev),
-        )
+        return _empty_topk(B, k, dev)
     if k > N:  # fewer corpus rows than requested: pad with (inf, -1)
         d, i = distance_topk(q, x, N, metric, n_valid=nv)
-        pad_d = torch.full((B, k - N), float("inf"), dtype=d.dtype, device=dev)
-        pad_i = torch.full((B, k - N), -1, dtype=i.dtype, device=dev)
-        return torch.cat([d, pad_d], 1), torch.cat([i, pad_i], 1)
+        return _pad_topk(d, i, k)
     q = q.to(torch.float32)
     x = x.to(torch.float32)
     if metric == "cos":
@@ -69,22 +94,103 @@ def distance_topk(q, x, k: int, metric: str = "l2", *, n_valid: int | None = Non
         return ref.distance_topk_blocked(q, x, k, metric_k, n_valid=nv)
     if dev.type != "cuda":
         raise ValueError(f"distance_topk: unsupported device {dev}")
-    k_pad = max(next_pow2(k), LANE)
-    if k_pad > 256:
-        raise NotImplementedError(
-            f"distance_topk: k={k} needs k_pad={k_pad} > 256 on CUDA "
-            "(ROADMAP: K1 for k_pad > 256)"
-        )
+    k_pad = _cuda_k_pad(k, "distance_topk")
     if B == 0:
-        return (
-            torch.empty((0, k), dtype=torch.float32, device=dev),
-            torch.empty((0, k), dtype=torch.int32, device=dev),
-        )
+        return _empty_topk(0, k, dev)
     out_d, out_i = distance_topk_cuda(
         q.contiguous(), x.contiguous(), k_pad=k_pad, n_valid=nv, metric=metric_k
     )
     KERNEL_LAUNCHES["distance_topk"] += 1
     out_d, out_i = out_d[:, :k], out_i[:, :k]
+    if metric == "l2":
+        qn = (q * q).sum(-1, keepdim=True)
+        out_d = torch.where(torch.isinf(out_d), out_d, out_d + qn)
+    out_i = torch.where(torch.isinf(out_d), -1, out_i)
+    return out_d, out_i
+
+
+def distance_topk_q8_codes(q_codes, x_codes, q_scale, norms2, k: int, metric: str = "l2", *,
+                           n_valid: int | None = None):
+    """Stage-1 top-k over int8 codes: for each row of ``q_codes`` the ``k``
+    smallest quantized scores over rows ``< n_valid`` of ``x_codes``.
+
+    q_codes (B, D) and x_codes (N, D) int8, q_scale (B,) and norms2 (N,)
+    float32, on one device; metric 'l2' (``norms2 - 2 qx``, no ||q||^2) or
+    'ip' (``-qx``).  Returns (scores (B, k) ascending float32, ids (B, k)
+    int32), (inf, -1) past the valid rows.  CPU tensors run
+    ``ref.distance_topk_q8_blocked``; CUDA tensors launch K2.
+    """
+    if metric not in ("l2", "ip"):
+        raise ValueError(metric)
+    dev = q_codes.device
+    B, D = q_codes.shape
+    N = x_codes.shape[0]
+    nv = N if n_valid is None else min(int(n_valid), N)
+    if nv == 0:
+        return _empty_topk(B, k, dev)
+    if dev.type == "cpu":
+        return ref.distance_topk_q8_blocked(q_codes, x_codes, q_scale, norms2, k, metric,
+                                            n_valid=nv)
+    if dev.type != "cuda":
+        raise ValueError(f"distance_topk_q8: unsupported device {dev}")
+    k_pad = _cuda_k_pad(k, "distance_topk_q8")
+    if B == 0:
+        return _empty_topk(0, k, dev)
+    if D % 4:  # zero columns leave every integer dot unchanged
+        q_codes = torch.nn.functional.pad(q_codes, (0, 4 - D % 4))
+        x_codes = torch.nn.functional.pad(x_codes, (0, 4 - D % 4))
+    out_d, out_i = distance_topk_q8_cuda(
+        q_codes.contiguous(), x_codes.contiguous(), q_scale.contiguous(), norms2.contiguous(),
+        k_pad=k_pad, n_valid=nv, metric=metric,
+    )
+    KERNEL_LAUNCHES["distance_topk_q8"] += 1
+    return out_d[:, :k], out_i[:, :k]
+
+
+def distance_topk_q8(q, qc, k: int, metric: str = "l2", *, n_valid: int | None = None):
+    """Quantized top-k: rank the int8 corpus ``qc`` for each row of ``q``.
+
+    ``qc`` is a ``repro_torch.quant.codec.Q8Corpus`` (or any object with
+    ``codes``/``scales``/``norms2`` and optionally ``metric``; numpy arrays
+    or tensors).  Returns (dists, ids) in the convention of
+    :func:`distance_topk`, except distances are the QUANTIZED scores — the
+    distance to the dequantized corpus point, with the query itself
+    quantized for the integer contraction.  The codes decide the device;
+    numpy input runs on the CPU.
+    """
+    if metric not in ("l2", "ip", "cos"):
+        raise ValueError(metric)
+    codes = torch.as_tensor(qc.codes)
+    dev = codes.device
+    q = torch.as_tensor(q)
+    if q.device != dev:
+        raise ValueError(f"q on {q.device} but the codes on {dev}")
+    q = q.to(torch.float32)
+    B = q.shape[0]
+    N = codes.shape[0]
+    nv = N if n_valid is None else min(int(n_valid), N)
+    if N == 0 or nv == 0:
+        return _empty_topk(B, k, dev)
+    if k > N:  # fewer corpus rows than requested: pad with (inf, -1)
+        d, i = distance_topk_q8(q, qc, N, metric, n_valid=nv)
+        return _pad_topk(d, i, k)
+    qc_metric = getattr(qc, "metric", None)
+    if qc_metric is not None and qc_metric != metric:
+        # 'cos' codes are built from normalized rows; scoring them as 'ip'
+        # (or vice versa) would silently return wrong rankings.
+        raise ValueError(
+            f"corpus was quantized for metric={qc_metric!r} but scoring "
+            f"requested metric={metric!r}"
+        )
+    q_eff, metric_k = q, metric
+    if metric == "cos":
+        q_eff = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        metric_k = "ip"
+    scales = torch.as_tensor(qc.scales).to(device=dev, dtype=torch.float32)
+    norms2 = torch.as_tensor(qc.norms2).to(device=dev, dtype=torch.float32)
+    q_codes, q_scale = quantize_queries_q8_t(q_eff, scales)
+    out_d, out_i = distance_topk_q8_codes(q_codes, codes, q_scale, norms2, k, metric_k,
+                                          n_valid=nv)
     if metric == "l2":
         qn = (q * q).sum(-1, keepdim=True)
         out_d = torch.where(torch.isinf(out_d), out_d, out_d + qn)

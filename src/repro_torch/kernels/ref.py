@@ -78,3 +78,63 @@ def distance_topk_blocked(
         run_i = torch.gather(cat_i, 1, idx)
     run_i = torch.where(torch.isinf(run_d), -1, run_i)
     return run_d, run_i
+
+
+def q8_score_matrix(
+    q_codes: torch.Tensor,  # (B, D) int8
+    x_codes: torch.Tensor,  # (N, D) int8
+    q_scale: torch.Tensor,  # (B,) float32
+    norms2: torch.Tensor,  # (N,) float32
+    metric: str,
+) -> torch.Tensor:
+    """(B, N) stage-1 quantized scores, lower is better: the plain version
+    of K2's per-tile arithmetic.
+
+    The dot is exact on every device: CUDA has no general int32 matmul, so
+    it runs as a float64 matmul of the codes (|dot| <= 2048 * 127^2 < 2^53,
+    so every partial sum is an exact integer) and is converted to float32
+    once — the same value as the reference's int32 -> float32 rounding.
+    Then ONE float32 rescale, and the metric term, in the reference's order.
+    """
+    dots = (q_codes.to(torch.float64) @ x_codes.to(torch.float64).T).to(torch.float32)
+    qx = dots * q_scale[:, None]
+    if metric == "l2":
+        return norms2[None, :] - 2.0 * qx
+    if metric == "ip":
+        return -qx
+    raise ValueError(metric)
+
+
+def distance_topk_q8_blocked(
+    q_codes: torch.Tensor,
+    x_codes: torch.Tensor,
+    q_scale: torch.Tensor,
+    norms2: torch.Tensor,
+    k: int,
+    metric: str = "l2",
+    block_n: int = 4096,
+    n_valid: int | None = None,
+):
+    """Int8 scan over N blocks carrying a running top-k; rows >= ``n_valid``
+    are padding and never win.
+
+    Scores are bit-equal to K2's; ties at the k boundary may be broken
+    differently.  Returns (dists (B, k) ascending, ids (B, k) int32), with
+    (inf, -1) where fewer than k valid rows exist.
+    """
+    B = q_codes.shape[0]
+    N = x_codes.shape[0]
+    nv = N if n_valid is None else min(int(n_valid), N)
+    dev = q_codes.device
+    run_d = torch.full((B, k), float("inf"), dtype=torch.float32, device=dev)
+    run_i = torch.full((B, k), -1, dtype=torch.int32, device=dev)
+    for start in range(0, nv, block_n):
+        stop = min(start + block_n, nv)
+        d = q8_score_matrix(q_codes, x_codes[start:stop], q_scale, norms2[start:stop], metric)
+        gid = torch.arange(start, stop, dtype=torch.int32, device=dev)
+        cat_d = torch.cat([run_d, d], dim=1)
+        cat_i = torch.cat([run_i, gid[None, :].expand(B, -1)], dim=1)
+        run_d, idx = torch.topk(cat_d, k, dim=1, largest=False, sorted=True)
+        run_i = torch.gather(cat_i, 1, idx)
+    run_i = torch.where(torch.isinf(run_d), -1, run_i)
+    return run_d, run_i

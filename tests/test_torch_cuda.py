@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""K1 and K2 on the card: the CUDA kernels against their plain PyTorch
+versions, and card indexes against CPU indexes.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 module imports torch and the port only (no JAX), so it runs on a machine
@@ -20,7 +21,7 @@ from repro_torch.kernels import ops, ref
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA) and nvcc to build K1")
+        pytest.skip("needs an NVIDIA GPU (CUDA) and nvcc to build the kernels")
     return torch.device("cuda")
 
 
@@ -41,6 +42,7 @@ def _assert_topk_close(d, i, d_r, i_r):
     (9, 4097, 50, 200, 257),
     (3, 64, 960, 100, 40),
     (1000, 200_000, 128, 10, None),
+    (37, 5003, 128, 400, None),  # k_pad 512
 ])
 def test_k1_matches_plain(cuda, metric, B, N, D, k, n_valid):
     g = torch.Generator(device=cuda).manual_seed(B + N)
@@ -59,7 +61,79 @@ def test_k1_rejects_large_k(cuda):
     q = torch.randn(2, 8, device=cuda)
     x = torch.randn(1000, 8, device=cuda)
     with pytest.raises(NotImplementedError):
-        ops.distance_topk(q, x, 300, "l2")
+        ops.distance_topk(q, x, 600, "l2")
+
+
+def _assert_q8_topk(d, i, d_p, i_p, scores_of):
+    """K2 vs its plain version: scores bit-equal, ids equal up to swaps
+    between equal scores at the k-th place, and every id the kernel returns
+    carries its own plain score (``scores_of(row, ids)``)."""
+    d, i, d_p, i_p = (t.cpu().numpy() for t in (d, i, d_p, i_p))
+    assert np.array_equal(d, d_p)
+    for r, (dr, ir, pr) in enumerate(zip(d, i, i_p)):
+        fin = np.isfinite(dr)
+        assert np.all(ir[~fin] == -1) and len(set(ir[fin].tolist())) == fin.sum()
+        if fin.any():
+            kth = dr[fin][-1]
+            assert set(ir[dr < kth].tolist()) == set(pr[dr < kth].tolist())
+            assert np.array_equal(scores_of(r, ir[fin]), dr[fin])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+@pytest.mark.parametrize("B,N,D,k,n_valid", [
+    (37, 5003, 128, 38, None),
+    (9, 4097, 50, 228, 257),   # D not a multiple of 4, n_valid < N
+    (3, 64, 960, 100, 40),     # k > n_valid
+    (345, 150_000, 512, 38, None),
+    (19, 3001, 2048, 400, None),  # k_pad 512, D > 1024
+])
+def test_k2_matches_plain(cuda, metric, B, N, D, k, n_valid):
+    from repro_torch.quant.codec import quantize_q8
+
+    rng = np.random.default_rng(B + N)
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    qc = quantize_q8(x, metric)
+    codes = torch.from_numpy(qc.codes).to(cuda)
+    scales = torch.from_numpy(qc.scales).to(cuda)
+    norms2 = torch.from_numpy(qc.norms2).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(cuda)
+    corpus = type("Q8", (), {"codes": codes, "scales": scales, "norms2": norms2,
+                             "metric": metric})()
+    ops.reset_launches()
+    d, i = ops.distance_topk_q8(q, corpus, k, metric, n_valid=n_valid)
+    assert ops.KERNEL_LAUNCHES["distance_topk_q8"] == 1
+    # the plain version on the same tensors
+    from repro_torch.quant.codec import quantize_queries_q8_t
+
+    q_eff = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12) if metric == "cos" else q
+    metric_k = "l2" if metric == "l2" else "ip"
+    q_codes, q_scale = quantize_queries_q8_t(q_eff, scales)
+    d_k, i_k = ops.distance_topk_q8_codes(q_codes, codes, q_scale, norms2, k, metric_k,
+                                          n_valid=n_valid)
+    d_p, i_p = ref.distance_topk_q8_blocked(q_codes, codes, q_scale, norms2, k, metric_k,
+                                            n_valid=n_valid)
+    torch.cuda.synchronize()
+
+    def scores_of(r, ids):
+        idx = torch.from_numpy(ids.astype(np.int64)).to(cuda)
+        s = ref.q8_score_matrix(q_codes[r: r + 1], codes[idx], q_scale[r: r + 1], norms2[idx],
+                                metric_k)
+        return s[0].cpu().numpy()
+
+    _assert_q8_topk(d_k, i_k, d_p, i_p, scores_of)
+    if metric == "l2":
+        d_k = d_k + (q * q).sum(-1, keepdim=True)
+    assert torch.equal(torch.where(torch.isinf(d_k), -1, i_k), i)
+
+
+@pytest.mark.cuda
+def test_k2_rejects_large_k(cuda):
+    codes = torch.zeros((1000, 8), dtype=torch.int8, device=cuda)
+    q_codes = torch.zeros((2, 8), dtype=torch.int8, device=cuda)
+    ones = torch.ones(2, device=cuda)
+    with pytest.raises(NotImplementedError, match="k_pad"):
+        ops.distance_topk_q8_codes(q_codes, codes, ones, torch.zeros(1000, device=cuda), 600)
 
 
 @pytest.mark.cuda
@@ -72,6 +146,24 @@ def test_card_index_matches_cpu_index(cuda, spill):
     ops.reset_launches()
     d, i = gpu.query(queries, 10)
     assert ops.KERNEL_LAUNCHES["distance_topk"] > 0
+    d_c, i_c = cpu.query(queries, 10)
+    np.testing.assert_array_equal(i, i_c)
+    np.testing.assert_allclose(d, d_c, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spill", ["virtual", "physical"])
+@pytest.mark.parametrize("rerank_store", ["auto", "host"])
+def test_card_q8_index_matches_cpu_index(cuda, spill, rerank_store):
+    data, queries = sift_like(2500, 24, 48, seed=5)
+    cfg = LannsConfig(num_shards=2, num_segments=4, engine="scan", spill=spill,
+                      quantized="q8", rerank_store=rerank_store)
+    gpu = LannsIndex(cfg).build(data)
+    cpu = LannsIndex(cfg, device="cpu").build(data)
+    ops.reset_launches()
+    d, i = gpu.query(queries, 10)
+    assert ops.KERNEL_LAUNCHES["distance_topk_q8"] > 0
+    assert ops.KERNEL_LAUNCHES["distance_topk"] == 0
     d_c, i_c = cpu.query(queries, 10)
     np.testing.assert_array_equal(i, i_c)
     np.testing.assert_allclose(d, d_c, rtol=3e-4, atol=3e-4)
