@@ -33,13 +33,31 @@ Phases, each printed as JSON records; any failure exits non-zero:
 4. deployment scale: 10M x 512 fp32 in 8 shards x 8 RH segments (halved
    until it fits the host and the card): QPS, p50/p99 batch latency, the
    route/candidates/merge split, recall@100 on 1,000 queries.
+2c. K3 vs plain: ``ops.flash_attention`` on CUDA tensors against
+   ``ref.flash_attention_ref`` on the same tensors, float32 and bfloat16,
+   D in {16, 32, 64, 128}, S in {1, 100, 128, 200, 1025, 4096}, causal and
+   bidirectional, BH in {1, 15, 30}.  Max abs error <= 3e-5 (float32) and
+   <= 3e-2 (bfloat16), the reference's own limits.
 4b. deployment scale, q8, on phase 4's corpus, queries and ground truth,
    after the fp32 index is freed: QPS, p50/p99, the stage split, recall@100,
    resident scan bytes (codes + scales + bias + keys), the exact store's
    device bytes, host encode seconds; one batch with the exact store on the
    host, checked against the device store.
-5. the kernels line: launches on the main path (phases 3-4b), max error,
-   kernel / plain / library times at a main-path shape, and each bound.
+5. LM prefill at the reference's prefill_32k shape: smollm-360m at full
+   width and depth, ``serving_config(..., "prefill")`` (bf16, q_chunk 1024),
+   bf16 cache, S = 32,768, B = 1 (cut from 32): seconds, tokens/s, K3
+   launches (one per layer); K3's output at the first and the last layer
+   against the plain version; K3 / plain / SDPA milliseconds at that
+   layer's (15, 32768, 64) causal bf16 inputs, and the bound.
+6. LM serving: ``ServeEngine`` with smollm-360m at full width and depth,
+   fp32, 4 slots, max_seq 4096, 8 seeded requests of 1,100-4,000 prompt
+   tokens and 32 new tokens: completed, prefill tokens/s, decode steps/s,
+   p50 decode step, K3 launches.  Then one 1,100-token request through the
+   engine on the card and on the CPU (plain path) with the first 4 layers:
+   equal first greedy token, last logits within 1e-3.
+7. the kernels line: launches on the main path (K1: phases 3 and 4; K2: 3b
+   and 4b; K3: 5 and 6), max error, kernel / plain / library times at a
+   main-path shape, and each bound.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
@@ -59,14 +77,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 TOL = 3e-4
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
-# int8 tensor cores, HBM3
+# int8 and bf16 tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 K1_SOURCE = "src/repro_torch/kernels/csrc/distance_topk.cu"
 K1_REPLACES = "src/repro/kernels/distance_topk.py:84"
 K2_SOURCE = "src/repro_torch/kernels/csrc/distance_topk_q8.cu"
 K2_REPLACES = "src/repro/kernels/distance_topk_q8.py:38"
+K3_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+K3_REPLACES = "src/repro/kernels/flash_attention.py:28"
+#: K3's limits against its plain version (tests/test_flash_attention.py:26,50)
+K3_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 
 
 def emit(record: dict) -> None:
@@ -769,6 +792,249 @@ def phase_deployment_q8(corpus, queries, gt_i, fp32_ids, n_full: int, batch: int
         raise AssertionError(f"deployment q8 recall@100 {r100} is implausibly low")
     return {"launches": launches, "timing": timing}
 
+def phase_flash_vs_plain() -> dict:
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (16, 32, 64, 128):
+            for S in (1, 100, 128, 200, 1025, 4096):
+                for causal in (True, False):
+                    for BH in (1, 15, 30):
+                        q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
+                                   for _ in range(3))
+                        out = ops.flash_attention(q, k, v, causal=causal)
+                        want = ref.flash_attention_ref(q, k, v, causal=causal)
+                        torch.cuda.synchronize()
+                        if out.dtype != dtype or out.shape != q.shape:
+                            raise AssertionError(f"K3 output {out.dtype} {tuple(out.shape)}")
+                        err = float((out.float() - want.float()).abs().max())
+                        if not err <= K3_TOL[dtype]:
+                            raise AssertionError(f"K3 {dtype} D={D} S={S} causal={causal} "
+                                                 f"BH={BH}: max abs err {err}")
+                        max_err[dtype] = max(max_err[dtype], err)
+                        cases += 1
+    emit({"phase": "flash_vs_plain", "cases": cases,
+          "max_abs_err_f32": max_err[torch.float32], "tol_f32": K3_TOL[torch.float32],
+          "max_abs_err_bf16": max_err[torch.bfloat16], "tol_bf16": K3_TOL[torch.bfloat16]})
+    return {"f32": max_err[torch.float32], "bf16": max_err[torch.bfloat16]}
+
+
+class RecordAttention:
+    """Keeps the inputs and output of chosen calls of
+    ``ops.flash_attention_bhsd`` (by call index) while the model runs; the
+    calls themselves go through unchanged."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.seen = set(keep), {}, 0
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._orig = ops.flash_attention_bhsd
+
+        def recording(q, k, v, **kw):
+            out = self._orig(q, k, v, **kw)
+            if self.seen in self.keep:
+                self.calls[self.seen] = tuple(t.clone() for t in (q, k, v, out))
+            self.seen += 1
+            return out
+
+        ops.flash_attention_bhsd = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.flash_attention_bhsd = self._orig
+        return False
+
+
+def fold_bhsd(x: torch.Tensor) -> torch.Tensor:
+    B, S, H, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * H, S, D).contiguous()
+
+
+def time_flash_kernel(q, k, v, label: str) -> dict:
+    """K3 at one main-path shape (BH, S, D), causal: K3 / plain / SDPA
+    milliseconds and K3's bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    BH, S, D = q.shape
+    scale = 1.0 / D ** 0.5
+    kern = lambda: flash_attention_cuda(q, k, v, causal=True, scale=scale)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal=True, scale=scale)
+    # yardstick only: PyTorch's fused attention on the same tensors
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[None], k[None], v[None], is_causal=True, scale=scale)
+    err = float((kern().float() - plain().float()).abs().max())
+    ms = cuda_ms(kern, iters=5, warmup=1)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    library_ms = cuda_ms(library, iters=10, warmup=2)
+    flops = 2.0 * BH * S * S * D  # q k^T and p v over the causal half
+    nbytes = 4.0 * BH * S * D * q.element_size()  # q, k, v read, o written
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    rec = {"shape": label, "BH": BH, "S": S, "D": D, "dtype": str(q.dtype), "causal": True,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+    emit({"phase": "flash_timing", **rec})
+    if err > K3_TOL[q.dtype]:
+        raise AssertionError(f"K3 at {label}: max abs err {err}")
+    return rec
+
+
+def phase_prefill_32k(S: int = 32_768, B: int = 1) -> dict:
+    from repro_torch.configs import get_config, serving_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import make_prefill_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = serving_config(get_config("smollm-360m"), "prefill")
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    cache = tf.make_cache(cfg, B, S, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill = make_prefill_fn(cfg)
+    prefill(params, tokens[:, :2048], cache)  # warm-up: cuBLAS plans, K3's first launch
+
+    torch.cuda.reset_peak_memory_stats()
+    with RecordAttention(keep=(0, L - 1)) as rec:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, tokens, cache)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.KERNEL_LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    if launches != L:
+        raise AssertionError(f"prefill_32k: K3 launched {launches} times for {L} layers")
+    if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill_32k: logits {tuple(logits.shape)} not finite")
+    if not (cache["k"][:, :, S - 1].abs().sum(-1) > 0).all():
+        raise AssertionError("prefill_32k: the cache's last position was not written")
+    layer_err = {}
+    for i, (q, k, v, out) in sorted(rec.calls.items()):
+        want = ref.flash_attention_ref(fold_bhsd(q), fold_bhsd(k), fold_bhsd(v), causal=True)
+        layer_err[f"layer_{i}"] = float((fold_bhsd(out).float() - want.float()).abs().max())
+    if max(layer_err.values()) > K3_TOL[torch.bfloat16]:
+        raise AssertionError(f"prefill_32k: K3 vs plain {layer_err}")
+    q, k, v, _ = rec.calls[0]
+    del logits, cache, params, rec
+    timing = time_flash_kernel(fold_bhsd(q), fold_bhsd(k), fold_bhsd(v),
+                               f"prefill_32k layer 0: smollm-360m, S={S}")
+    emit({"phase": "prefill_32k", "arch": "smollm-360m", "n_layers": L, "d_model": cfg.d_model,
+          "dtype": "bfloat16", "q_chunk": cfg.q_chunk, "S": S, "B": B,
+          "reduced": {"global_batch": f"32 -> {B}"},
+          "init_s": init_s, "seconds": seconds, "prefill_tokens_per_s": B * S / seconds,
+          "k3_launches": launches, "k3_vs_plain_max_abs_err": layer_err,
+          "peak_device_bytes": peak})
+    return {"launches": launches, "timing": timing, "max_abs_err": max(layer_err.values())}
+
+
+def phase_serve_engine(n_requests: int = 8, max_new: int = 32, cpu_layers: int = 4) -> dict:
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, serving_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(serving_config(get_config("smollm-360m"), "prefill"),
+                              param_dtype="float32", compute_dtype="float32")
+    params = tf.init(cfg, seed=0)
+    eng = ServeEngine(cfg, params, slots=4, max_seq=4096)
+    rng = np.random.default_rng(0)
+    reqs = [Request(u, rng.integers(0, cfg.vocab, int(n)).astype(np.int32), max_new_tokens=max_new)
+            for u, n in enumerate(rng.integers(1100, 4001, n_requests))]
+    prefill_s, decode_s = [], []
+
+    def timed(fn, out):
+        def call(*a):
+            t0 = time.perf_counter()
+            res = fn(*a)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+            return res
+        return call
+
+    eng._prefill = timed(eng._prefill, prefill_s)
+    eng._decode = timed(eng._decode, decode_s)
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stats = dict(eng.run())
+    wall = time.perf_counter() - t0
+    launches = ops.KERNEL_LAUNCHES["flash_attention"]
+    buckets = [eng._prompt_bucket(len(r.prompt)) for r in reqs]
+    want_launches = cfg.n_layers * sum(b > cfg.q_chunk for b in buckets)
+    if stats["completed"] != n_requests or launches != want_launches or launches <= 0:
+        raise AssertionError(f"serve_engine: stats {stats}, K3 launches {launches} "
+                             f"(want {want_launches})")
+    for r in reqs:
+        if len(r.tokens_out) != max_new or not all(0 <= t < cfg.vocab for t in r.tokens_out):
+            raise AssertionError(f"serve_engine: request {r.uid} tokens {r.tokens_out}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same engine on the card and on the CPU (plain path), cut to
+    # cpu_layers layers at full width: equal first token, close last logits
+    cfg_c = dataclasses.replace(cfg, n_layers=cpu_layers)
+    cpu_params = tf.init(cfg_c, seed=0, device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to("cuda")
+    prompt = rng.integers(0, cfg.vocab, 1100).astype(np.int32)
+    first, last_logits = {}, {}
+    for name, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+        e = ServeEngine(cfg_c, p, slots=1, max_seq=4096)
+        inner = e._prefill
+
+        def keep_logits(*a, name=name, inner=inner):
+            lg, c = inner(*a)
+            last_logits[name] = lg[0].float().cpu()
+            return lg, c
+
+        e._prefill = keep_logits
+        r = Request(0, prompt, max_new_tokens=1)
+        e.submit(r)
+        ops.reset_launches()
+        e.run()
+        first[name] = r.tokens_out[0]
+        if name == "cuda" and ops.KERNEL_LAUNCHES["flash_attention"] != cpu_layers:
+            raise AssertionError("serve_engine: the card check did not launch K3")
+    gap = float((last_logits["cuda"] - last_logits["cpu"]).abs().max())
+    dec = np.asarray(decode_s)
+    emit({"phase": "serve_engine", "arch": "smollm-360m", "n_layers": cfg.n_layers,
+          "dtype": "float32", "slots": 4, "max_seq": 4096, "q_chunk": cfg.q_chunk,
+          "requests": n_requests, "prompt_lengths": [len(r.prompt) for r in reqs],
+          "buckets": buckets, "max_new_tokens": max_new, "stats": stats, "wall_s": wall,
+          "prefill_s": float(sum(prefill_s)),
+          "prefill_tokens_per_s": stats["prefill_tokens"] / sum(prefill_s),
+          "prefill_bucket_tokens_per_s": sum(buckets) / sum(prefill_s),
+          "decode_steps_per_s": len(dec) / dec.sum(),
+          "decode_step_p50_ms": 1e3 * float(np.percentile(dec, 50)),
+          "decode_step_p99_ms": 1e3 * float(np.percentile(dec, 99)),
+          "k3_launches": launches,
+          "cpu_check": {"reduced": {"n_layers": f"32 -> {cpu_layers}"}, "prompt": len(prompt),
+                        "first_token": first, "last_logits_max_abs_gap": gap, "tol": 1e-3}})
+    if first["cuda"] != first["cpu"] or gap > 1e-3:
+        raise AssertionError(f"serve_engine: card vs CPU first token {first}, gap {gap}")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -790,16 +1056,20 @@ def main() -> int:
     smi = timed("1", phase_card)
     max_err = timed("2", phase_kernel_vs_plain)
     max_err_q8 = timed("2b", phase_q8_kernel_vs_plain)
+    max_err_k3 = timed("2c", phase_flash_vs_plain)
     paper = timed("3", phase_paper)
     paper_q8 = timed("3b", phase_paper_q8, *paper.pop("data"))
     deploy = timed("4", phase_deployment)
     deploy_q8 = timed("4b", phase_deployment_q8, *deploy.pop("data"))
+    prefill = timed("5", phase_prefill_32k)
+    serve = timed("6", phase_serve_engine)
     k1_launches = paper["launches"] + deploy["launches"]
     k2_launches = paper_q8["launches"] + deploy_q8["launches"]
-    if k1_launches <= 0 or k2_launches <= 0:
+    k3_launches = prefill["launches"] + serve["launches"]
+    if k1_launches <= 0 or k2_launches <= 0 or k3_launches <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
-                             f"K2 {k2_launches}")
-    t1, t2 = paper["timing"], paper_q8["timing"]
+                             f"K2 {k2_launches}, K3 {k3_launches}")
+    t1, t2, t3 = paper["timing"], paper_q8["timing"], prefill["timing"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
     emit({"kernels": [
         {"name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
@@ -812,6 +1082,12 @@ def main() -> int:
          "max_abs_err": max(max_err_q8, t2["max_abs_err"], deploy_q8["timing"]["max_abs_err"]),
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
          "bound_by": t2["bound_by"], "library_ms": t2["library_ms"]},
+        {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": k3_launches,
+         "max_abs_err": max(max_err_k3["f32"], max_err_k3["bf16"], prefill["max_abs_err"],
+                            t3["max_abs_err"]),
+         "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
+         "bound_by": t3["bound_by"], "library_ms": t3["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

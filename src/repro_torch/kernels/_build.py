@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: every kernel source of the package
-SOURCES = ("distance_topk.cu", "distance_topk_q8.cu")
+SOURCES = ("distance_topk.cu", "distance_topk_q8.cu", "flash_attention.cu")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,0 +1,66 @@
+"""Launcher of K3, the flash-attention forward CUDA kernel.
+
+The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::_flash_fwd_kernel``.  This module checks
+the inputs, allocates the output and launches on PyTorch's current stream.
+Nothing here runs at import: the library is built and loaded at the first
+launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BH = 65535  # the grid's second dimension
+
+_FN: dict[str, object] = {}
+
+
+def _kernel():
+    fn = _FN.get("flash_attention")
+    if fn is None:
+        fn = _build.load("flash_attention.cu").repro_flash_attention
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                   ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN["flash_attention"] = fn
+    return fn
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                         scale: float) -> torch.Tensor:
+    """Launch K3: attention forward over q, k, v (BH, S, D), contiguous, of
+    one dtype (float32 or bfloat16), on one CUDA device.  Returns the output
+    (BH, S, D) in that dtype."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_cuda: q, k and v must be on one CUDA device")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention_cuda: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}; expected three equal (BH, S, D)")
+    if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"flash_attention_cuda: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                                  "the kernel takes float32 or bfloat16, all three alike")
+    BH, S, D = q.shape
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_cuda: q, k and v must be contiguous")
+    if not (0 < BH <= _MAX_BH and 0 < S < 2**31):
+        raise ValueError(f"flash_attention_cuda: BH={BH}, S={S}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            BH, S, D, _DTYPE[q.dtype], int(bool(causal)), float(scale), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
+    return out

@@ -6,11 +6,13 @@ package uses.
 ``cos`` normalizes once and scores as ``ip``, ``l2`` adds ``||q||^2`` back,
 inf maps to id -1.  Which code runs follows the tensors: on CPU tensors the
 plain PyTorch versions (``ref.distance_topk_blocked``,
-``ref.distance_topk_q8_blocked``), on CUDA tensors the K1 / K2 kernels —
-never a fallback from one to the other.
+``ref.distance_topk_q8_blocked``, ``ref.flash_attention_ref``), on CUDA
+tensors the K1 / K2 / K3 kernels — never a fallback from one to the other.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,6 +20,7 @@ from repro_torch.common.utils import next_pow2
 from repro_torch.kernels import ref
 from repro_torch.kernels.distance_topk import distance_topk_cuda
 from repro_torch.kernels.distance_topk_q8 import distance_topk_q8_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.quant.codec import quantize_queries_q8_t
 
 LANE = 128
@@ -25,7 +28,7 @@ LANE = 128
 K_PAD_MAX = 512
 
 #: kernel launches by the wrappers of this module, by kernel name
-KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0}
+KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -196,3 +199,38 @@ def distance_topk_q8(q, qc, k: int, metric: str = "l2", *, n_valid: int | None =
         out_d = torch.where(torch.isinf(out_d), out_d, out_d + qn)
     out_i = torch.where(torch.isinf(out_d), -1, out_i)
     return out_d, out_i
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """Attention forward over q, k, v (BH, S, D), one device, one dtype:
+    ``softmax(scale * q k^T) v`` per row, causal or bidirectional, with all
+    math in float32 and the output in q's dtype.  ``scale`` defaults to
+    1/sqrt(D).  CPU tensors run ``ref.flash_attention_ref``; CUDA tensors
+    launch K3 (float32 or bfloat16, D in 16/32/64/128; anything else
+    raises)."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}; expected three equal (BH, S, D)")
+    if not (k.device == q.device and v.device == q.device):
+        raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    dev = q.device
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                               scale=scale)
+    KERNEL_LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_bhsd(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """:func:`flash_attention` over (B, S, H, D) tensors, the layout of
+    ``models/layers``: batch and heads fold into the first dimension."""
+    B, S, H, D = q.shape
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(B * H, S, D)
+    out = flash_attention(fold(q), fold(k), fold(v), causal=causal, scale=scale)
+    return out.reshape(B, H, S, D).permute(0, 2, 1, 3)

@@ -7,6 +7,8 @@ off, so a float32 product keeps full float32 precision.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -138,3 +140,57 @@ def distance_topk_q8_blocked(
         run_i = torch.gather(cat_i, 1, idx)
     run_i = torch.where(torch.isinf(run_d), -1, run_i)
     return run_d, run_i
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    block_q: int = 1024,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    """Attention forward over (BH, S, D) as a blocked online softmax: the
+    plain version of K3 (``repro/kernels/flash_attention.py::
+    _flash_fwd_kernel``), with its masking and guards.
+
+    All math is float32 (q, k, v, p and the (m, l, acc) carry); the output
+    takes q's dtype.  Future kv gets -inf (causal); the ragged last block is
+    simply shorter, so no kv past S exists to mask.  ``m_safe`` guards
+    fully masked rows and ``l`` is floored at 1e-30, as in the kernel.  kv
+    blocks wholly above the diagonal are skipped.  Memory is
+    O(BH x block_q x block_k), so it runs at S = 32k on the card.
+    """
+    BH, S, D = q.shape
+    scale = scale or 1.0 / math.sqrt(D)
+    _no_tf32(q)
+    out = torch.empty_like(q)
+    dev = q.device
+    for q0 in range(0, S, block_q):
+        q1 = min(q0 + block_q, S)
+        qb = q[:, q0:q1].to(torch.float32)
+        q_pos = torch.arange(q0, q1, device=dev)[:, None]
+        m = torch.full((BH, q1 - q0, 1), float("-inf"), dtype=torch.float32, device=dev)
+        l = torch.zeros((BH, q1 - q0, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((BH, q1 - q0, D), dtype=torch.float32, device=dev)
+        for k0 in range(0, q1 if causal else S, block_k):
+            k1 = min(k0 + block_k, S)
+            kb = k[:, k0:k1].to(torch.float32)
+            vb = v[:, k0:k1].to(torch.float32)
+            s = torch.bmm(qb, kb.transpose(1, 2)) * scale
+            if causal:
+                valid = torch.arange(k0, k1, device=dev)[None, :] <= q_pos
+                s = torch.where(valid, s, float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe)
+            if causal:
+                p = torch.where(valid, p, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.bmm(p, vb)
+            m = m_new
+        out[:, q0:q1] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return out

@@ -1,5 +1,6 @@
-"""K1 and K2 on the card: the CUDA kernels against their plain PyTorch
-versions, and card indexes against CPU indexes.
+"""K1, K2 and K3 on the card: the CUDA kernels against their plain PyTorch
+versions, card indexes against CPU indexes, and the LM path on the card
+against the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 module imports torch and the port only (no JAX), so it runs on a machine
@@ -167,3 +168,67 @@ def test_card_q8_index_matches_cpu_index(cuda, spill, rerank_store):
     d_c, i_c = cpu.query(queries, 10)
     np.testing.assert_array_equal(i, i_c)
     np.testing.assert_allclose(d, d_c, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("BH,S,D,causal", [
+    (1, 1, 16, True),
+    (15, 200, 64, True),
+    (3, 1025, 128, False),
+    (30, 129, 32, True),
+    (2, 4096, 64, True),
+])
+def test_k3_matches_plain(cuda, dtype, tol, BH, S, D, causal):
+    g = torch.Generator(device=cuda).manual_seed(BH * S + D)
+    q, k, v = (torch.randn(BH, S, D, generator=g, device=cuda).to(dtype) for _ in range(3))
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.KERNEL_LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert float((out.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_k3_rejects_unsupported_inputs(cuda):
+    x = torch.zeros(2, 8, 48, device=cuda)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        ops.flash_attention(x, x, x)
+    h = torch.zeros(2, 8, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        ops.flash_attention(h, h, h)
+
+
+@pytest.mark.cuda
+def test_card_lm_engine_matches_cpu(cuda):
+    """A small LM served on the card (prefill through K3) and on the CPU:
+    equal greedy tokens, prefill logits within 1e-4."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine, make_bucketed_prefill_fn
+
+    cfg = tf.TransformerConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+                               d_ff=128, vocab=256, q_chunk=32, kv_chunk=64)
+    cpu_params = tf.init(cfg, seed=0, device="cpu")
+    gpu_params = tf.init(cfg, seed=0, device="cpu").to(cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, L).astype(np.int32) for L in (7, 40, 100)]
+    outs = []
+    for params in (gpu_params, cpu_params):
+        eng = ServeEngine(cfg, params, slots=2, max_seq=128)
+        reqs = [Request(u, p, max_new_tokens=6) for u, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_launches()
+        eng.run()
+        outs.append([r.tokens_out for r in reqs])
+        if params is gpu_params:
+            assert ops.KERNEL_LAUNCHES["flash_attention"] > 0
+    assert outs[0] == outs[1]
+    prefill = make_bucketed_prefill_fn(cfg)
+    toks = torch.from_numpy(np.pad(prompts[2], (0, 28))[None].astype(np.int64))
+    lg = [prefill(p, toks.to(p.embed.device), tf.make_cache(cfg, 1, 128, torch.float32,
+                                                            p.embed.device), 99)[0]
+          for p in (gpu_params, cpu_params)]
+    assert float((lg[0].cpu() - lg[1]).abs().max()) < 1e-4
