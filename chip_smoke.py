@@ -35,9 +35,14 @@ Phases, each printed as JSON records; any failure exits non-zero:
    route/candidates/merge split, recall@100 on 1,000 queries.
 2c. K3 vs plain: ``ops.flash_attention`` on CUDA tensors against
    ``ref.flash_attention_ref`` on the same tensors, float32 and bfloat16,
-   D in {16, 32, 64, 128}, S in {1, 100, 128, 200, 1025, 4096}, causal and
-   bidirectional, BH in {1, 15, 30}.  Max abs error <= 3e-5 (float32) and
-   <= 3e-2 (bfloat16), the reference's own limits.
+   D in {16, 32, 64, 128}, causal and bidirectional: S in {1, 100, 128,
+   200, 1025, 4096} at BH in {1, 15, 30}, and the kernel's tile edges S in
+   {15, 17, 63, 65, 1000, 4097} at BH in {1, 7}; one bfloat16 case with v
+   scaled by 8 (outputs past 4, where a bf16 ulp is 3.1e-2).  Max abs error
+   <= 3e-5 (float32) and <= 3e-2 (bfloat16; times the v scale), the
+   reference's own limits; bfloat16 also within ``ref.bf16_agreement`` <= 1
+   of the plain version in float32 on the same inputs (half a bf16 ulp plus
+   1e-4).
 4b. deployment scale, q8, on phase 4's corpus, queries and ground truth,
    after the fp32 index is freed: QPS, p50/p99, the stage split, recall@100,
    resident scan bytes (codes + scales + bias + keys), the exact store's
@@ -47,17 +52,21 @@ Phases, each printed as JSON records; any failure exits non-zero:
    width and depth, ``serving_config(..., "prefill")`` (bf16, q_chunk 1024),
    bf16 cache, S = 32,768, B = 1 (cut from 32): seconds, tokens/s, K3
    launches (one per layer); K3's output at the first and the last layer
-   against the plain version; K3 / plain / SDPA milliseconds at that
-   layer's (15, 32768, 64) causal bf16 inputs, and the bound.
+   against the plain version (abs and ``bf16_agreement``); K3 / plain /
+   SDPA milliseconds at that layer's (15, 32768, 64) causal bf16 inputs,
+   and the bound (bf16 tensor cores).
 6. LM serving: ``ServeEngine`` with smollm-360m at full width and depth,
    fp32, 4 slots, max_seq 4096, 8 seeded requests of 1,100-4,000 prompt
    tokens and 32 new tokens: completed, prefill tokens/s, decode steps/s,
    p50 decode step, K3 launches.  Then one 1,100-token request through the
    engine on the card and on the CPU (plain path) with the first 4 layers:
-   equal first greedy token, last logits within 1e-3.
+   equal first greedy token, last logits within 1e-3.  Then K3 / plain /
+   SDPA milliseconds at the largest bucket's shape, (15, 4096, 64) causal
+   float32 (seeded inputs), and the bound (fp32 SIMT).
 7. the kernels line: launches on the main path (K1: phases 3 and 4; K2: 3b
    and 4b; K3: 5 and 6), max error, kernel / plain / library times at a
-   main-path shape, and each bound.
+   main-path shape, and each bound; K3 also at phase 6's float32 shape
+   (``*_f32``).
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
@@ -90,6 +99,9 @@ K3_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 K3_REPLACES = "src/repro/kernels/flash_attention.py:28"
 #: K3's limits against its plain version (tests/test_flash_attention.py:26,50)
 K3_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+#: K3's operations bound per dtype: bf16 tensor cores, fp32 SIMT (the
+#: float32 limit rules out TF32)
+K3_PEAK = {torch.float32: PEAK_FP32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
 
 
 def emit(record: dict) -> None:
@@ -792,34 +804,63 @@ def phase_deployment_q8(corpus, queries, gt_i, fp32_ids, n_full: int, batch: int
         raise AssertionError(f"deployment q8 recall@100 {r100} is implausibly low")
     return {"launches": launches, "timing": timing}
 
-def phase_flash_vs_plain() -> dict:
+def k3_case(q, k, v, causal: bool, label: str, v_scale: float = 1.0) -> dict:
+    """K3 against its plain version on the same tensors: the max abs error,
+    ``bf16_agreement`` with the plain version in float32 (0 for float32)
+    and the largest |output|.  Raises past the limits."""
     from repro_torch.kernels import ops, ref
 
+    out = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if out.dtype != q.dtype or out.shape != q.shape:
+        raise AssertionError(f"K3 {label}: output {out.dtype} {tuple(out.shape)}")
+    err = float((out.float() - want.float()).abs().max())
+    agree = 0.0
+    if q.dtype == torch.bfloat16:
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        agree = ref.bf16_agreement(out, want32)
+    if not (err <= K3_TOL[q.dtype] * v_scale and agree <= 1.0):
+        raise AssertionError(f"K3 {label}: max abs err {err}, bf16 agreement {agree}")
+    return {"max_abs_err": err, "bf16_agreement": agree,
+            "max_abs_out": float(out.float().abs().max())}
+
+
+def phase_flash_vs_plain() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for D in (16, 32, 64, 128):
-            for S in (1, 100, 128, 200, 1025, 4096):
-                for causal in (True, False):
-                    for BH in (1, 15, 30):
-                        q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
-                                   for _ in range(3))
-                        out = ops.flash_attention(q, k, v, causal=causal)
-                        want = ref.flash_attention_ref(q, k, v, causal=causal)
-                        torch.cuda.synchronize()
-                        if out.dtype != dtype or out.shape != q.shape:
-                            raise AssertionError(f"K3 output {out.dtype} {tuple(out.shape)}")
-                        err = float((out.float() - want.float()).abs().max())
-                        if not err <= K3_TOL[dtype]:
-                            raise AssertionError(f"K3 {dtype} D={D} S={S} causal={causal} "
-                                                 f"BH={BH}: max abs err {err}")
-                        max_err[dtype] = max(max_err[dtype], err)
-                        cases += 1
-    emit({"phase": "flash_vs_plain", "cases": cases,
-          "max_abs_err_f32": max_err[torch.float32], "tol_f32": K3_TOL[torch.float32],
-          "max_abs_err_bf16": max_err[torch.bfloat16], "tol_bf16": K3_TOL[torch.bfloat16]})
-    return {"f32": max_err[torch.float32], "bf16": max_err[torch.bfloat16]}
+    dtypes, dims, v_big = (torch.float32, torch.bfloat16), (16, 32, 64, 128), 8.0
+    groups = {
+        "shapes": [(dtype, D, S, causal, BH, 1.0) for dtype in dtypes for D in dims
+                   for S in (1, 100, 128, 200, 1025, 4096) for causal in (True, False)
+                   for BH in (1, 15, 30)],
+        "tile_edges": [(dtype, D, S, causal, BH, 1.0) for dtype in dtypes for D in dims
+                       for S in (15, 17, 63, 65, 1000, 4097) for causal in (True, False)
+                       for BH in (1, 7)],
+        "v_scaled": [(torch.bfloat16, 64, 1000, True, 7, v_big)],  # |o| past 4
+    }
+    summary = {}
+    for name, cases in groups.items():
+        g = summary[name] = {"cases": len(cases), "max_abs_err_f32": 0.0, "max_abs_err_bf16": 0.0,
+                             "max_bf16_agreement": 0.0, "max_abs_out": 0.0}
+        for dtype, D, S, causal, BH, v_scale in cases:
+            q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda") for _ in range(3))
+            q, k, v = q.to(dtype), k.to(dtype), (v * v_scale).to(dtype)
+            res = k3_case(q, k, v, causal, f"{dtype} D={D} S={S} causal={causal} BH={BH} "
+                                           f"v x{v_scale:g}", v_scale)
+            key = "max_abs_err_f32" if dtype == torch.float32 else "max_abs_err_bf16"
+            g[key] = max(g[key], res["max_abs_err"])
+            g["max_bf16_agreement"] = max(g["max_bf16_agreement"], res["bf16_agreement"])
+            g["max_abs_out"] = max(g["max_abs_out"], res["max_abs_out"])
+    unit = [summary["shapes"], summary["tile_edges"]]  # v at unit scale
+    out = {"f32": max(g["max_abs_err_f32"] for g in unit),
+           "bf16": max(g["max_abs_err_bf16"] for g in unit),
+           "bf16_agreement": max(g["max_bf16_agreement"] for g in summary.values())}
+    emit({"phase": "flash_vs_plain", "cases": sum(len(c) for c in groups.values()),
+          "max_abs_err_f32": out["f32"], "tol_f32": K3_TOL[torch.float32],
+          "max_abs_err_bf16": out["bf16"], "tol_bf16": K3_TOL[torch.bfloat16],
+          "max_bf16_agreement": out["bf16_agreement"], "bf16_agreement_limit": 1.0,
+          "v_scaled_tol_bf16": K3_TOL[torch.bfloat16] * v_big, "groups": summary})
+    return out
 
 
 class RecordAttention:
@@ -859,7 +900,7 @@ def fold_bhsd(x: torch.Tensor) -> torch.Tensor:
 
 def time_flash_kernel(q, k, v, label: str) -> dict:
     """K3 at one main-path shape (BH, S, D), causal: K3 / plain / SDPA
-    milliseconds and K3's bound."""
+    milliseconds and K3's bound for the inputs' dtype."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -876,7 +917,7 @@ def time_flash_kernel(q, k, v, label: str) -> dict:
     library_ms = cuda_ms(library, iters=10, warmup=2)
     flops = 2.0 * BH * S * S * D  # q k^T and p v over the causal half
     nbytes = 4.0 * BH * S * D * q.element_size()  # q, k, v read, o written
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / K3_PEAK[q.dtype], nbytes / PEAK_HBM_BYTES
     rec = {"shape": label, "BH": BH, "S": S, "D": D, "dtype": str(q.dtype), "causal": True,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -924,12 +965,16 @@ def phase_prefill_32k(S: int = 32_768, B: int = 1) -> dict:
         raise AssertionError(f"prefill_32k: logits {tuple(logits.shape)} not finite")
     if not (cache["k"][:, :, S - 1].abs().sum(-1) > 0).all():
         raise AssertionError("prefill_32k: the cache's last position was not written")
-    layer_err = {}
+    layer_err, layer_agree = {}, {}
     for i, (q, k, v, out) in sorted(rec.calls.items()):
-        want = ref.flash_attention_ref(fold_bhsd(q), fold_bhsd(k), fold_bhsd(v), causal=True)
-        layer_err[f"layer_{i}"] = float((fold_bhsd(out).float() - want.float()).abs().max())
-    if max(layer_err.values()) > K3_TOL[torch.bfloat16]:
-        raise AssertionError(f"prefill_32k: K3 vs plain {layer_err}")
+        q, k, v, out = (fold_bhsd(t) for t in (q, k, v, out))
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        layer_err[f"layer_{i}"] = float((out.float() - want.float()).abs().max())
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+        layer_agree[f"layer_{i}"] = ref.bf16_agreement(out, want32)
+    if max(layer_err.values()) > K3_TOL[torch.bfloat16] or max(layer_agree.values()) > 1.0:
+        raise AssertionError(f"prefill_32k: K3 vs plain {layer_err}, bf16 agreement "
+                             f"{layer_agree}")
     q, k, v, _ = rec.calls[0]
     del logits, cache, params, rec
     timing = time_flash_kernel(fold_bhsd(q), fold_bhsd(k), fold_bhsd(v),
@@ -939,7 +984,7 @@ def phase_prefill_32k(S: int = 32_768, B: int = 1) -> dict:
           "reduced": {"global_batch": f"32 -> {B}"},
           "init_s": init_s, "seconds": seconds, "prefill_tokens_per_s": B * S / seconds,
           "k3_launches": launches, "k3_vs_plain_max_abs_err": layer_err,
-          "peak_device_bytes": peak})
+          "k3_vs_plain_bf16_agreement": layer_agree, "peak_device_bytes": peak})
     return {"launches": launches, "timing": timing, "max_abs_err": max(layer_err.values())}
 
 
@@ -1034,7 +1079,13 @@ def phase_serve_engine(n_requests: int = 8, max_new: int = 32, cpu_layers: int =
                         "first_token": first, "last_logits_max_abs_gap": gap, "tol": 1e-3}})
     if first["cuda"] != first["cpu"] or gap > 1e-3:
         raise AssertionError(f"serve_engine: card vs CPU first token {first}, gap {gap}")
-    return {"launches": launches}
+    # K3 in float32 at the largest bucket's shape (the kernel's time does not
+    # depend on the values)
+    H, D, S = cfg.n_heads, cfg.head_dim, max(buckets)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(H, S, D, generator=gen, device="cuda") for _ in range(3))
+    timing = time_flash_kernel(q, k, v, f"serve_engine largest bucket: smollm-360m, S={S}")
+    return {"launches": launches, "timing": timing}
 
 
 def main() -> int:
@@ -1069,7 +1120,7 @@ def main() -> int:
     if k1_launches <= 0 or k2_launches <= 0 or k3_launches <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
                              f"K2 {k2_launches}, K3 {k3_launches}")
-    t1, t2, t3 = paper["timing"], paper_q8["timing"], prefill["timing"]
+    t1, t2, t3, t3f = paper["timing"], paper_q8["timing"], prefill["timing"], serve["timing"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
     emit({"kernels": [
         {"name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
@@ -1085,9 +1136,11 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": k3_launches,
          "max_abs_err": max(max_err_k3["f32"], max_err_k3["bf16"], prefill["max_abs_err"],
-                            t3["max_abs_err"]),
+                            t3["max_abs_err"], t3f["max_abs_err"]),
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
-         "bound_by": t3["bound_by"], "library_ms": t3["library_ms"]},
+         "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
+         "ms_f32": t3f["ms"], "plain_ms_f32": t3f["plain_ms"], "bound_ms_f32": t3f["bound_ms"],
+         "bound_by_f32": t3f["bound_by"], "library_ms_f32": t3f["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

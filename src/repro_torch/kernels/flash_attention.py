@@ -1,7 +1,9 @@
 """Launcher of K3, the flash-attention forward CUDA kernel.
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::_flash_fwd_kernel``.  This module checks
+``repro/kernels/flash_attention.py::_flash_fwd_kernel``: bfloat16 runs on
+the tensor cores (``mma.sync``, p split into two bf16 terms), float32 on
+the fp32 SIMT pipe, both at float32 grade.  This module checks
 the inputs, allocates the output and launches on PyTorch's current stream.
 Nothing here runs at import: the library is built and loaded at the first
 launch.
@@ -54,6 +56,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c
         raise ValueError("flash_attention_cuda: q, k and v must be contiguous")
     if not (0 < BH <= _MAX_BH and 0 < S < 2**31):
         raise ValueError(f"flash_attention_cuda: BH={BH}, S={S}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda: bfloat16 q, k and v must be 16-byte aligned "
+                         "(the kernel copies rows in 16-byte pieces)")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

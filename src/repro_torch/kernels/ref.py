@@ -194,3 +194,20 @@ def flash_attention_ref(
             m = m_new
         out[:, q0:q1] = (acc / l.clamp_min(1e-30)).to(q.dtype)
     return out
+
+
+def bf16_agreement(out: torch.Tensor, want_f32: torch.Tensor) -> float:
+    """How far a bf16 result is from the float32 result of the same
+    function, in units of what a correct rounding may cost: the largest
+    ``|out - want_f32| / (2**-8 * |want_f32| + 1e-4)``.  It passes at <= 1.
+
+    ``2**-8 * |x|`` bounds half a bf16 ulp of x, the error of rounding x
+    correctly; the 1e-4 takes float32-grade differences of summation order.
+    ``want_f32`` is the plain version run in float32 on the same
+    bf16-valued inputs.  A kernel that rounds an intermediate to bf16 (p
+    before p @ v, say) misses it where an absolute limit does not."""
+    if out.shape != want_f32.shape:
+        raise ValueError(f"bf16_agreement: shapes {tuple(out.shape)}, {tuple(want_f32.shape)}")
+    want = want_f32.float()
+    err = (out.float() - want).abs() / (2.0 ** -8 * want.abs() + 1e-4)
+    return float(err.max()) if err.numel() else 0.0

@@ -170,25 +170,41 @@ def test_card_q8_index_matches_cpu_index(cuda, spill, rerank_store):
     np.testing.assert_allclose(d, d_c, rtol=3e-4, atol=3e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("BH,S,D,causal", [
+# K3's shapes: a few of the model's, then the kernel's tile edges (64-row q
+# and kv tiles) at every head dim, causal and not
+K3_CASES = [
     (1, 1, 16, True),
     (15, 200, 64, True),
     (3, 1025, 128, False),
     (30, 129, 32, True),
     (2, 4096, 64, True),
+] + [(BH, S, D, causal) for S in (15, 17, 63, 65, 1000, 4097) for BH in (1, 7)
+     for D in (16, 32, 64, 128) for causal in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("BH,S,D,causal,v_scale", [c + (1.0,) for c in K3_CASES] + [
+    (7, 1000, 64, True, 8.0),  # outputs past 4, where one bf16 ulp is 3.1e-2
 ])
-def test_k3_matches_plain(cuda, dtype, tol, BH, S, D, causal):
+def test_k3_matches_plain(cuda, dtype, tol, BH, S, D, causal, v_scale):
+    """K3 against its plain version on the same tensors within the
+    reference's limit (scaled with v: attention is linear in v); bfloat16
+    also within half a bf16 ulp + 1e-4 of the plain version in float32
+    (``ref.bf16_agreement``), which a bf16 p would miss."""
     g = torch.Generator(device=cuda).manual_seed(BH * S + D)
-    q, k, v = (torch.randn(BH, S, D, generator=g, device=cuda).to(dtype) for _ in range(3))
+    q, k, v = (torch.randn(BH, S, D, generator=g, device=cuda) for _ in range(3))
+    q, k, v = q.to(dtype), k.to(dtype), (v * v_scale).to(dtype)
     ops.reset_launches()
     out = ops.flash_attention(q, k, v, causal=causal)
     assert ops.KERNEL_LAUNCHES["flash_attention"] == 1
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == q.shape
-    assert float((out.float() - want.float()).abs().max()) <= tol
+    assert float((out.float() - want.float()).abs().max()) <= tol * v_scale
+    if dtype == torch.bfloat16:
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        assert ref.bf16_agreement(out, want32) <= 1.0
 
 
 @pytest.mark.cuda
@@ -199,6 +215,10 @@ def test_k3_rejects_unsupported_inputs(cuda):
     h = torch.zeros(2, 8, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         ops.flash_attention(h, h, h)
+    b = torch.zeros(2 * 8 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(2, 8, 64)
+    assert b.is_contiguous() and b.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(b, b, b)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@
 kernel ``flash_attention_bhsd`` in interpret mode, the jnp
 ``chunked_attention`` and ``dot_attention``.  Limits are the reference's own
 (``tests/test_flash_attention.py``): max abs error 3e-5 in float32, 3e-2 in
-bfloat16.  K3 itself is held against its plain version on the card in
-``test_torch_cuda.py``."""
+bfloat16.  ``ref.bf16_agreement``, the stricter bf16 check against the
+float32 function, is tested here too.  K3 itself is held against its plain
+version on the card in ``test_torch_cuda.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,3 +139,55 @@ def test_kernel_launcher_needs_cuda_tensors():
     q = torch.zeros(2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, q, q, causal=True, scale=0.125)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each (bf16-representable, nonzero) value."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs())) - 7)
+
+
+BF16_VALUES = [0.5, 1.0, 1.5, 3.0, -5.0, 100.0, -0.75]
+
+
+def test_bf16_agreement_passes_half_an_ulp():
+    x = torch.tensor(BF16_VALUES).bfloat16()
+    for sign in (1, -1):
+        want = x.float() + sign * _bf16_ulp(x) / 2  # exact in float32: a rounding tie
+        assert ref.bf16_agreement(x, want) <= 1.0
+    assert ref.bf16_agreement(x, x.float()) == 0.0
+
+
+@pytest.mark.parametrize("value", BF16_VALUES)
+def test_bf16_agreement_fails_two_ulps(value):
+    x = torch.tensor([value]).bfloat16()
+    out = (x.float() + 2 * _bf16_ulp(x)).bfloat16()
+    assert float(out.float() - x.float()) == float(2 * _bf16_ulp(x))  # representable
+    assert ref.bf16_agreement(out, x.float()) > 1.0
+
+
+@pytest.mark.parametrize("BH,S,D,causal", [(4, 256, 64, True), (2, 200, 32, False),
+                                           (3, 77, 16, True), (2, 130, 128, False)])
+def test_bf16_agreement_of_plain_version(BH, S, D, causal):
+    """The plain version in bf16 rounds its own float32 result once, so it
+    agrees with it; the same attention with p rounded to bf16 before p @ v
+    passes the absolute 3e-2 limit but not the agreement check."""
+    rng = np.random.default_rng(BH * S + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((BH, S, D)).astype(np.float32)).bfloat16()
+               for _ in range(3))
+    want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    out = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert out.dtype == torch.bfloat16
+    assert ref.bf16_agreement(out, want32) <= 1.0
+
+    s = q.float() @ k.float().transpose(1, 2) / D ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    bf16_p = ((p.bfloat16().float() @ v.float()) / p.sum(-1, keepdim=True)).bfloat16()
+    assert float((bf16_p.float() - out.float()).abs().max()) < BF16_TOL
+    assert ref.bf16_agreement(bf16_p, want32) > 1.0
+
+
+def test_bf16_agreement_rejects_shape_mismatch():
+    with pytest.raises(ValueError, match="shapes"):
+        ref.bf16_agreement(torch.zeros(2, 3), torch.zeros(3, 2))
