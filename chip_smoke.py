@@ -42,7 +42,9 @@ Phases, each printed as JSON records; any failure exits non-zero:
    <= 3e-5 (float32) and <= 3e-2 (bfloat16; times the v scale), the
    reference's own limits; bfloat16 also within ``ref.bf16_agreement`` <= 1
    of the plain version in float32 on the same inputs (half a bf16 ulp plus
-   1e-4).
+   1e-4).  Then K3 / plain / SDPA milliseconds and the bound at (32, 8192,
+   128) causal bf16, seeded: the head dim of codeqwen1.5-7b and qwen2-72b,
+   which no later phase runs.
 4b. deployment scale, q8, on phase 4's corpus, queries and ground truth,
    after the fp32 index is freed: QPS, p50/p99, the stage split, recall@100,
    resident scan bytes (codes + scales + bias + keys), the exact store's
@@ -62,7 +64,7 @@ Phases, each printed as JSON records; any failure exits non-zero:
    engine on the card and on the CPU (plain path) with the first 4 layers:
    equal first greedy token, last logits within 1e-3.  Then K3 / plain /
    SDPA milliseconds at the largest bucket's shape, (15, 4096, 64) causal
-   float32 (seeded inputs), and the bound (fp32 SIMT).
+   float32 (seeded inputs), and the bound (float32-grade, 3xTF32).
 7. the kernels line: launches on the main path (K1: phases 3 and 4; K2: 3b
    and 4b; K3: 5 and 6), max error, kernel / plain / library times at a
    main-path shape, and each bound; K3 also at phase 6's float32 shape
@@ -85,9 +87,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TOL = 3e-4
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
-# int8 and bf16 tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
+# H100 SXM peaks (NVIDIA data sheet): float32-grade products, dense int8
+# and bf16 tensor cores, HBM3.  A float32-grade product is fastest as a
+# 3xTF32 split on the tensor cores (three TF32 MMAs at 495 TFLOP/s dense,
+# the route of PyTorch's float32 SDPA), not on the 67 TFLOP/s fp32 pipe.
+PEAK_F32_FLOPS = 495e12 / 3
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -99,9 +103,8 @@ K3_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 K3_REPLACES = "src/repro/kernels/flash_attention.py:28"
 #: K3's limits against its plain version (tests/test_flash_attention.py:26,50)
 K3_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
-#: K3's operations bound per dtype: bf16 tensor cores, fp32 SIMT (the
-#: float32 limit rules out TF32)
-K3_PEAK = {torch.float32: PEAK_FP32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+#: K3's operations bound per dtype
+K3_PEAK = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
 
 
 def emit(record: dict) -> None:
@@ -236,7 +239,7 @@ def time_kernel(q: torch.Tensor, x: torch.Tensor, k: int, label: str) -> dict:
     library_ms = cuda_ms(library)
     flops = 2.0 * B * N * D + 2.0 * N * D  # q.x for every pair, ||x||^2 per row
     nbytes = 4.0 * (B * D + N * D) + 8.0 * B * k_pad
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     rec = {"shape": label, "B": B, "N": N, "D": D, "k": k, "k_pad": k_pad,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": 1e3 * max(t_ops, t_bytes),
@@ -860,6 +863,11 @@ def phase_flash_vs_plain() -> dict:
           "max_abs_err_bf16": out["bf16"], "tol_bf16": K3_TOL[torch.bfloat16],
           "max_bf16_agreement": out["bf16_agreement"], "bf16_agreement_limit": 1.0,
           "v_scaled_tol_bf16": K3_TOL[torch.bfloat16] * v_big, "groups": summary})
+    # no driven path runs head dim 128 (smollm-360m's is 64): time the bf16
+    # D = 128 instance here, at codeqwen1.5-7b's 32 heads and an 8k prompt
+    q, k, v = (torch.randn(32, 8192, 128, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    time_flash_kernel(q, k, v, "codeqwen1.5-7b heads, seeded: BH=32, S=8192, D=128")
     return out
 
 

@@ -9,10 +9,11 @@
 //
 // What bounds it: float32 operations.  Each (query, row) pair costs 2*D
 // flops against 4*D bytes of a row that is shared by a whole tile of
-// queries, so with more than a few queries per launch the card's fp32 rate
-// (67 TFLOP/s without tensor cores) is the limit, not HBM.  Tensor cores are
-// not used: TF32 rounds the inputs and breaks the parity contract with the
-// reference (rtol = atol = 3e-4).  Short of that rate, what limits a SIMT
+// queries, so with more than a few queries per launch the card's rate of
+// float32-grade products is the limit, not HBM: 165 TFLOP/s as a 3xTF32
+// split on the tensor cores, 67 TFLOP/s on the fp32 SIMT pipe used here.  A
+// single TF32 product rounds the inputs and breaks the parity contract with
+// the reference (rtol = atol = 3e-4).  Short of that rate, what limits a SIMT
 // kernel is the traffic from L2 into each SM: a block re-reads its corpus
 // tile for every query tile, so the block takes TQ = 32 queries to do 8
 // FMAs per byte it loads.

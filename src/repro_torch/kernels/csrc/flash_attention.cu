@@ -12,7 +12,9 @@
 // What bounds it: operations.  A (64-row q tile, 64-row kv tile) pair does
 // 4 * 64 * 64 * D flops against 2 * 64 * D loaded values, so the card's
 // arithmetic rate is the limit: 989 TFLOP/s of dense bf16 on the tensor
-// cores for bf16 inputs, 67 TFLOP/s of fp32 SIMT for float32 inputs.
+// cores for bf16 inputs; for float32 inputs, 165 TFLOP/s of float32-grade
+// products as a 3xTF32 split on the tensor cores (495 / 3), above the
+// 67 TFLOP/s of the fp32 SIMT pipe that the float32 path uses.
 //
 // bfloat16 (flash_fwd_mma_kernel): the tensor cores, at float32 grade.
 //  * q . k^T: q and k are bf16, so each product is exact and the
@@ -46,8 +48,8 @@
 //  * Left for later: wgmma with p from registers, a TMA ring with mbarriers,
 //    warp specialisation (a producer warp and two consumer warpgroups).
 //
-// float32 (flash_fwd_kernel): fp32 SIMT.  The float32 limit of 3e-5 rules
-// out TF32.  One block of 256 threads owns one 64-row q tile; thread t owns 4
+// float32 (flash_fwd_kernel): fp32 SIMT.  A single TF32 product would break
+// the float32 limit of 3e-5; a 3xTF32 split is left for later.  One block of 256 threads owns one 64-row q tile; thread t owns 4
 // q rows and, in each 64-column score tile, the columns t % 16 + 16 j.  The
 // 16 threads that share rows form a half-warp, so row max and row sum are
 // shuffles and p goes through shared memory with only __syncwarp.  q, k and

@@ -201,13 +201,21 @@ def distance_topk_q8(q, qc, k: int, metric: str = "l2", *, n_valid: int | None =
     return out_d, out_i
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary, copied if need be."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     """Attention forward over q, k, v (BH, S, D), one device, one dtype:
     ``softmax(scale * q k^T) v`` per row, causal or bidirectional, with all
     math in float32 and the output in q's dtype.  ``scale`` defaults to
     1/sqrt(D).  CPU tensors run ``ref.flash_attention_ref``; CUDA tensors
     launch K3 (float32 or bfloat16, D in 16/32/64/128; anything else
-    raises)."""
+    raises).  Inputs that are not contiguous, or do not start on a
+    16-byte boundary (the kernel copies bfloat16 rows in 16-byte pieces),
+    are copied first."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}; expected three equal (BH, S, D)")
@@ -221,7 +229,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if q.numel() == 0:
         return torch.empty_like(q)
-    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+    out = flash_attention_cuda(_aligned(q), _aligned(k), _aligned(v), causal=causal,
                                scale=scale)
     KERNEL_LAUNCHES["flash_attention"] += 1
     return out

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import LannsConfig, LannsIndex
 from repro_torch.data.synthetic import sift_like
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 
 
 @pytest.fixture()
@@ -215,10 +216,15 @@ def test_k3_rejects_unsupported_inputs(cuda):
     h = torch.zeros(2, 8, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         ops.flash_attention(h, h, h)
-    b = torch.zeros(2 * 8 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(2, 8, 64)
+    # a contiguous bf16 view off the 16-byte grid: the launcher refuses it,
+    # the wrapper copies it and gives the plain version's answer
+    b = torch.randn(2 * 8 * 64 + 1, device=cuda).to(torch.bfloat16)[1:].view(2, 8, 64)
     assert b.is_contiguous() and b.data_ptr() % 16 != 0
     with pytest.raises(ValueError, match="16-byte aligned"):
-        ops.flash_attention(b, b, b)
+        flash_attention_cuda(b, b, b, causal=True, scale=0.125)
+    out = ops.flash_attention(b, b, b)
+    want = ref.flash_attention_ref(b.float(), b.float(), b.float(), causal=True)
+    assert ref.bf16_agreement(out, want) <= 1.0
 
 
 @pytest.mark.cuda
