@@ -11,13 +11,16 @@ Phases, each printed as JSON records; any failure exits non-zero:
 2. K1 vs plain: ``ops.distance_topk`` on CUDA tensors against
    ``ref.distance_topk_blocked`` on the same tensors, for l2/ip/cos,
    k in {10, 100, 200, 400} (k_pad 128/256/512), D in {50, 128, 960, 2048},
-   ragged B and N, n_valid < N, k > N and N == 0.  rtol = atol = 3e-4; ids
-   equal up to one swap per row between near-equal distances at the k-th
-   place.
+   ragged B and N, n_valid < N, k > N and N == 0; the scan's tile edges
+   (B = 63 and 65 queries, N = 63 and 65 rows, a corpus chunk that ends
+   one row past or short of a whole chunk, at each k_pad) and D in {1, 7,
+   9, 33}.  rtol = atol = 3e-4; ids equal up to one swap per row between
+   near-equal distances at the k-th place.
 2b. K2 vs plain: ``ops.distance_topk_q8`` (int8 codes on the card) against
    ``ref.distance_topk_q8_blocked`` on the same tensors, for l2/ip/cos,
    k in {10, 38, 120, 228, 400}, D in {50, 128, 512, 960, 2048}, ragged B
-   and N, n_valid < N, k > N and N == 0.  Scores BIT-EQUAL; ids equal up to
+   and N, n_valid < N, k > N and N == 0; phase 2's tile edges and D in
+   {31, 33} codes.  Scores BIT-EQUAL; ids equal up to
    swaps between equal scores at the k-th place, and every returned id
    carries its own plain score.  The torch query codes are bit-equal to the
    numpy codec's.
@@ -177,6 +180,38 @@ def phase_card() -> str:
     return smi
 
 
+def chunk_edges(B: int, k_pads=(128, 256, 512), lo: int = 4000, hi: int = 40_000) -> list:
+    """(k, n_valid) pairs whose last corpus chunk (``split_plan`` on this
+    card) holds one row, or one row short of a whole chunk, at each k_pad."""
+    from repro_torch.kernels.distance_topk import split_plan
+
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for k_pad in k_pads:
+        want = {1, -1}
+        for nv in range(lo, hi):
+            ns, ch = split_plan(B, nv, sm, k_pad)
+            edge = 1 if nv % ch == 1 else -1 if nv % ch == ch - 1 else 0
+            if ns > 1 and edge in want:
+                want.discard(edge)
+                out.append((k_pad * 3 // 4, nv))
+            if not want:
+                break
+    return out
+
+
+def tile_edge_cases(k_pads=(128, 256, 512)) -> list:
+    """The scan's tile edges, as (metric, k, D, B, N, n_valid): B = 64 +- 1
+    queries, N = 64 +- 1 rows, a chunk edge +- 1 at each k_pad."""
+    from repro_torch.kernels.distance_topk import TILE_N, TILE_Q
+
+    cases = [("l2", k_pad * 3 // 4, 64, B, 5003, None)
+             for B in (TILE_Q - 1, TILE_Q + 1) for k_pad in k_pads]
+    cases += [("ip", k, 32, 37, N, None) for N in (TILE_N - 1, TILE_N + 1) for k in (10, 60)]
+    cases += [("l2", k, 48, TILE_Q + 1, nv + 100, nv) for k, nv in chunk_edges(TILE_Q + 1, k_pads)]
+    return cases
+
+
 def phase_kernel_vs_plain() -> float:
     from repro_torch.kernels import ops, ref
 
@@ -194,6 +229,8 @@ def phase_kernel_vs_plain() -> float:
         ("l2", 10, 128, 1000, 200_000, None),  # split across many chunks
         ("l2", 10, 64, 4, 0, None),        # N == 0
     ]
+    cases += tile_edge_cases()
+    cases += [(m, 100, D, 37, 5003, None) for D in (1, 7, 9, 33) for m in ("l2", "ip")]
     max_err, swaps = 0.0, 0
     for metric, k, D, B, N, nv in cases:
         q = torch.randn(B, D, generator=gen, device="cuda")
@@ -315,6 +352,8 @@ def phase_q8_kernel_vs_plain() -> float:
         ("ip", 400, 2048, 1000, 50_001, None),  # k_pad 512, many query tiles
         ("l2", 10, 128, 4, 0, None),       # N == 0
     ]
+    cases += tile_edge_cases()
+    cases += [(m, 100, D, 37, 5003, None) for D in (31, 33) for m in ("l2", "ip")]
     max_err, swaps = 0.0, 0
     for metric, k, D, B, N, nv in cases:
         label = f"q8 {metric} k={k} D={D} B={B} N={N} nv={nv}"

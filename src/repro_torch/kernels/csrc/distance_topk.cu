@@ -1,4 +1,5 @@
-// K1: fused distance + streaming top-k for Hopper (sm_90a), fp32 SIMT.
+// K1: fused distance + streaming top-k for Hopper (sm_90a), float32 scores
+// as a 3xTF32 split on the tensor cores.
 //
 // Replaces src/repro/kernels/distance_topk.py::_distance_topk_kernel, the
 // Pallas TPU kernel behind ops.distance_topk.  For each query row it returns
@@ -7,40 +8,42 @@
 //   l2: ||x||^2 - 2 q.x   (the caller adds ||q||^2 back)
 //   ip: -q.x               (cos is ip over rows the caller normalized)
 //
-// What bounds it: float32 operations.  Each (query, row) pair costs 2*D
-// flops against 4*D bytes of a row that is shared by a whole tile of
-// queries, so with more than a few queries per launch the card's rate of
-// float32-grade products is the limit, not HBM: 165 TFLOP/s as a 3xTF32
-// split on the tensor cores, 67 TFLOP/s on the fp32 SIMT pipe used here.  A
-// single TF32 product rounds the inputs and breaks the parity contract with
-// the reference (rtol = atol = 3e-4).  Short of that rate, what limits a SIMT
-// kernel is the traffic from L2 into each SM: a block re-reads its corpus
-// tile for every query tile, so the block takes TQ = 32 queries to do 8
-// FMAs per byte it loads.
+// What bounds it: float32-grade operations.  Each (query, row) pair costs
+// 2*D flops against 4*D bytes of a row that a whole query tile shares, so
+// with more than a few queries per launch the card's rate of float32-grade
+// products is the limit, not HBM (3.35 TB/s): 165 TFLOP/s as a 3xTF32 split
+// on the tensor cores (495 TFLOP/s of TF32 over three products).
 //
-// Design:
-//  * The TPU kernel carries its running top-k across a sequential grid axis.
-//    Blocks here run in parallel and in no order, so each block owns a tile
-//    of TQ queries and one contiguous chunk of corpus rows, walks that chunk
-//    in tiles of TN = 128 rows with a loop, and writes a partial top-k_pad
-//    list per (query, chunk).  Splitting N across blocks keeps the 132 SMs
-//    busy when a routed batch has only a few hundred queries.  The second
-//    kernel, merge_partials_kernel, merges the per-chunk lists.
-//  * Scores: the x tile and the q tile are staged in shared memory one D
-//    slice of TD = 32 columns at a time (x rows padded to 33 floats, q
-//    columns to TQ + 4, so reads are conflict-free).  While a slice is being
-//    used, each thread already holds its share of the next slice in
-//    registers, so the global loads overlap the FMAs.  Each thread
-//    accumulates 2 rows x TQ/4 queries in registers with plain fp32 FMAs.
-//    Scores go to shared memory only.
-//  * Top-k (topk.cuh, shared with K2): each query keeps a sorted running
-//    list of k_pad (dist, id) pairs and a candidate buffer in shared memory;
-//    a tile score enters the buffer (by warp ballot) only if it beats the
-//    query's current k-th best, and full buffers are bitonic-sorted and
-//    merged.  k_pad is 128, 256 or 512; at 512 the block takes TQ = 16
-//    queries so that the lists fit in shared memory.
+// Design (the shared scan is csrc/scan.cuh, the top-k csrc/topk.cuh), by
+// what held the SIMT version back:
+//  1. Scores on the SIMT pipe (~15% of the f32-grade rate): now the tensor
+//     cores.  mma.sync m16n8k8 takes tf32 operands, which keep 10 of the 23
+//     mantissa bits, so one TF32 product breaks the parity contract with the
+//     reference (rtol = atol = 3e-4).  Each operand a is split into
+//     hi = cvt.rna.tf32(a) and lo = cvt.rna.tf32(a - hi) (rounded with two
+//     integer operations: the conversion instruction's low issue rate made
+//     it the bottleneck), and a tile accumulates a_lo.b_hi + a_hi.b_lo +
+//     a_hi.b_hi in float32 (the lo.lo term is below float32's rounding).
+//     ||x||^2 stays a plain float32 sum of squares of the staged row, as the
+//     TPU body computes it.
+//  2. A score tile through shared memory: gone.  Accumulators are scored and
+//     filtered in registers; only survivors reach shared memory.
+//  3. Block barriers behind a flush: a producer warp and an mbarrier ring
+//     decouple the four consumer warps, and each warp flushes its own
+//     queries.
+//  4. k_pad 512 halving the query tile: the running lists live in the
+//     partial output in device memory, so every k_pad keeps 64 queries a
+//     block and two blocks per SM.
+//  5. Synchronous staging: a 4-stage cp.async ring of (q, x) slices.
+// And the selection work itself shrinks: chunks publish bounds of their
+// best scores to each other, so a chunk admits a few candidates a query
+// where it admitted a sixth to a half of its rows.
+//  * Blocks run in parallel and in no order, unlike the TPU grid that
+//    carries its top-k across a sequential axis: each block writes a partial
+//    list per (query, chunk) and merge_partials_kernel merges them.
 //  * n_valid is a runtime argument: rows >= n_valid are neither read nor
-//    scored.  Queries past B are computed on zeros and never written.
+//    scored.  Queries past B are computed on zeros and never written.  A D
+//    that is not a multiple of the MMA depth zero-fills the last k-slice.
 //
 // Interface: a plain C function for ctypes.  It launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -48,163 +51,103 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "topk.cuh"
+#include "scan.cuh"
 
 namespace {
 
-using topk::TD;
-using topk::THREADS;
-using topk::TN;
-using topk::WARPS;
+using scan::NJ;
 
-static_assert(TD == 32, "one warp loads one 32-column row segment");
-static_assert(THREADS == 4 * 64 && TN == 2 * 64,
-              "thread t scores rows t%64 and t%64+64 for queries TQ/4*(t/64) .. +TQ/4-1");
+// cvt.rna.tf32.f32 for finite a, as two full-rate integer operations (the
+// conversion instruction issues at a fraction of their rate): add half of
+// the 13 dropped bits to the magnitude, then clear them, which rounds to
+// nearest with ties away from zero.
+__device__ __forceinline__ uint32_t to_tf32(uint32_t a) { return (a + 0x1000u) & 0xffffe000u; }
 
-// This thread's share of one D slice: x rows of the tile, q rows of the block.
-template <int TQ>
-__device__ __forceinline__ void load_slice(const float* __restrict__ x, const float* __restrict__ q,
-                                           int tile_start, int c_end, int d0, int D, int q0, int B,
-                                           int tid, float (&xr)[TN * TD / THREADS],
-                                           float (&qr)[TQ * TD / THREADS]) {
-#pragma unroll
-  for (int j = 0; j < TN * TD / THREADS; ++j) {
-    const int e = tid + j * THREADS;
-    const int row = tile_start + e / TD, col = d0 + e % TD;
-    xr[j] = (row < c_end && col < D) ? __ldg(x + (size_t)row * D + col) : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < TQ * TD / THREADS; ++j) {
-    const int e = tid + j * THREADS;
-    const int qrow = q0 + e / TD, col = d0 + e % TD;
-    qr[j] = (qrow < B && col < D) ? __ldg(q + (size_t)qrow * D + col) : 0.f;
-  }
+// a = hi + lo: hi = tf32(a), lo = tf32(a - hi)
+__device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(a);
+  lo = to_tf32(__float_as_uint(__uint_as_float(a) - __uint_as_float(hi)));
 }
 
-template <int K, int TQ>
-__global__ void __launch_bounds__(THREADS, 2)
-distance_topk_partial_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                             float* __restrict__ out_d, int* __restrict__ out_i,
-                             int B, int D, int n_valid, int metric, int nsplit, int chunk) {
-  using Smem = topk::TileSmem<float, K, TQ>;
-  constexpr int QT = TQ / 4;  // queries per thread in the scoring loop
-  constexpr int QPW = TQ / WARPS;
-  constexpr int X_PER_THREAD = TN * TD / THREADS;
-  constexpr int Q_PER_THREAD = TQ * TD / THREADS;
-  static_assert(TQ % 16 == 0 && QT % 4 == 0, "float4 reads of the q slice");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int w = tid >> 5;
-  const int q0 = blockIdx.x * TQ;
-  const int split = blockIdx.y;
-  const int c_begin = split * chunk;
-  const int c_end = min(c_begin + chunk, n_valid);
-
-  topk::init_lists<Smem, K, TQ>(sm, tid);
-  __syncthreads();
-  float thresh[QPW];  // per query of this warp: k-th best so far (warp-uniform)
-  int cnt[QPW];       // per query: buffered candidates (warp-uniform)
-#pragma unroll
-  for (int u = 0; u < QPW; ++u) {
-    thresh[u] = topk::inf_f();
-    cnt[u] = 0;
-  }
-
-  const int rg = tid & 63;  // this thread scores rows rg and rg + 64
-  const int qg = tid >> 6;  // ... for queries QT*qg .. QT*qg + QT-1
-  float xr[X_PER_THREAD], qr[Q_PER_THREAD];
-  if (c_begin < c_end) load_slice<TQ>(x, q, c_begin, c_end, 0, D, q0, B, tid, xr, qr);
-
-  for (int tile_start = c_begin; tile_start < c_end; tile_start += TN) {
-    float acc[2][QT];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int j = 0; j < QT; ++j) acc[a][j] = 0.f;
-    float nrm[2] = {0.f, 0.f};
-    for (int d0 = 0; d0 < D; d0 += TD) {
-      __syncthreads();  // every warp is done with the previous slice / tile
-#pragma unroll
-      for (int j = 0; j < X_PER_THREAD; ++j) {
-        const int e = tid + j * THREADS;
-        sm.xs[(e / TD) * Smem::XS_STRIDE + e % TD] = xr[j];
-      }
-#pragma unroll
-      for (int j = 0; j < Q_PER_THREAD; ++j) {
-        const int e = tid + j * THREADS;
-        sm.qs[(e % TD) * Smem::QS_STRIDE + e / TD] = qr[j];
-      }
-      __syncthreads();
-      // prefetch the next slice (or the next tile's first) while this one runs
-      if (d0 + TD < D)
-        load_slice<TQ>(x, q, tile_start, c_end, d0 + TD, D, q0, B, tid, xr, qr);
-      else if (tile_start + TN < c_end)
-        load_slice<TQ>(x, q, tile_start + TN, c_end, 0, D, q0, B, tid, xr, qr);
-#pragma unroll 8
-      for (int c = 0; c < TD; ++c) {
-        const float xa = sm.xs[rg * Smem::XS_STRIDE + c];
-        const float xb = sm.xs[(rg + 64) * Smem::XS_STRIDE + c];
-        float qv[QT];
-#pragma unroll
-        for (int h = 0; h < QT / 4; ++h) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(sm.qs + c * Smem::QS_STRIDE + qg * QT + 4 * h);
-          qv[4 * h] = v.x;
-          qv[4 * h + 1] = v.y;
-          qv[4 * h + 2] = v.z;
-          qv[4 * h + 3] = v.w;
-        }
-#pragma unroll
-        for (int j = 0; j < QT; ++j) {
-          acc[0][j] = fmaf(qv[j], xa, acc[0][j]);
-          acc[1][j] = fmaf(qv[j], xb, acc[1][j]);
-        }
-        nrm[0] = fmaf(xa, xa, nrm[0]);
-        nrm[1] = fmaf(xb, xb, nrm[1]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = rg + a * 64;
-      const bool valid = tile_start + r < c_end;
-#pragma unroll
-      for (int j = 0; j < QT; ++j) {
-        const float s = metric == 0 ? nrm[a] - 2.f * acc[a][j] : -acc[a][j];
-        sm.tile[(qg * QT + j) * TN + r] = valid ? s : topk::inf_f();
-      }
-    }
-    __syncthreads();
-    topk::admit_tile<Smem, K, TQ>(sm, tile_start, w, lane, thresh, cnt);
-    // the next tile rewrites sm.tile only after the __syncthreads that opens
-    // its first D slice, which every warp reaches after finishing admit_tile
-  }
-  topk::write_lists<Smem, K, TQ>(sm, w, lane, cnt, q0, B, nsplit, split, out_d, out_i);
+// c += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+struct F32Op {
+  struct Args {
+    int metric;  // 0 = l2, 1 = ip
+  };
+  struct Lane {};
+  struct Acc {
+    float c[NJ][4];
+    float nrm[NJ];  // this lane's part of ||x||^2 of row 8 j + g of the tile
+  };
+  static constexpr bool AUX = false;
+  __device__ static const float* aux_ptr(const Args&) { return nullptr; }
+  __device__ static void init_lane(Lane&, const Args&, int, int) {}
+  __device__ static void read_aux(Lane&, const float*, int) {}
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      acc.nrm[j] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc.c[j][e] = 0.f;
+    }
+  }
+
+  __device__ static void kstep(Acc& acc, Lane&, const uint32_t (&a)[4],
+                               const uint32_t (&bf)[NJ / 2][4]) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const uint32_t b0 = bf[j / 2][2 * (j % 2)], b1 = bf[j / 2][2 * (j % 2) + 1];
+      const float f0 = __uint_as_float(b0), f1 = __uint_as_float(b1);
+      acc.nrm[j] = fmaf(f1, f1, fmaf(f0, f0, acc.nrm[j]));
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(b0, bh0, bl0);
+      split_tf32(b1, bh1, bl1);
+      mma_tf32(acc.c[j], al, bh0, bh1);
+      mma_tf32(acc.c[j], ah, bl0, bl1);
+      mma_tf32(acc.c[j], ah, bh0, bh1);
+    }
+  }
+
+  __device__ static void scores(float (&s)[NJ][4], const Acc& acc, const Lane&, const Args& args,
+                                int lane) {
+    const int t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float n = acc.nrm[j];
+      n += __shfl_xor_sync(scan::FULL, n, 1);
+      n += __shfl_xor_sync(scan::FULL, n, 2);
+      // rows 2 t and 2 t + 1 of the n8 tile are summed by quads 2 t, 2 t + 1
+      const float n_a = __shfl_sync(scan::FULL, n, 8 * t);
+      const float n_b = __shfl_sync(scan::FULL, n, 8 * t + 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float c = acc.c[j][e];
+        s[j][e] = args.metric == 0 ? ((e & 1) ? n_b : n_a) - 2.f * c : -c;
+      }
+    }
+  }
+};
 
 template <int K>
 cudaError_t launch(const float* q, const float* x, float* part_d, int* part_i, float* out_d,
                    int* out_i, int B, int D, int n_valid, int metric, int nsplit, int chunk,
                    cudaStream_t stream) {
-  constexpr int TQ = topk::QTile<K>::value;
-  const int smem = (int)sizeof(topk::TileSmem<float, K, TQ>);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(distance_topk_partial_kernel<K, TQ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const dim3 grid((B + TQ - 1) / TQ, nsplit);
-  const bool direct = nsplit == 1;  // one chunk: its partial list is the answer
-  distance_topk_partial_kernel<K, TQ><<<grid, THREADS, smem, stream>>>(
-      q, x, direct ? out_d : part_d, direct ? out_i : part_i, B, D, n_valid, metric, nsplit,
-      chunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || direct) return e;
-  return topk::launch_merge<K>(part_d, part_i, out_d, out_i, B, nsplit, stream);
+  return scan::launch<F32Op, K>(reinterpret_cast<const uint32_t*>(q),
+                                reinterpret_cast<const uint32_t*>(x), F32Op::Args{metric}, part_d,
+                                part_i, out_d, out_i, B, D, n_valid, nsplit, chunk, stream);
 }
 
 }  // namespace

@@ -1,18 +1,22 @@
-// Streaming top-k machinery shared by K1 (distance_topk.cu) and K2
-// (distance_topk_q8.cu): the shared-memory layout of a scoring block, the
-// warp-level bitonic sort / merge of (dist, id) lists, the ballot-filtered
-// admission of one tile's scores, and the kernel that merges per-chunk
-// partial lists.
+// Top-k machinery shared by K1 (distance_topk.cu) and K2
+// (distance_topk_q8.cu): warp-level sorts and merges of (dist, id) lists
+// held in registers, the per-query flush of a candidate buffer into a
+// running list, and the kernel that merges per-chunk partial lists.
 //
-// A scoring block owns TQ queries and one chunk of corpus rows, walked in
-// tiles of TN rows.  Warp w owns queries QPW*w .. QPW*w + QPW-1 in the top-k
-// phase.  Each query keeps a sorted running list of K (dist, id) pairs and a
-// candidate buffer of K pairs in shared memory.  A tile score enters the
-// buffer (by warp ballot) only if it beats the query's current K-th best; a
-// full buffer is sorted with a bitonic network and merged into the running
-// list (elementwise min against the reversed buffer, then a half-cleaner
-// cascade).  Past the first few tiles most scores cost one compare and one
-// ballot per 32.
+// A running list is a query's k_pad best (dist, id) pairs of one corpus
+// chunk.  It lives in device memory, in the chunk's own slot of the partial
+// output (so it takes no shared memory and the query tile does not shrink
+// as k_pad grows), and is touched only by a flush, which the one warp that
+// owns the query does alone, 32 candidates at a time:
+//  * fill: while the list holds fewer than K pairs, the candidates, sorted
+//    across the lanes with shuffles, are appended; the append that fills it
+//    sorts it (a bitonic sort of K / 32 registers a lane) and its last
+//    entry becomes the query's threshold;
+//  * merge: the list is loaded into registers, its last 32 slots take the
+//    elementwise min against the reversed candidates (a bitonic sequence
+//    that holds the K best), and one bitonic cleaner sorts it.
+// A list that never filled is sorted once at the end of the chunk, over the
+// smallest power-of-two prefix that holds it.
 
 #pragma once
 
@@ -21,40 +25,20 @@
 
 namespace topk {
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int TN = 128;  // corpus rows per tile
-constexpr int TD = 32;   // 32-bit words per shared-memory slice of a row
-
-// Query tile: 32 queries per block, 16 at K = 512 so that the lists fit in
-// shared memory (one block per SM at K >= 256).
-template <int K>
-struct QTile {
-  static constexpr int value = K >= 512 ? 16 : 32;
-};
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int CB = 32;  // candidate slots per query: one per lane
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
-// Shared memory of one scoring block.  T is the word type of the staged
-// tiles: float (K1) or int holding four int8 codes (K2).  x rows are padded
-// to 33 words and q columns to TQ + 4 (16-byte aligned), so the reads of
-// the scoring loop are conflict-free.
-template <typename T, int K, int TQ>
-struct TileSmem {
-  static constexpr int XS_STRIDE = TD + 1;
-  static constexpr int QS_STRIDE = TQ + 4;
-  T xs[TN * XS_STRIDE];              // x tile, one D slice
-  alignas(16) T qs[TD * QS_STRIDE];  // q tile, one D slice, [d][q]
-  float tile[TQ * TN];               // scores of the current tile
-  float run_d[TQ * K];               // running top-K per query, ascending
-  int run_i[TQ * K];
-  float buf_d[TQ * K];               // candidates waiting to be merged
-  int buf_i[TQ * K];
-};
+// The order of every list: by distance, ties by id.  A total order makes
+// the result the same in every run, whichever chunk admits a tied pair first.
+__device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
+  return a < b || (a == b && ia < ib);
+}
 
 __device__ __forceinline__ void cmp_swap(float* d, int* id, int i, int j, bool asc) {
   float di = d[i], dj = d[j];
-  if ((di > dj) == asc && di != dj) {
+  if (asc ? before(dj, id[j], di, id[i]) : before(di, id[i], dj, id[j])) {
     d[i] = dj;
     d[j] = di;
     int t = id[i];
@@ -63,26 +47,12 @@ __device__ __forceinline__ void cmp_swap(float* d, int* id, int i, int j, bool a
   }
 }
 
-// Ascending bitonic sort of K (dist, id) pairs by one warp.
-template <int K>
-__device__ void warp_sort(float* d, int* id, int lane) {
-  for (int size = 2; size <= K; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = lane; t < K / 2; t += 32) {
-        int i = 2 * t - (t & (stride - 1));
-        cmp_swap(d, id, i, i + stride, (i & size) == 0);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // run <- the K smallest of run U buf, ascending; both inputs ascending.
 template <int K>
 __device__ void warp_merge(float* rd, int* ri, const float* bd, const int* bi, int lane) {
   for (int i = lane; i < K; i += 32) {
     float b = bd[K - 1 - i];
-    if (b < rd[i]) {
+    if (before(b, bi[K - 1 - i], rd[i], ri[i])) {
       rd[i] = b;
       ri[i] = bi[K - 1 - i];
     }
@@ -98,91 +68,177 @@ __device__ void warp_merge(float* rd, int* ri, const float* bd, const int* bi, i
   }
 }
 
-// Sort the first cnt buffered candidates and merge them into the running
-// list; returns the new K-th best distance.
+// lane's slot against lane ^ stride's: keep the smaller if (lower == up)
+__device__ __forceinline__ void exch(float& v, int& id, int stride, bool up, int lane) {
+  const float ov = __shfl_xor_sync(FULL, v, stride);
+  const int oi = __shfl_xor_sync(FULL, id, stride);
+  const bool lower = (lane & stride) == 0;
+  if (lower == up ? before(ov, oi, v, id) : before(v, id, ov, oi)) {
+    v = ov;
+    id = oi;
+  }
+}
+
+// Ascending bitonic sort of one (dist, id) pair per lane across the warp.
+__device__ __forceinline__ void warp_sort32(float& v, int& id, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      exch(v, id, stride, (lane & size) == 0, lane);
+    }
+  }
+}
+
+// A list of 32 E (dist, id) pairs held by a warp in registers: entry
+// r * 32 + lane is lane's slot r.  All loops below unroll, so the slots stay
+// in registers.
+
+// One bitonic stage over the list: pairs (i, i + STRIDE), ascending where
+// i & SIZE == 0.  SIZE and STRIDE are template arguments so that every slot
+// index is a constant and the list stays in registers.
+template <int E, int SIZE, int STRIDE>
+__device__ __forceinline__ void stage(float (&v)[E], int (&id)[E], int lane) {
+  if constexpr (STRIDE >= 32) {
+    constexpr int RS = STRIDE / 32;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      if ((r & RS) || r + RS >= E) continue;
+      const bool up = ((r * 32) & SIZE) == 0;
+      float& a = v[r];
+      float& b = v[r + RS];
+      if (up ? before(b, id[r + RS], a, id[r]) : before(a, id[r], b, id[r + RS])) {
+        const float tv = a;
+        a = b;
+        b = tv;
+        const int ti = id[r];
+        id[r] = id[r + RS];
+        id[r + RS] = ti;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < E; ++r) exch(v[r], id[r], STRIDE, ((r * 32 + lane) & SIZE) == 0, lane);
+  }
+}
+
+// Stages STRIDE, STRIDE / 2, ..., 1 of a bitonic pass of size SIZE.
+template <int E, int SIZE, int STRIDE>
+__device__ __forceinline__ void stages(float (&v)[E], int (&id)[E], int lane) {
+  if constexpr (STRIDE > 0) {
+    stage<E, SIZE, STRIDE>(v, id, lane);
+    stages<E, SIZE, STRIDE / 2>(v, id, lane);
+  }
+}
+
+// Ascending bitonic sort of the list.
+template <int E, int SIZE = 2>
+__device__ __forceinline__ void reg_sort(float (&v)[E], int (&id)[E], int lane) {
+  if constexpr (SIZE <= 32 * E) {
+    stages<E, SIZE, SIZE / 2>(v, id, lane);
+    reg_sort<E, SIZE * 2>(v, id, lane);
+  }
+}
+
+// Entry i (warp-uniform) of the list.
+template <int E>
+__device__ __forceinline__ float reg_at(const float (&v)[E], int i) {
+  float x = v[0];
+#pragma unroll
+  for (int r = 1; r < E; ++r)
+    if ((i >> 5) == r) x = v[r];
+  return __shfl_sync(FULL, x, i & 31);
+}
+
+template <int E>
+__device__ __forceinline__ void load_list(float (&v)[E], int (&id)[E], const float* ld,
+                                          const int* li, int n, int lane) {
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = r * 32 + lane;
+    v[r] = i < n ? ld[i] : inf_f();
+    id[r] = i < n ? li[i] : -1;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_list(const float (&v)[E], const int (&id)[E], float* ld,
+                                           int* li, int lane) {
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    ld[r * 32 + lane] = v[r];
+    li[r * 32 + lane] = id[r];
+  }
+}
+
+struct Flushed {
+  int nl;    // pairs in the list (K once full)
+  float th;  // the list's K-th best (inf until full)
+  float jb;  // an upper bound of the chunk's j-th best (inf if none yet)
+};
+
+// Flush the first c <= 32 pairs of one query's buffer (bd, bi) into its
+// running list (ld, li) of nl pairs.  j: the rank whose value the caller
+// publishes (jb).  Called by a whole warp.
 template <int K>
-__device__ float warp_flush(float* rd, int* ri, float* bd, int* bi, int cnt, int lane) {
-  __syncwarp();
-  for (int i = cnt + lane; i < K; i += 32) {
-    bd[i] = inf_f();
-    bi[i] = -1;
-  }
-  __syncwarp();
-  warp_sort<K>(bd, bi, lane);
-  warp_merge<K>(rd, ri, bd, bi, lane);
-  return rd[K - 1];
-}
-
-// Fill every running list of the block with (inf, -1).
-template <typename S, int K, int TQ>
-__device__ __forceinline__ void init_lists(S& sm, int tid) {
-  for (int i = tid; i < TQ * K; i += THREADS) {
-    sm.run_d[i] = inf_f();
-    sm.run_i[i] = -1;
-  }
-}
-
-// Warp w admits the scores of the current tile (sm.tile) for its queries:
-// those that beat the query's K-th best enter its buffer, a full buffer is
-// flushed first.  thresh/cnt are per query of the warp and warp-uniform.
-template <typename S, int K, int TQ>
-__device__ __forceinline__ void admit_tile(S& sm, int tile_start, int w, int lane,
-                                           float (&thresh)[TQ / WARPS],
-                                           int (&cnt)[TQ / WARPS]) {
-  constexpr int QPW = TQ / WARPS;
-#pragma unroll
-  for (int u = 0; u < QPW; ++u) {
-    const int qi = w * QPW + u;
-    float* rd = sm.run_d + qi * K;
-    int* ri = sm.run_i + qi * K;
-    float* bd = sm.buf_d + qi * K;
-    int* bi = sm.buf_i + qi * K;
-    const float* trow = sm.tile + qi * TN;
-    for (int j = 0; j < TN / 32; ++j) {
-      const int r = j * 32 + lane;
-      const float s = trow[r];
-      bool take = s < thresh[u];
-      unsigned m = __ballot_sync(0xffffffffu, take);
-      if (m == 0) continue;
-      if (cnt[u] + __popc(m) > K) {
-        thresh[u] = warp_flush<K>(rd, ri, bd, bi, cnt[u], lane);
-        cnt[u] = 0;
-        take = s < thresh[u];
-        m = __ballot_sync(0xffffffffu, take);
-      }
-      if (take) {
-        const int pos = cnt[u] + __popc(m & ((1u << lane) - 1u));
-        bd[pos] = s;
-        bi[pos] = tile_start + r;
-      }
-      cnt[u] += __popc(m);
-    }
-  }
-}
-
-// Flush what is left in each buffer of the warp and write each query's
-// list to out[(b * nsplit + split) * K ...].
-template <typename S, int K, int TQ>
-__device__ __forceinline__ void write_lists(S& sm, int w, int lane, const int (&cnt)[TQ / WARPS],
-                                            int q0, int B, int nsplit, int split,
-                                            float* __restrict__ out_d, int* __restrict__ out_i) {
-  constexpr int QPW = TQ / WARPS;
-#pragma unroll
-  for (int u = 0; u < QPW; ++u) {
-    const int qi = w * QPW + u;
-    float* rd = sm.run_d + qi * K;
-    int* ri = sm.run_i + qi * K;
-    if (cnt[u] > 0) warp_flush<K>(rd, ri, sm.buf_d + qi * K, sm.buf_i + qi * K, cnt[u], lane);
+__device__ __forceinline__ Flushed flush(const float* bd, const int* bi, int c, int nl, int j,
+                                      float* ld, int* li, int lane) {
+  constexpr int E = K / 32;
+  float v = lane < c ? bd[lane] : inf_f();
+  int id = lane < c ? bi[lane] : -1;
+  warp_sort32(v, id, lane);
+  const float jb = __shfl_sync(FULL, v, min(j, 32) - 1);
+  float lv[E];
+  int lid[E];
+  if (nl < K) {  // fill: append (empty slots as (inf, -1)), sort once full
+    ld[nl + lane] = v;
+    li[nl + lane] = id;
+    nl += 32;
+    if (nl < K) return {nl, inf_f(), j <= 32 ? jb : inf_f()};
     __syncwarp();
-    const int b = q0 + qi;
-    if (b < B) {
-      const size_t base = ((size_t)b * nsplit + split) * K;
-      for (int i = lane; i < K; i += 32) {
-        out_d[base + i] = rd[i];
-        out_i[base + i] = ri[i];
-      }
+    load_list<E>(lv, lid, ld, li, K, lane);
+    reg_sort<E>(lv, lid, lane);
+  } else {  // merge: min(list, reversed buffer) is bitonic; one cleaner sorts it
+    load_list<E>(lv, lid, ld, li, K, lane);
+    const float rv = __shfl_sync(FULL, v, 31 - lane);
+    const int ri = __shfl_sync(FULL, id, 31 - lane);
+    if (before(rv, ri, lv[E - 1], lid[E - 1])) {
+      lv[E - 1] = rv;
+      lid[E - 1] = ri;
     }
+    stages<E, 2 * K, K / 2>(lv, lid, lane);
   }
+  store_list<E>(lv, lid, ld, li, lane);
+  __syncwarp();
+  const float jth = reg_at<E>(lv, min(j, K) - 1);
+  return {K, reg_at<E>(lv, K - 1), fminf(j <= 32 ? jb : inf_f(), jth)};
+}
+
+// Sort the first n pairs of a list in place and pad it to K with (inf, -1):
+// a sort of the smallest E * 32 >= n slots, then the padding.
+template <int E>
+__device__ __forceinline__ void sort_prefix(float* ld, int* li, int n, int K, int lane) {
+  float lv[E];
+  int lid[E];
+  load_list<E>(lv, lid, ld, li, n, lane);
+  __syncwarp();
+  reg_sort<E>(lv, lid, lane);
+  store_list<E>(lv, lid, ld, li, lane);
+  for (int i = 32 * E + lane; i < K; i += 32) {
+    ld[i] = inf_f();
+    li[i] = -1;
+  }
+  __syncwarp();
+}
+
+template <int K>
+__device__ __forceinline__ void finish_list(float* ld, int* li, int n, int lane) {
+  if (n <= 128)
+    sort_prefix<4>(ld, li, n, K, lane);
+  else if (K >= 256 && n <= 256)
+    sort_prefix<(K >= 256 ? 8 : 4)>(ld, li, n, K, lane);
+  else
+    sort_prefix<K / 32>(ld, li, n, K, lane);
 }
 
 // Merge nsplit ascending top-K lists per query into one.  Warp w owns query
@@ -218,7 +274,8 @@ merge_partials_kernel(const float* __restrict__ pd, const int* __restrict__ pi,
   }
   __syncwarp();
   for (int s = 1; s < nsplit; ++s) {
-    if (!(src_d[(size_t)s * K] < rd[K - 1])) continue;  // cannot improve
+    if (!before(src_d[(size_t)s * K], src_i[(size_t)s * K], rd[K - 1], ri[K - 1]))
+      continue;  // cannot improve
     for (int i = lane; i < K; i += 32) {
       bd[i] = src_d[(size_t)s * K + i];
       bi[i] = src_i[(size_t)s * K + i];

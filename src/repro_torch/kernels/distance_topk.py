@@ -15,12 +15,13 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE_N = 128  # corpus rows per tile
+TILE_N = 64  # corpus rows per tile (csrc/scan.cuh ``TN``)
 K_PADS = (128, 256, 512)
-#: queries per block, by k_pad (csrc/topk.cuh ``QTile``)
-TILE_Q = {128: 32, 256: 32, 512: 16}
-#: resident blocks per SM, as shared memory allows (101 / 165 / 155 KB a block)
-BLOCKS_PER_SM = {128: 2, 256: 1, 512: 1}
+#: queries per block (csrc/scan.cuh ``TQ``) at every k_pad: the running
+#: lists live in the partial output, so the tile does not shrink as k_pad grows
+TILE_Q = 64
+#: resident blocks per SM, as shared memory allows (109 KB a block)
+BLOCKS_PER_SM = 2
 _METRIC = {"l2": 0, "ip": 1}
 _INT32_MAX = 2**31 - 1
 
@@ -42,14 +43,16 @@ def split_plan(B: int, n_valid: int, sm_count: int, k_pad: int) -> tuple[int, in
     into, and the rows per chunk (a multiple of the tile).  K1 and K2 share
     the block shape and shared-memory size, so both use this plan.
 
-    Fills at most two waves of resident blocks (never a sliver of a third),
-    with at least four tiles per chunk so that a chunk's running top-k
-    settles before its end.
+    Fills one wave of resident blocks, so that all chunks of a query run at
+    once and each can prune with the bounds the others publish
+    (csrc/scan.cuh); at most k_pad chunks, whose bounds live in the first
+    k_pad words of each output row until the chunk merge writes it; at
+    least four tiles per chunk.
     """
     n_tiles = -(-n_valid // TILE_N)
-    q_tiles = -(-B // TILE_Q[k_pad])
-    waves = 2 * sm_count * BLOCKS_PER_SM[k_pad]
-    nsplit = max(1, min(waves // q_tiles, n_tiles // 4, 65535))
+    q_tiles = -(-B // TILE_Q)
+    wave = sm_count * BLOCKS_PER_SM
+    nsplit = max(1, min(wave // q_tiles, n_tiles // 4, k_pad))
     chunk = -(-n_tiles // nsplit) * TILE_N
     return -(-n_valid // chunk), chunk
 

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import LannsConfig, LannsIndex
 from repro_torch.data.synthetic import sift_like
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.distance_topk import TILE_N, TILE_Q, split_plan
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 
 
@@ -25,6 +26,28 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA) and nvcc to build the kernels")
     return torch.device("cuda")
+
+
+def _chunk_edge(dev, B, k_pad, lo=4000, hi=40_000):
+    """An n_valid whose last corpus chunk holds exactly one row on this card."""
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nv in range(lo, hi):
+        ns, ch = split_plan(B, nv, sm, k_pad)
+        if ns > 1 and nv % ch == 1:
+            return nv
+    raise AssertionError("no chunk edge in range")
+
+
+# the scan's tile edges: B = TILE_Q +- 1, N = TILE_N +- 1, a chunk edge
+# (n_valid = None: a multiple of the chunk plus one row, set on the card)
+TILE_EDGES = [
+    (TILE_Q - 1, 5003, 64, 100, None),
+    (TILE_Q + 1, 5003, 64, 100, None),
+    (37, TILE_N - 1, 32, 10, None),
+    (37, TILE_N + 1, 32, 60, None),
+    (TILE_Q + 1, 20_000, 48, 200, "chunk edge"),  # k_pad 256
+    (37, 5003, 33, 200, None),  # ragged D, k_pad 256
+]
 
 
 def _assert_topk_close(d, i, d_r, i_r):
@@ -45,8 +68,10 @@ def _assert_topk_close(d, i, d_r, i_r):
     (3, 64, 960, 100, 40),
     (1000, 200_000, 128, 10, None),
     (37, 5003, 128, 400, None),  # k_pad 512
-])
+] + TILE_EDGES)
 def test_k1_matches_plain(cuda, metric, B, N, D, k, n_valid):
+    if n_valid == "chunk edge":
+        n_valid = _chunk_edge(cuda, B, 256)
     g = torch.Generator(device=cuda).manual_seed(B + N)
     q = torch.randn(B, D, generator=g, device=cuda)
     x = torch.randn(N, D, generator=g, device=cuda)
@@ -54,6 +79,22 @@ def test_k1_matches_plain(cuda, metric, B, N, D, k, n_valid):
     d, i = ops.distance_topk(q, x, k, metric, n_valid=n_valid)
     assert ops.KERNEL_LAUNCHES["distance_topk"] == 1
     d_p, i_p = ref.distance_topk_blocked(q, x, k, metric, n_valid=n_valid)
+    torch.cuda.synchronize()
+    _assert_topk_close(d, i, d_p, i_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_k1_near_equal_rows(cuda, metric):
+    # rows that differ by 1e-3 relative: the 3xTF32 scores must rank them
+    # as the plain float32 version does, up to one tie swap a row
+    rng = np.random.default_rng(3)
+    base = rng.standard_normal((500, 96)).astype(np.float32)
+    x = np.repeat(base, 8, 0) * (1 + 1e-3 * rng.standard_normal((4000, 96))).astype(np.float32)
+    q = base[:40] + 0.05 * rng.standard_normal((40, 96)).astype(np.float32)
+    q, x = torch.from_numpy(q).to(cuda), torch.from_numpy(x).to(cuda)
+    d, i = ops.distance_topk(q, x, 100, metric)
+    d_p, i_p = ref.distance_topk_blocked(q, x, 100, metric)
     torch.cuda.synchronize()
     _assert_topk_close(d, i, d_p, i_p)
 
@@ -89,10 +130,12 @@ def _assert_q8_topk(d, i, d_p, i_p, scores_of):
     (3, 64, 960, 100, 40),     # k > n_valid
     (345, 150_000, 512, 38, None),
     (19, 3001, 2048, 400, None),  # k_pad 512, D > 1024
-])
+] + TILE_EDGES + [(37, 5003, 31, 100, None)])
 def test_k2_matches_plain(cuda, metric, B, N, D, k, n_valid):
     from repro_torch.quant.codec import quantize_q8
 
+    if n_valid == "chunk edge":
+        n_valid = _chunk_edge(cuda, B, 256)
     rng = np.random.default_rng(B + N)
     x = rng.standard_normal((N, D)).astype(np.float32)
     qc = quantize_q8(x, metric)

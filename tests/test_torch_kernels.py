@@ -146,3 +146,56 @@ def test_split_plan_covers_rows(B, n_valid, k_pad):
     assert 1 <= nsplit <= 65535
     assert chunk % TILE_N == 0
     assert (nsplit - 1) * chunk < n_valid <= nsplit * chunk
+
+
+# K1 scores on the tensor cores as a 3xTF32 split (csrc/distance_topk.cu):
+# each operand a = hi + lo with hi = tf32(a), lo = tf32(a - hi), and a dot
+# is lo.hi + hi.lo + hi.hi accumulated in float32.  Emulated here: a TF32
+# value keeps the top 10 mantissa bits of a float32, rounded to nearest even.
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    b = a.contiguous().view(torch.int32)
+    b = (b + 0x0FFF + ((b >> 13) & 1)) & ~0x1FFF
+    return b.view(torch.float32)
+
+
+def _l2_scores_3xtf32(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    qh, xh = _tf32(q), _tf32(x)
+    ql, xl = _tf32(q - qh), _tf32(x - xh)
+    dot = ql @ xh.T + qh @ xl.T + qh @ xh.T
+    return (x * x).sum(1)[None, :] - 2 * dot
+
+
+def _l2_scores_tf32(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return (x * x).sum(1)[None, :] - 2 * (_tf32(q) @ _tf32(x).T)
+
+
+def _l2_scores_f64(q: np.ndarray, x: np.ndarray) -> np.ndarray:
+    q, x = q.astype(np.float64), x.astype(np.float64)
+    return (x * x).sum(1)[None, :] - 2 * q @ x.T
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    a = torch.tensor([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, -3.0 - 2.0**-12])
+    assert _tf32(a).tolist() == [1.0, 1.0 + 2.0**-10, 1.0, 1.0 + 2.0**-9, -3.0]
+
+
+@pytest.mark.parametrize("D", [50, 128, 512, 2048])
+def test_3xtf32_split_holds_the_parity_contract(D):
+    q, x = _rand(16, 300, D, seed=D)
+    s = _l2_scores_3xtf32(torch.from_numpy(q), torch.from_numpy(x)).numpy()
+    assert np.allclose(s, _l2_scores_f64(q, x), rtol=3e-4, atol=3e-4)
+
+
+def test_single_tf32_product_breaks_the_parity_contract():
+    # near-duplicate rows, the case a nearest-neighbour search ranks: the
+    # squared distance is small beside the terms that cancel in it
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((16, 128)).astype(np.float32)
+    x = (np.repeat(q, 20, 0) + 0.01 * rng.standard_normal((320, 128))).astype(np.float32)
+    qn = (q.astype(np.float64) ** 2).sum(1)[:, None]
+    want = qn + _l2_scores_f64(q, x)
+    qt, xt = torch.from_numpy(q), torch.from_numpy(x)
+    split = qn + _l2_scores_3xtf32(qt, xt).numpy()
+    single = qn + _l2_scores_tf32(qt, xt).numpy()
+    assert np.allclose(split, want, rtol=3e-4, atol=3e-4)
+    assert not np.allclose(single, want, rtol=3e-4, atol=3e-4)
