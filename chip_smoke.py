@@ -45,9 +45,12 @@ Phases, each printed as JSON records; any failure exits non-zero:
    <= 3e-5 (float32) and <= 3e-2 (bfloat16; times the v scale), the
    reference's own limits; bfloat16 also within ``ref.bf16_agreement`` <= 1
    of the plain version in float32 on the same inputs (half a bf16 ulp plus
-   1e-4).  Then K3 / plain / SDPA milliseconds and the bound at (32, 8192,
-   128) causal bf16, seeded: the head dim of codeqwen1.5-7b and qwen2-72b,
-   which no later phase runs.
+   1e-4).  float32 also with v scaled by 8 (the limit scaled by 8) and with
+   q scaled by 4 (a peaky softmax) at every D, and on inputs 4 bytes off
+   the 16-byte grid, which the launcher refuses and ``ops.flash_attention``
+   copies first.  Then K3 / plain / SDPA milliseconds and the bound at
+   (32, 8192, 128) causal bf16, seeded: the head dim of codeqwen1.5-7b and
+   qwen2-72b, which no later phase runs.
 4b. deployment scale, q8, on phase 4's corpus, queries and ground truth,
    after the fp32 index is freed: QPS, p50/p99, the stage split, recall@100,
    resident scan bytes (codes + scales + bias + keys), the exact store's
@@ -66,12 +69,13 @@ Phases, each printed as JSON records; any failure exits non-zero:
    p50 decode step, K3 launches.  Then one 1,100-token request through the
    engine on the card and on the CPU (plain path) with the first 4 layers:
    equal first greedy token, last logits within 1e-3.  Then K3 / plain /
-   SDPA milliseconds at the largest bucket's shape, (15, 4096, 64) causal
-   float32 (seeded inputs), and the bound (float32-grade, 3xTF32).
+   SDPA milliseconds at each shape the prefills launched K3 at, (15, 4096,
+   64) and (15, 2048, 64) causal float32 (seeded inputs), with the launches
+   at each, and the bound (float32-grade, 3xTF32).
 7. the kernels line: launches on the main path (K1: phases 3 and 4; K2: 3b
    and 4b; K3: 5 and 6), max error, kernel / plain / library times at a
-   main-path shape, and each bound; K3 also at phase 6's float32 shape
-   (``*_f32``).
+   main-path shape, and each bound; K3 also by shape (``instances``: the
+   bf16 32k prefill's and each float32 bucket's launches, times and bound).
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
@@ -868,39 +872,71 @@ def k3_case(q, k, v, causal: bool, label: str, v_scale: float = 1.0) -> dict:
             "max_abs_out": float(out.float().abs().max())}
 
 
+def k3_misaligned_case(gen, BH: int = 7, S: int = 1000, D: int = 64) -> dict:
+    """float32 q, k, v that start 4 bytes off the 16-byte grid: the launcher
+    refuses them (the kernel copies rows in 16-byte pieces), and
+    ``ops.flash_attention`` copies them first and holds the limit."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    n = BH * S * D
+    flat = torch.randn(3 * n + 1, generator=gen, device="cuda")[1:]
+    q, k, v = (flat[i * n:(i + 1) * n].view(BH, S, D) for i in range(3))
+    if not all(t.is_contiguous() and t.data_ptr() % 16 for t in (q, k, v)):
+        raise AssertionError("K3 misaligned case: the views are not off the 16-byte grid")
+    try:
+        flash_attention_cuda(q, k, v, causal=True, scale=D ** -0.5)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K3 launcher took float32 inputs off the 16-byte grid")
+    res = k3_case(q, k, v, True, f"float32 off the 16-byte grid, BH={BH} S={S} D={D}")
+    return {"cases": 1, **res}
+
+
 def phase_flash_vs_plain() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes, dims, v_big = (torch.float32, torch.bfloat16), (16, 32, 64, 128), 8.0
+    f32 = torch.float32
+    # (dtype, D, S, causal, BH, v scale, q scale)
     groups = {
-        "shapes": [(dtype, D, S, causal, BH, 1.0) for dtype in dtypes for D in dims
+        "shapes": [(dtype, D, S, causal, BH, 1.0, 1.0) for dtype in dtypes for D in dims
                    for S in (1, 100, 128, 200, 1025, 4096) for causal in (True, False)
                    for BH in (1, 15, 30)],
-        "tile_edges": [(dtype, D, S, causal, BH, 1.0) for dtype in dtypes for D in dims
+        "tile_edges": [(dtype, D, S, causal, BH, 1.0, 1.0) for dtype in dtypes for D in dims
                        for S in (15, 17, 63, 65, 1000, 4097) for causal in (True, False)
                        for BH in (1, 7)],
-        "v_scaled": [(torch.bfloat16, 64, 1000, True, 7, v_big)],  # |o| past 4
+        # |o| past 4, where a bf16 ulp is 3.1e-2; the limit scales with v
+        "v_scaled": [(torch.bfloat16, 64, 1000, True, 7, v_big, 1.0)]
+                    + [(f32, D, 1000, causal, 7, v_big, 1.0) for D in dims
+                       for causal in (True, False)],
+        # a peaky softmax: scores 4x larger, p near one-hot
+        "q_peaky": [(f32, D, S, causal, 7, 1.0, 4.0) for D in dims for S in (1000, 4097)
+                    for causal in (True, False)],
     }
     summary = {}
     for name, cases in groups.items():
         g = summary[name] = {"cases": len(cases), "max_abs_err_f32": 0.0, "max_abs_err_bf16": 0.0,
                              "max_bf16_agreement": 0.0, "max_abs_out": 0.0}
-        for dtype, D, S, causal, BH, v_scale in cases:
+        for dtype, D, S, causal, BH, v_scale, q_scale in cases:
             q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda") for _ in range(3))
-            q, k, v = q.to(dtype), k.to(dtype), (v * v_scale).to(dtype)
+            q, k, v = (q * q_scale).to(dtype), k.to(dtype), (v * v_scale).to(dtype)
             res = k3_case(q, k, v, causal, f"{dtype} D={D} S={S} causal={causal} BH={BH} "
-                                           f"v x{v_scale:g}", v_scale)
-            key = "max_abs_err_f32" if dtype == torch.float32 else "max_abs_err_bf16"
+                                           f"v x{v_scale:g} q x{q_scale:g}", v_scale)
+            key = "max_abs_err_f32" if dtype == f32 else "max_abs_err_bf16"
             g[key] = max(g[key], res["max_abs_err"])
             g["max_bf16_agreement"] = max(g["max_bf16_agreement"], res["bf16_agreement"])
             g["max_abs_out"] = max(g["max_abs_out"], res["max_abs_out"])
-    unit = [summary["shapes"], summary["tile_edges"]]  # v at unit scale
-    out = {"f32": max(g["max_abs_err_f32"] for g in unit),
+    summary["misaligned_f32"] = k3_misaligned_case(gen)
+    unit = [summary["shapes"], summary["tile_edges"], summary["q_peaky"]]  # v at unit scale
+    out = {"f32": max(max(g["max_abs_err_f32"] for g in unit),
+                      summary["misaligned_f32"]["max_abs_err"]),
            "bf16": max(g["max_abs_err_bf16"] for g in unit),
-           "bf16_agreement": max(g["max_bf16_agreement"] for g in summary.values())}
-    emit({"phase": "flash_vs_plain", "cases": sum(len(c) for c in groups.values()),
-          "max_abs_err_f32": out["f32"], "tol_f32": K3_TOL[torch.float32],
+           "bf16_agreement": max(summary[name]["max_bf16_agreement"] for name in groups)}
+    emit({"phase": "flash_vs_plain", "cases": sum(len(c) for c in groups.values()) + 1,
+          "max_abs_err_f32": out["f32"], "tol_f32": K3_TOL[f32],
           "max_abs_err_bf16": out["bf16"], "tol_bf16": K3_TOL[torch.bfloat16],
           "max_bf16_agreement": out["bf16_agreement"], "bf16_agreement_limit": 1.0,
+          "v_scaled_tol_f32": K3_TOL[f32] * v_big,
           "v_scaled_tol_bf16": K3_TOL[torch.bfloat16] * v_big, "groups": summary})
     # no driven path runs head dim 128 (smollm-360m's is 64): time the bf16
     # D = 128 instance here, at codeqwen1.5-7b's 32 heads and an 8k prompt
@@ -912,11 +948,13 @@ def phase_flash_vs_plain() -> dict:
 
 class RecordAttention:
     """Keeps the inputs and output of chosen calls of
-    ``ops.flash_attention_bhsd`` (by call index) while the model runs; the
-    calls themselves go through unchanged."""
+    ``ops.flash_attention_bhsd`` (by call index) while the model runs, and
+    counts the calls on the card by (dtype, BH, S, D); the calls themselves
+    go through unchanged."""
 
-    def __init__(self, keep):
+    def __init__(self, keep=()):
         self.keep, self.calls, self.seen = set(keep), {}, 0
+        self.shapes: dict[tuple, int] = {}
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -925,6 +963,10 @@ class RecordAttention:
 
         def recording(q, k, v, **kw):
             out = self._orig(q, k, v, **kw)
+            if q.is_cuda:
+                B, S, H, D = q.shape
+                key = (q.dtype, B * H, S, D)
+                self.shapes[key] = self.shapes.get(key, 0) + 1
             if self.seen in self.keep:
                 self.calls[self.seen] = tuple(t.clone() for t in (q, k, v, out))
             self.seen += 1
@@ -1023,6 +1065,7 @@ def phase_prefill_32k(S: int = 32_768, B: int = 1) -> dict:
         raise AssertionError(f"prefill_32k: K3 vs plain {layer_err}, bf16 agreement "
                              f"{layer_agree}")
     q, k, v, _ = rec.calls[0]
+    shapes = rec.shapes
     del logits, cache, params, rec
     timing = time_flash_kernel(fold_bhsd(q), fold_bhsd(k), fold_bhsd(v),
                                f"prefill_32k layer 0: smollm-360m, S={S}")
@@ -1032,7 +1075,10 @@ def phase_prefill_32k(S: int = 32_768, B: int = 1) -> dict:
           "init_s": init_s, "seconds": seconds, "prefill_tokens_per_s": B * S / seconds,
           "k3_launches": launches, "k3_vs_plain_max_abs_err": layer_err,
           "k3_vs_plain_bf16_agreement": layer_agree, "peak_device_bytes": peak})
-    return {"launches": launches, "timing": timing, "max_abs_err": max(layer_err.values())}
+    if shapes != {(torch.bfloat16, q.shape[0] * q.shape[2], S, q.shape[3]): launches}:
+        raise AssertionError(f"prefill_32k: K3 launches by shape {shapes}")
+    return {"launches": launches, "max_abs_err": max(layer_err.values()),
+            "instances": [{**timing, "launches": launches}]}
 
 
 def phase_serve_engine(n_requests: int = 8, max_new: int = 32, cpu_layers: int = 4) -> dict:
@@ -1068,11 +1114,14 @@ def phase_serve_engine(n_requests: int = 8, max_new: int = 32, cpu_layers: int =
     eng._decode = timed(eng._decode, decode_s)
     for r in reqs:
         eng.submit(r)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    stats = dict(eng.run())
-    wall = time.perf_counter() - t0
-    launches = ops.KERNEL_LAUNCHES["flash_attention"]
+    with RecordAttention() as rec:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        stats = dict(eng.run())
+        wall = time.perf_counter() - t0
+        launches = ops.KERNEL_LAUNCHES["flash_attention"]
+    if sum(rec.shapes.values()) != launches:
+        raise AssertionError(f"serve_engine: K3 launches by shape {rec.shapes}, total {launches}")
     buckets = [eng._prompt_bucket(len(r.prompt)) for r in reqs]
     want_launches = cfg.n_layers * sum(b > cfg.q_chunk for b in buckets)
     if stats["completed"] != n_requests or launches != want_launches or launches <= 0:
@@ -1122,17 +1171,21 @@ def phase_serve_engine(n_requests: int = 8, max_new: int = 32, cpu_layers: int =
           "decode_step_p50_ms": 1e3 * float(np.percentile(dec, 50)),
           "decode_step_p99_ms": 1e3 * float(np.percentile(dec, 99)),
           "k3_launches": launches,
+          "k3_launches_by_shape": {f"{BH}x{S}x{D}": n for (_, BH, S, D), n in rec.shapes.items()},
           "cpu_check": {"reduced": {"n_layers": f"32 -> {cpu_layers}"}, "prompt": len(prompt),
                         "first_token": first, "last_logits_max_abs_gap": gap, "tol": 1e-3}})
     if first["cuda"] != first["cpu"] or gap > 1e-3:
         raise AssertionError(f"serve_engine: card vs CPU first token {first}, gap {gap}")
-    # K3 in float32 at the largest bucket's shape (the kernel's time does not
-    # depend on the values)
-    H, D, S = cfg.n_heads, cfg.head_dim, max(buckets)
+    # K3 in float32 at each shape the prefills ran, seeded (the kernel's
+    # time does not depend on the values)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v = (torch.randn(H, S, D, generator=gen, device="cuda") for _ in range(3))
-    timing = time_flash_kernel(q, k, v, f"serve_engine largest bucket: smollm-360m, S={S}")
-    return {"launches": launches, "timing": timing}
+    instances = []
+    for (dtype, BH, S, D), n in sorted(rec.shapes.items(), key=lambda kv: -kv[0][2]):
+        q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda", dtype=dtype)
+                   for _ in range(3))
+        timing = time_flash_kernel(q, k, v, f"serve_engine bucket: smollm-360m, S={S}")
+        instances.append({**timing, "launches": n})
+    return {"launches": launches, "instances": instances}
 
 
 def main() -> int:
@@ -1167,7 +1220,12 @@ def main() -> int:
     if k1_launches <= 0 or k2_launches <= 0 or k3_launches <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
                              f"K2 {k2_launches}, K3 {k3_launches}")
-    t1, t2, t3, t3f = paper["timing"], paper_q8["timing"], prefill["timing"], serve["timing"]
+    t1, t2 = paper["timing"], paper_q8["timing"]
+    k3_instances = [
+        {key: rec[key] for key in ("dtype", "BH", "S", "D", "causal", "launches", "max_abs_err",
+                                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for rec in prefill["instances"] + serve["instances"]]
+    t3 = k3_instances[0]  # the 32k prefill's bf16 shape
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
     emit({"kernels": [
         {"name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
@@ -1183,11 +1241,10 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": k3_launches,
          "max_abs_err": max(max_err_k3["f32"], max_err_k3["bf16"], prefill["max_abs_err"],
-                            t3["max_abs_err"], t3f["max_abs_err"]),
+                            *(i["max_abs_err"] for i in k3_instances)),
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
-         "ms_f32": t3f["ms"], "plain_ms_f32": t3f["plain_ms"], "bound_ms_f32": t3f["bound_ms"],
-         "bound_by_f32": t3f["bound_by"], "library_ms_f32": t3f["library_ms"]},
+         "instances": k3_instances},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` into its own library with a plain C
 interface, loaded with ``ctypes``.  A library's file name carries a hash of
-its source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source or header rebuilds and an unchanged one is reused.  Libraries go to
+its source, of the headers it includes (``#include "..."``, followed
+transitively) and of the flags, so an edited source or header rebuilds the
+libraries that include it and no other.  Libraries go to
 ``build/repro_torch_kernels/`` at the repository root (listed in
 ``.gitignore``).
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +29,8 @@ NVCC_FLAGS = (
 #: every kernel source of the package
 SOURCES = ("distance_topk.cu", "distance_topk_q8.cu", "flash_attention.cu")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -38,11 +42,24 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(source: str) -> Path:
-    src = CSRC / source
+def includes(source: str, csrc: Path = CSRC) -> list[str]:
+    """The local headers ``source`` includes, directly or through another
+    header, sorted by name."""
+    seen: set[str] = set()
+    todo = [source]
+    while todo:
+        for name in _INCLUDE.findall((csrc / todo.pop()).read_text()):
+            if name not in seen:
+                seen.add(name)
+                todo.append(name)
+    return sorted(seen)
+
+
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    src = csrc / source
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.name.encode() + header.read_bytes())
+    for header in includes(source, csrc):
+        h.update(header.encode() + (csrc / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{digest}.so"

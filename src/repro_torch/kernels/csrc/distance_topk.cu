@@ -14,8 +14,8 @@
 // products is the limit, not HBM (3.35 TB/s): 165 TFLOP/s as a 3xTF32 split
 // on the tensor cores (495 TFLOP/s of TF32 over three products).
 //
-// Design (the shared scan is csrc/scan.cuh, the top-k csrc/topk.cuh), by
-// what held the SIMT version back:
+// Design (the shared scan is csrc/scan.cuh, the top-k csrc/topk.cuh, the
+// split csrc/tf32.cuh), by what held the SIMT version back:
 //  1. Scores on the SIMT pipe (~15% of the f32-grade rate): now the tensor
 //     cores.  mma.sync m16n8k8 takes tf32 operands, which keep 10 of the 23
 //     mantissa bits, so one TF32 product breaks the parity contract with the
@@ -52,32 +52,14 @@
 #include <stdint.h>
 
 #include "scan.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using scan::NJ;
 
-// cvt.rna.tf32.f32 for finite a, as two full-rate integer operations (the
-// conversion instruction issues at a fraction of their rate): add half of
-// the 13 dropped bits to the magnitude, then clear them, which rounds to
-// nearest with ties away from zero.
-__device__ __forceinline__ uint32_t to_tf32(uint32_t a) { return (a + 0x1000u) & 0xffffe000u; }
-
-// a = hi + lo: hi = tf32(a), lo = tf32(a - hi)
-__device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(a);
-  lo = to_tf32(__float_as_uint(__uint_as_float(a) - __uint_as_float(hi)));
-}
-
-// c += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using tf32::mma_tf32;
+using tf32::split_tf32;
 
 struct F32Op {
   struct Args {

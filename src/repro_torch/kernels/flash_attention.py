@@ -1,10 +1,11 @@
 """Launcher of K3, the flash-attention forward CUDA kernel.
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::_flash_fwd_kernel``: bfloat16 runs on
-the tensor cores (``mma.sync``, p split into two bf16 terms), float32 on
-the fp32 SIMT pipe, both at float32 grade.  This module checks
-the inputs, allocates the output and launches on PyTorch's current stream.
+``repro/kernels/flash_attention.py::_flash_fwd_kernel``.  Both dtypes run
+on the tensor cores with ``mma.sync`` at float32 grade: bfloat16 with p
+split into two bf16 terms, float32 as a 3xTF32 split of every operand.
+This module checks the inputs, allocates the output and launches on
+PyTorch's current stream.
 Nothing here runs at import: the library is built and loaded at the first
 launch.
 """
@@ -38,9 +39,9 @@ def _kernel():
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                          scale: float) -> torch.Tensor:
-    """Launch K3: attention forward over q, k, v (BH, S, D), contiguous, of
-    one dtype (float32 or bfloat16), on one CUDA device.  Returns the output
-    (BH, S, D) in that dtype."""
+    """Launch K3: attention forward over q, k, v (BH, S, D), contiguous and
+    16-byte aligned, of one dtype (float32 or bfloat16), on one CUDA device.
+    Returns the output (BH, S, D) in that dtype."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda: q, k and v must be on one CUDA device")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -56,8 +57,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c
         raise ValueError("flash_attention_cuda: q, k and v must be contiguous")
     if not (0 < BH <= _MAX_BH and 0 < S < 2**31):
         raise ValueError(f"flash_attention_cuda: BH={BH}, S={S}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_cuda: bfloat16 q, k and v must be 16-byte aligned "
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda: q, k and v must be 16-byte aligned "
                          "(the kernel copies rows in 16-byte pieces)")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

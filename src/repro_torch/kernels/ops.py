@@ -214,8 +214,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     1/sqrt(D).  CPU tensors run ``ref.flash_attention_ref``; CUDA tensors
     launch K3 (float32 or bfloat16, D in 16/32/64/128; anything else
     raises).  Inputs that are not contiguous, or do not start on a
-    16-byte boundary (the kernel copies bfloat16 rows in 16-byte pieces),
-    are copied first."""
+    16-byte boundary (the kernel copies rows in 16-byte pieces), are
+    copied first."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}; expected three equal (BH, S, D)")

@@ -228,17 +228,20 @@ K3_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("BH,S,D,causal,v_scale", [c + (1.0,) for c in K3_CASES] + [
-    (7, 1000, 64, True, 8.0),  # outputs past 4, where one bf16 ulp is 3.1e-2
+@pytest.mark.parametrize("BH,S,D,causal,v_scale,q_scale", [c + (1.0, 1.0) for c in K3_CASES] + [
+    (7, 1000, 64, True, 8.0, 1.0),  # outputs past 4, where one bf16 ulp is 3.1e-2
+] + [(7, S, D, causal, 8.0, 1.0) for S, D, causal in ((1000, 16, False), (65, 128, True))] + [
+    (7, S, D, causal, 1.0, 4.0)  # a peaky softmax: scores 4x larger
+    for S in (1000, 4097) for D in (16, 32, 64, 128) for causal in (True, False)
 ])
-def test_k3_matches_plain(cuda, dtype, tol, BH, S, D, causal, v_scale):
+def test_k3_matches_plain(cuda, dtype, tol, BH, S, D, causal, v_scale, q_scale):
     """K3 against its plain version on the same tensors within the
     reference's limit (scaled with v: attention is linear in v); bfloat16
     also within half a bf16 ulp + 1e-4 of the plain version in float32
     (``ref.bf16_agreement``), which a bf16 p would miss."""
     g = torch.Generator(device=cuda).manual_seed(BH * S + D)
     q, k, v = (torch.randn(BH, S, D, generator=g, device=cuda) for _ in range(3))
-    q, k, v = q.to(dtype), k.to(dtype), (v * v_scale).to(dtype)
+    q, k, v = (q * q_scale).to(dtype), k.to(dtype), (v * v_scale).to(dtype)
     ops.reset_launches()
     out = ops.flash_attention(q, k, v, causal=causal)
     assert ops.KERNEL_LAUNCHES["flash_attention"] == 1
@@ -268,6 +271,28 @@ def test_k3_rejects_unsupported_inputs(cuda):
     out = ops.flash_attention(b, b, b)
     want = ref.flash_attention_ref(b.float(), b.float(), b.float(), causal=True)
     assert ref.bf16_agreement(out, want) <= 1.0
+    # the same for float32: 4 bytes off the grid
+    f = torch.randn(2 * 8 * 64 + 1, device=cuda)[1:].view(2, 8, 64)
+    assert f.is_contiguous() and f.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(f, f, f, causal=True, scale=0.125)
+    out = ops.flash_attention(f, f, f)
+    want = ref.flash_attention_ref(f, f, f, causal=True)
+    assert float((out - want).abs().max()) <= 3e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,D,causal", [(15, 2048, 64, True), (7, 1000, 128, False),
+                                           (3, 65, 16, True)])
+def test_k3_float32_launches_are_bit_equal(cuda, BH, S, D, causal):
+    """Two launches on the same inputs give the same bits: no atomics, no
+    order that depends on timing."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v = (torch.randn(BH, S, D, generator=g, device=cuda) for _ in range(3))
+    a = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5)
+    b = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

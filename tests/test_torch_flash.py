@@ -4,8 +4,11 @@ kernel ``flash_attention_bhsd`` in interpret mode, the jnp
 ``chunked_attention`` and ``dot_attention``.  Limits are the reference's own
 (``tests/test_flash_attention.py``): max abs error 3e-5 in float32, 3e-2 in
 bfloat16.  ``ref.bf16_agreement``, the stricter bf16 check against the
-float32 function, is tested here too.  K3 itself is held against its plain
-version on the card in ``test_torch_cuda.py``."""
+float32 function, is tested here too, and so is the 3xTF32 arithmetic of
+K3's float32 path, through an emulation.  K3 itself is held against its
+plain version on the card in ``test_torch_cuda.py``."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -191,3 +194,85 @@ def test_bf16_agreement_of_plain_version(BH, S, D, causal):
 def test_bf16_agreement_rejects_shape_mismatch():
     with pytest.raises(ValueError, match="shapes"):
         ref.bf16_agreement(torch.zeros(2, 3), torch.zeros(3, 2))
+
+
+# K3's float32 path (csrc/flash_attention.cu) runs both products on the
+# tensor cores as a 3xTF32 split: each operand a = hi + lo with hi = tf32(a)
+# and lo = tf32(a - hi), and a product is lo.hi + hi.lo + hi.hi.  Emulated
+# here with its 64-row kv tiles, its base-2 online softmax with the TPU
+# kernel's guards, and each tile's p @ v folded into acc.  A TF32 value keeps
+# the top 10 mantissa bits of a float32, rounded to nearest even.
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    b = a.contiguous().view(torch.int32)
+    b = (b + 0x0FFF + ((b >> 13) & 1)) & ~0x1FFF
+    return b.view(torch.float32)
+
+
+def _dot_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _dot_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated_k3(q, k, v, causal, dot, block_k=64):
+    """K3's float32 arithmetic over (BH, S, D) float32 tensors, with the
+    products done by ``dot``."""
+    BH, S, D = q.shape
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
+    rows = torch.arange(S)[:, None]
+    m = torch.full((BH, S), -math.inf)
+    l, acc = torch.zeros(BH, S), torch.zeros(BH, S, D)
+    for k0 in range(0, S, block_k):
+        kt, vt = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        s = dot(q, kt.transpose(1, 2)) * scale_log2
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[1])[None, :] > rows, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp2(m - m_safe), 0.0)
+        p = torch.exp2(s - m_safe[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + dot(p, vt)
+        m = m_new
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+# the file's CASES, and two with q scaled by 4: a peaky softmax
+TF32_CASES = [c + (1.0,) for c in CASES] + [(1, 256, 2, 64, True, 4.0),
+                                            (1, 200, 2, 128, False, 4.0)]
+
+
+def _emulation_vs_pallas(B, S, H, D, causal, q_scale, dot):
+    q, k, v = _qkv(B, S, H, D, seed=B * 1000 + S + D)
+    q = q * np.float32(q_scale)
+    want = np.asarray(jax_flash_bhsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     causal=causal, interpret=True))
+    fold = lambda a: torch.from_numpy(a).permute(0, 2, 1, 3).reshape(B * H, S, D)
+    got = _emulated_k3(fold(q), fold(k), fold(v), causal, dot)
+    got = got.reshape(B, H, S, D).permute(0, 2, 1, 3).numpy()
+    return float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("B,S,H,D,causal,q_scale", TF32_CASES)
+def test_3xtf32_emulation_matches_pallas_interpret(B, S, H, D, causal, q_scale):
+    assert _emulation_vs_pallas(B, S, H, D, causal, q_scale, _dot_3xtf32) < F32_TOL
+
+
+@pytest.mark.parametrize("B,S,H,D,causal,q_scale", TF32_CASES)
+def test_single_tf32_product_misses_the_float32_limit(B, S, H, D, causal, q_scale):
+    assert _emulation_vs_pallas(B, S, H, D, causal, q_scale, _dot_tf32) > F32_TOL
+
+
+def test_tf32_emulation_keeps_ten_mantissa_bits():
+    a = torch.tensor([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, -3.0 - 2.0**-12])
+    assert _tf32(a).tolist() == [1.0, 1.0 + 2.0**-10, 1.0, 1.0 + 2.0**-9, -3.0]
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(1000).astype(np.float32))
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    # hi + lo keeps 22 of float32's 24 significant bits; hi alone 11
+    assert float(((hi + lo - x) / x).abs().max()) <= 2.0**-22
+    assert float(((hi - x) / x).abs().max()) > 2.0**-13
