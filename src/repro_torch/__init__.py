@@ -5,9 +5,11 @@ The port of the JAX package ``repro``, module for module.  It imports
 caller passes ``device="cpu"``; on the CPU every kernel wrapper runs its plain
 PyTorch version.
 
-Ported so far: the scan-engine main path (fit -> build -> query -> recall),
-fp32 with the fused distance + top-k kernel (``kernels/csrc/distance_topk.cu``)
-and int8 two-stage with its int8 twin (``distance_topk_q8.cu``); and the LM
-serving path (dense GQA transformer, ``serve.ServeEngine``) with the
+Ported so far: the main path (fit -> build -> query -> recall) with both
+engines: HNSW (``core/hnsw.py``: the numpy wavefront builder and a batched
+torch beam, fp32 and int8) and the scan, fp32 with the fused distance +
+top-k kernel (``kernels/csrc/distance_topk.cu``, also the exact ground
+truth) and int8 two-stage with its int8 twin (``distance_topk_q8.cu``); and
+the LM serving path (dense GQA transformer, ``serve.ServeEngine``) with the
 flash-attention kernel (``flash_attention.cu``) for long prefill.
 """

@@ -54,6 +54,25 @@ def next_pow2_quarter(n: int) -> int:
     return -(-n // step) * step
 
 
+def pad_to(a: np.ndarray, n: int, fill=0) -> np.ndarray:
+    """Pad axis 0 of ``a`` up to length ``n`` with ``fill``."""
+    if a.shape[0] == n:
+        return a
+    if a.shape[0] > n:
+        raise ValueError(f"cannot pad {a.shape[0]} down to {n}")
+    pad_width = [(0, n - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
+    return np.pad(a, pad_width, constant_values=fill)
+
+
+def pad_axis_to(a: np.ndarray, axis: int, n: int, fill=0) -> np.ndarray:
+    """Pad ``axis`` of ``a`` up to length ``n`` with ``fill``."""
+    if a.shape[axis] == n:
+        return a
+    pad_width = [(0, 0)] * a.ndim
+    pad_width[axis] = (0, n - a.shape[axis])
+    return np.pad(a, pad_width, constant_values=fill)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
 

@@ -1,18 +1,27 @@
 """Carry built state across from the JAX package's numpy state.
 
 LANNS's counterpart of loading weights: the JAX index's config, fitted
-segmenter tree and per-partition corpora become a port ``LannsIndex``
-without refitting or re-partitioning, so both packages query the same
-partitions; and the JAX LM's params become the port's ``Transformer``.
+segmenter tree and per-partition corpora (and, for the HNSW engine, its
+frozen graphs) become a port ``LannsIndex`` without refitting,
+re-partitioning or rebuilding, so both packages query the same partitions;
+and the JAX LM's params become the port's ``Transformer``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.common.utils import resolve_device
-from repro_torch.core.lanns import LannsConfig, LannsIndex, _Partition, _scan_metric
+from repro_torch.core.lanns import (
+    LannsConfig,
+    LannsIndex,
+    _HNSWPartition,
+    _Partition,
+    _scan_metric,
+)
 from repro_torch.models.transformer import Transformer, TransformerConfig, check_supported
 from repro_torch.quant.codec import Q8Corpus
 
@@ -27,6 +36,10 @@ def index_from_numpy_state(config: dict, tree, partitions: dict, mips_M2=None, d
     ``quantized="q8"`` an entry may add ``"q8_codes"``, ``"q8_scales"`` and
     ``"q8_norms2"`` (the reference partition's ``q8`` fields), so the port
     scans the reference's own codes; without them the port encodes.
+    An HNSW partition is an entry with ``"kind": "hnsw"`` and the frozen
+    graph's ``levels``, ``adj0``, ``upper_adj`` and ``entry`` beside its
+    (frozen) ``vectors`` and ``keys`` — the reference's ``_build_one_partition``
+    payload — plus the same optional q8 fields.
     mips_M2: the reference's stored ``_mips_M2`` (metric 'mips' only).
     """
     cfg = LannsConfig(**config)
@@ -35,6 +48,9 @@ def index_from_numpy_state(config: dict, tree, partitions: dict, mips_M2=None, d
         index.partitioner.segmenter.set_tree(tree["hyperplanes"], tree["split"], tree["lo"], tree["hi"])
     index.partitioner._fitted = True
     for (s, g), part in partitions.items():
+        if part.get("kind") == "hnsw":
+            index.partitions[(s, g)] = _HNSWPartition(part, cfg)
+            continue
         q8 = None
         if cfg.quantized == "q8" and part.get("q8_codes") is not None:
             q8 = Q8Corpus(
@@ -45,7 +61,28 @@ def index_from_numpy_state(config: dict, tree, partitions: dict, mips_M2=None, d
                                               q8=q8)
     if mips_M2 is not None:
         index._mips_M2 = float(mips_M2)
+    index._invalidate_stack()
     return index
+
+
+def index_numpy_state(index: LannsIndex):
+    """A built port index's state in the form ``index_from_numpy_state``
+    takes: ``(config, tree, partitions, mips_M2)``.  HNSW partitions carry
+    their frozen graphs, so an index made from this state — on another
+    device, or with another ``quantized`` setting — serves the same graphs
+    without rebuilding them."""
+    parts = {}
+    for sg, p in index.partitions.items():
+        if p.kind == "hnsw":
+            fr = p.frozen
+            parts[sg] = {"kind": "hnsw", "vectors": fr.vectors, "keys": fr.keys,
+                         "levels": fr.levels, "adj0": fr.adj0, "upper_adj": fr.upper_adj,
+                         "entry": fr.entry}
+        else:
+            vecs = p.host_vectors if p.vectors is None else p.vectors.cpu().numpy()
+            parts[sg] = {"vectors": vecs, "keys": p.keys.cpu().numpy()}
+    return (dataclasses.asdict(index.config), index.partitioner.segmenter.tree_arrays(), parts,
+            getattr(index, "_mips_M2", None))
 
 
 def transformer_from_jax(cfg: TransformerConfig, params_np: dict, device=None) -> Transformer:

@@ -1,8 +1,15 @@
 """LANNS core: two-level partitioning (hash sharding + learned segmentation)
-over per-partition scan engines, spill routing, perShardTopK-trimmed merging
-and exact brute-force ground truth."""
+over per-partition engines (HNSW graphs or dense scans), spill routing,
+perShardTopK-trimmed merging and exact brute-force ground truth."""
 
 from repro_torch.core.brute_force import brute_force_topk
+from repro_torch.core.hnsw import (
+    FrozenHNSW,
+    HNSWConfig,
+    HNSWIndex,
+    beam_search,
+    beam_search_flat,
+)
 from repro_torch.core.lanns import LannsConfig, LannsIndex
 from repro_torch.core.merge import (
     merge_topk_disjoint,
@@ -21,6 +28,9 @@ from repro_torch.core.segmenter import (
 from repro_torch.core.sharding import TwoLevelPartitioner, hash_shard
 
 __all__ = [
+    "FrozenHNSW",
+    "HNSWConfig",
+    "HNSWIndex",
     "LannsConfig",
     "LannsIndex",
     "QueryPlan",
@@ -29,6 +39,8 @@ __all__ = [
     "SegmenterConfig",
     "TreeSegmenter",
     "TwoLevelPartitioner",
+    "beam_search",
+    "beam_search_flat",
     "brute_force_topk",
     "choose_merge_path",
     "hash_shard",

@@ -1,38 +1,48 @@
-"""LannsIndex — the end-to-end LANNS platform object (paper §5), scan engine.
+"""LannsIndex — the end-to-end LANNS platform object (paper §5).
 
   1. ``fit``: learn ONE segmenter on a uniform subsample (§5.1), host numpy.
-  2. ``build``: two-level partition (hash shard -> segment); each
-     (shard, segment) corpus is uploaded once and stays on the device.
-  3. ``query``: route, scan only the routed segments with the fused
-     distance + top-k kernel, merge (§5.3.2).  A query batch is uploaded
-     once; the host reads the routing mask once and the results once.
+  2. ``build``: two-level partition (hash shard -> segment), then one engine
+     per (shard, segment).  'scan': the partition's corpus (or its int8
+     codes) is uploaded once and stays on the device.  'hnsw' (the paper's
+     engine and the default): the numpy wavefront builder, in-process or in
+     a process pool (``workers``), then every partition's frozen graph is
+     packed into one flat stack and uploaded once.
+  3. ``query``: route, search only the routed segments — the fused distance
+     + top-k kernel per partition (scan) or one batched beam over every
+     (partition, routed query) lane (hnsw) — and merge (§5.3.2).  A query
+     batch is uploaded once; the host reads the routing mask once and the
+     results once.
 
-Ported: ``engine="scan"`` with ``quantized="none"`` (fp32 scan, K1) and
-``quantized="q8"`` (int8 two-stage scan: K2 candidates, exact fp32
-re-rank), metrics l2/ip/cos/mips, virtual and physical spill, per-request
-``topk`` arrays.  Not yet ported (each raises ``NotImplementedError``
-naming its ROADMAP item): the HNSW engine (and with it the q8 beam),
-telemetry, the build process pool and persistence.
+Ported: both engines, ``quantized="none"`` and ``"q8"`` (int8 two-stage
+scan; quantized beam + exact re-rank), metrics l2/ip/cos/mips, virtual and
+physical spill, per-request ``topk`` and ``ef`` arrays, ``hnsw_mode``
+stacked / partition / legacy, and the build process pool.  Not yet
+ported: telemetry (``attach_telemetry`` raises ``NotImplementedError``
+naming its ROADMAP item) and persistence (``save`` / ``load``, ROADMAP
+item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing
 import os
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.common.utils import Timer, resolve_device
+from repro_torch.common.utils import Timer, next_pow2, resolve_device
+from repro_torch.core.hnsw import DEFAULT_BUILD_CHUNK, FrozenHNSW, HNSWConfig, HNSWIndex
 from repro_torch.core.merge import per_shard_topk
 from repro_torch.core.plan import QueryPlanExecutor, choose_merge_path, knob_groups, query_stats
 from repro_torch.core.segmenter import SegmenterConfig
 from repro_torch.core.sharding import TwoLevelPartitioner
 from repro_torch.kernels import ops
 from repro_torch.quant.codec import Q8Corpus, quantize_q8
+from repro_torch.quant.rerank import ExactStore, resolve_store_mode
 from repro_torch.quant.twostage import QuantizedScanExecutor, _Q8Partition
 
 
@@ -74,6 +84,43 @@ class LannsConfig:
             sample_size=self.segmenter_sample,
         )
 
+    def hnsw_config(self) -> HNSWConfig:
+        return HNSWConfig(
+            M=self.hnsw_m,
+            ef_construction=self.ef_construction,
+            ef_search=self.ef_search,
+            metric="l2" if self.metric == "mips" else self.metric,
+            seed=self.seed,
+        )
+
+
+#: flattened HNSW rows (lane offsets, adjacency entries) are int32 on the
+#: device lattice: every ``pi * n_pad + row`` must stay below this
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+def _build_one_partition(args):
+    """Worker: build one (shard, segment) engine.  Top-level for pickling;
+    host numpy only."""
+    (s, g, vectors, keys, engine, hnsw_cfg, chunk) = args
+    t0 = time.perf_counter()
+    if engine == "hnsw" and len(vectors) > 0:
+        idx = HNSWIndex(hnsw_cfg, vectors.shape[1])
+        idx.add_batch(vectors, keys, chunk=chunk)
+        frozen = idx.freeze()
+        payload = {
+            "kind": "hnsw",
+            "vectors": frozen.vectors,
+            "levels": frozen.levels,
+            "adj0": frozen.adj0,
+            "entry": frozen.entry,
+            "keys": frozen.keys,
+            "upper_adj": frozen.upper_adj,
+        }
+    else:
+        payload = {"kind": "scan", "vectors": vectors, "keys": keys}
+    return s, g, payload, time.perf_counter() - t0
+
 
 def _scan_metric(config: LannsConfig) -> str:
     """The metric partitions are scanned and encoded with: mips rows are
@@ -109,8 +156,11 @@ class _Partition:
     fp32 (``quantized="none"``): the corpus and keys are resident on the
     device.  q8: the keys are, and ``q8`` holds the int8 encoding; the fp32
     rows stay on the host (``host_vectors``) for the exact re-rank store and
-    are never uploaded for scanning.
+    are never uploaded for scanning.  An HNSW index keeps its EMPTY
+    partitions as scan partitions of size 0, as the reference does.
     """
+
+    kind = "scan"
 
     def __init__(self, vectors, keys, config: LannsConfig, device: torch.device,
                  q8: Optional[Q8Corpus] = None):
@@ -147,10 +197,67 @@ class _Partition:
         d, i = ops.distance_topk(queries, self.vectors, k_eff, _scan_metric(self.config))
         i = i.to(torch.int64)
         i = torch.where(i >= 0, self.keys[i.clamp_min(0)], -1)
-        if k_eff < k:
-            d = torch.cat([d, torch.full((B, k - k_eff), float("inf"), device=dev)], 1)
-            i = torch.cat([i, torch.full((B, k - k_eff), -1, dtype=torch.int64, device=dev)], 1)
-        return d, i
+        return _pad_lanes(d, i, k)
+
+
+def _pad_lanes(d: torch.Tensor, i: torch.Tensor, k: int):
+    """Pad (B, k_eff) lane results to width k with (inf, -1)."""
+    B, k_eff = d.shape
+    if k_eff < k:
+        d = torch.cat([d, d.new_full((B, k - k_eff), float("inf"))], 1)
+        i = torch.cat([i, i.new_full((B, k - k_eff), -1)], 1)
+    return d, i
+
+
+class _HNSWPartition:
+    """A built (shard, segment) HNSW engine.
+
+    The frozen graph stays on the host; the device copy is the index's flat
+    stack (``LannsIndex._hnsw_stack``), or, in the per-partition modes, the
+    frozen graph's own cached ``device_arrays``.  For ``quantized="q8"``
+    ``q8`` holds the int8 encoding of the frozen vectors (already
+    metric-prepped: cos rows normalized at build, mips rows augmented), so
+    it encodes as 'l2' or, for cos and ip, as 'ip'.
+    """
+
+    kind = "hnsw"
+
+    def __init__(self, payload: dict, config: LannsConfig):
+        self.config = config
+        self.frozen = FrozenHNSW(
+            config=config.hnsw_config(),
+            vectors=np.asarray(payload["vectors"], np.float32),
+            levels=np.asarray(payload["levels"]),
+            adj0=np.asarray(payload["adj0"], np.int32),
+            upper_adj=np.asarray(payload["upper_adj"], np.int32),
+            entry=int(payload["entry"]),
+            keys=None if payload.get("keys") is None else np.asarray(payload["keys"], np.int64),
+        )
+        self.q8 = None
+        if config.quantized == "q8" and self.size > 0:
+            q8_metric = "l2" if config.hnsw_config().metric == "l2" else "ip"
+            if payload.get("q8_codes") is not None:
+                self.q8 = Q8Corpus(codes=payload["q8_codes"], scales=payload["q8_scales"],
+                                   norms2=payload["q8_norms2"], metric=q8_metric)
+            else:
+                self.q8 = quantize_q8(self.frozen.vectors, q8_metric)
+
+    @property
+    def size(self) -> int:
+        return self.frozen.size
+
+    def search(self, queries: torch.Tensor, k: int, ef: Optional[int] = None, *,
+               n_pad: Optional[int] = None, l_pad: Optional[int] = None, legacy: bool = False):
+        """(dists (B, k), keys (B, k)) on the queries' device, (inf, -1)
+        padded.  ``legacy``: the graph is uploaded for this call only and
+        the batch is not padded (the reference's before/after baseline);
+        else the cached device arrays padded to (n_pad, l_pad)."""
+        if legacy:
+            d, i = self.frozen.search(queries, min(k, self.size), ef=ef, cached=False,
+                                      pad_queries=False)
+            return _pad_lanes(d, i, k)
+        # full k even when size < k: the beam's (inf, -1) slots are the padding
+        return self.frozen.search(queries, k, ef=ef, n_pad=n_pad, l_pad=l_pad)
 
 
 class LannsIndex:
@@ -164,21 +271,18 @@ class LannsIndex:
             raise ValueError(
                 f"rerank_store={config.rerank_store!r} — expected 'auto', 'host' or 'device'"
             )
-        if config.engine == "hnsw":
-            raise NotImplementedError(
-                "engine='hnsw' is not ported yet (ROADMAP 'Modules to port' item 5); "
-                "use engine='scan'"
-            )
-        if config.engine != "scan":
+        if config.engine not in ("hnsw", "scan"):
             raise ValueError(f"engine={config.engine!r} — expected 'hnsw' or 'scan'")
         self.config = config
         self.device = resolve_device(device)
         self.partitioner = TwoLevelPartitioner(
             config.num_shards, config.segmenter_config(), self.device
         )
-        self.partitions: dict[tuple, _Partition] = {}
+        self.partitions: dict[tuple, object] = {}
         self.build_stats: dict = {}
-        self._q8_exec = None  # the two-stage executor, built at first use
+        # the flat HNSW device stacks, keyed by the quantized flag
+        self._stack: dict[bool, Optional[dict]] = {}
+        self._q8_exec = None  # the two-stage scan executor, built at first use
         self._exec = QueryPlanExecutor(self)
 
     def attach_telemetry(self, telemetry) -> "LannsIndex":
@@ -186,20 +290,133 @@ class LannsIndex:
             "telemetry is not ported yet (ROADMAP 'Modules to port' item 8)"
         )
 
+    # -- cached device state ---------------------------------------------------
+
+    def _invalidate_stack(self):
+        self._stack = {}
+        self._q8_exec = None
+
     def _q8_executor(self):
-        """Two-stage quantized scan executor over every non-empty partition
-        (codes upload once, at the first call, and stay on the device)."""
+        """Two-stage quantized scan executor over every non-empty scan
+        partition (codes upload once, at the first call, and stay on the
+        device)."""
         if self._q8_exec is None:
             metric = _scan_metric(self.config)
             parts = {
                 sg: _Q8Partition(p.q8, p.host_vectors, p.keys, metric, self.device)
                 for sg, p in sorted(self.partitions.items())
-                if p.size > 0 and p.q8 is not None
+                if p.kind == "scan" and p.size > 0 and p.q8 is not None
             }
             self._q8_exec = QuantizedScanExecutor(
                 parts, metric, self.config.rerank_factor, self.config.rerank_store, self.device
             )
         return self._q8_exec
+
+    def _hnsw_parts(self):
+        """Servable HNSW partitions, sorted by (shard, segment): the one
+        eligibility rule of the stacked and per-partition modes and of the
+        shared pads."""
+        return sorted(
+            (sg, p) for sg, p in self.partitions.items() if p.kind == "hnsw" and p.size > 0
+        )
+
+    def _hnsw_stack(self, quantized: bool = False) -> dict:
+        """Flat device tensors over every non-empty HNSW partition.
+
+        Partition p owns rows [p*n_pad, p*n_pad + size) of vectors
+        (P*n_pad, d), adj0 (P*n_pad, 2M) and upper_adj (l_pad, P*n_pad, M),
+        so one ``beam_search_flat`` call serves any mix of (partition,
+        query) lanes.  Built on the host and uploaded ONCE, then cached for
+        the life of the partitions; {} when there is no HNSW partition.
+
+        ``quantized=True``: ``vectors`` holds the int8 codes and ``norms2``
+        the dequantized squared norms (no fp32 vectors are uploaded for the
+        walk), with the per-partition ``scales`` (P, d) on the device and
+        the exact re-rank ``stores`` (fp32 originals on the host, uploaded
+        at first use in 'device' mode).
+        """
+        key = bool(quantized)
+        if self._stack.get(key) is not None:
+            return self._stack[key]
+        items = self._hnsw_parts()
+        if not items or (quantized and items[0][1].q8 is None):
+            self._stack[key] = {}
+            return self._stack[key]
+        P = len(items)
+        n_pad, l_pad = self._hnsw_pads(items)
+        if P * n_pad > _INT32_MAX:
+            raise OverflowError(
+                f"flat HNSW stack spans {P * n_pad} rows (P={P} x n_pad={n_pad}) — exceeds "
+                "the int32 row lattice; shard the index across hosts instead"
+            )
+        dim = items[0][1].frozen.vectors.shape[1]
+        m0 = items[0][1].frozen.adj0.shape[1]
+        M = items[0][1].frozen.upper_adj.shape[2]
+        adj0 = np.full((P * n_pad, m0), -1, np.int32)
+        upper = np.full((l_pad, P * n_pad, M), -1, np.int32)
+        entry = np.zeros((P,), np.int64)
+        keys = np.full((P * n_pad,), -1, np.int64)
+        if quantized:
+            vecs = np.zeros((P * n_pad, dim), np.int8)
+            norms2 = np.zeros((P * n_pad,), np.float32)
+            scales = np.ones((P, dim), np.float32)
+        else:
+            vecs = np.zeros((P * n_pad, dim), np.float32)
+        for pi, (_, p) in enumerate(items):
+            fr = p.frozen
+            n = fr.size
+            off = pi * n_pad
+            if quantized:
+                vecs[off: off + n] = p.q8.codes
+                norms2[off: off + n] = p.q8.norms2
+                scales[pi] = p.q8.scales
+            else:
+                vecs[off: off + n] = fr.vectors
+            adj0[off: off + n] = fr.adj0
+            upper[: fr.num_upper_levels, off: off + n] = fr.upper_adj
+            entry[pi] = fr.entry
+            keys[off: off + n] = fr.keys if fr.keys is not None else np.arange(n, dtype=np.int64)
+        up = lambda a: torch.from_numpy(a).to(self.device)
+        arrs = {"vectors": up(vecs), "adj0": up(adj0), "upper_adj": up(upper)}
+        stack = {
+            "arrs": arrs,
+            "entry": entry,  # per-partition local entry node (host)
+            "keys": up(keys),
+            "index": {sg: pi for pi, (sg, _) in enumerate(items)},
+            "n_pad": n_pad,
+            "l_pad": l_pad,
+        }
+        if quantized:
+            arrs["norms2"] = up(norms2)
+            stack["scales"] = up(scales)
+            stack["stores"] = [ExactStore(p.frozen.vectors, p.frozen.keys) for _, p in items]
+            stack["store_mode"] = resolve_store_mode(self.config.rerank_store, self.device)
+        self._stack[key] = stack
+        return stack
+
+    def _hnsw_pads(self, items=None):
+        """Shared (n_pad, l_pad) corpus buckets over the servable partitions."""
+        if items is None:
+            items = self._hnsw_parts()
+        if not items:
+            return None, None
+        return (
+            next_pow2(max(p.size for _, p in items)),
+            max(p.frozen.num_upper_levels for _, p in items),
+        )
+
+    def hnsw_resident_bytes(self) -> int:
+        """Device bytes of the built HNSW stacks: vectors (or codes and
+        norms2) + adj0 + upper_adj + keys (+ scales).  The exact re-rank
+        store's device copy is not counted."""
+        total = 0
+        for stack in self._stack.values():
+            if stack:
+                tensors = [*stack["arrs"].values(), stack["keys"]]
+                if "scales" in stack:
+                    tensors.append(stack["scales"])
+                total += sum(t.numel() * t.element_size() for t in tensors)
+        return total
 
     # -- build ---------------------------------------------------------------
 
@@ -209,15 +426,19 @@ class LannsIndex:
         self.build_stats["segmenter_fit_seconds"] = t.seconds
         return self
 
-    def build(self, data: np.ndarray, keys: Optional[np.ndarray] = None, *, workers: int = 0):
-        """Partition ``data`` (host numpy) and upload each (shard, segment)
-        corpus to the device once — for ``quantized="q8"`` its int8 codes,
-        encoded here on the host.  In-process only: ``workers > 0`` raises."""
-        if workers:
-            raise NotImplementedError(
-                "build(workers>0): the process pool is not ported yet "
-                "(ROADMAP 'Modules to port' item 6, with persistence)"
-            )
+    def build(self, data: np.ndarray, keys: Optional[np.ndarray] = None, *, workers: int = 0,
+              chunk: int = DEFAULT_BUILD_CHUNK):
+        """Partition ``data`` (host numpy) and build every (shard, segment).
+
+        'scan': each corpus is uploaded to the device once — for
+        ``quantized="q8"`` its int8 codes, encoded here on the host.
+        'hnsw': the numpy wavefront builder per partition, in-process
+        (``workers=0``) or in a pool of ``workers`` processes (started with
+        'spawn', so a CUDA context in this process is never forked; the
+        workers run numpy only), then one upload of the flat stack.
+        ``chunk`` is the wavefront batch size.  The built graphs are
+        bit-identical for any ``chunk`` >= 1 and any worker count.
+        """
         cfg = self.config
         data = np.asarray(data, dtype=np.float32)
         if cfg.metric == "mips":
@@ -233,32 +454,15 @@ class LannsIndex:
             self.fit(data)
         with Timer() as t_assign:
             assignment = self.partitioner.assign(data, keys)
-        per_partition_seconds = {}
         sgs = [(s, g) for s in range(cfg.num_shards) for g in range(cfg.num_segments)]
         with Timer() as t_build:
-            vecs = dict(zip(sgs, _host_map(lambda sg: data[assignment.rows[sg[0]][sg[1]]], sgs)))
-            q8s = {}
-            with Timer() as t_encode:
-                if cfg.quantized == "q8":
-                    todo = [sg for sg in sgs if len(vecs[sg])]
-                    q8s = dict(zip(todo, _host_map(
-                        lambda sg: quantize_q8(vecs[sg], _scan_metric(cfg)), todo
-                    )))
-            for s, g in sgs:
-                rows = assignment.rows[s][g]
-                t0 = time.perf_counter()
-                self.partitions[(s, g)] = _Partition(
-                    vecs[(s, g)], keys[rows], cfg, self.device, q8=q8s.get((s, g))
-                )
-                per_partition_seconds[f"{s}/{g}"] = time.perf_counter() - t0
-            del vecs
-            self._q8_exec = None
-            if cfg.quantized == "q8":
-                self._q8_executor()  # upload the codes now, not at the first query
+            if cfg.engine == "hnsw":
+                per_partition_seconds = self._build_hnsw(data, keys, assignment, sgs, workers,
+                                                         chunk)
+            else:
+                per_partition_seconds = self._build_scan(data, keys, assignment, sgs)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        if cfg.quantized == "q8":
-            self.build_stats["q8_encode_seconds"] = t_encode.seconds
         self.build_stats.update(
             assign_seconds=t_assign.seconds,
             build_wall_seconds=t_build.seconds,
@@ -269,21 +473,84 @@ class LannsIndex:
             n_input=n,
             duplication_factor=assignment.total_stored / max(n, 1),
             build_workers=workers,
+            build_chunk=chunk,
         )
         return self
 
+    def _build_hnsw(self, data, keys, assignment, sgs, workers: int, chunk: int) -> dict:
+        cfg = self.config
+        jobs = [(s, g, data[assignment.rows[s][g]], keys[assignment.rows[s][g]], cfg.engine,
+                 cfg.hnsw_config(), chunk) for s, g in sgs]
+        if workers and len(jobs) > 1:
+            ctx = multiprocessing.get_context("spawn")
+            with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+                results = list(pool.map(_build_one_partition, jobs))
+        else:
+            results = [_build_one_partition(j) for j in jobs]
+        per_partition_seconds = {}
+        for s, g, payload, secs in results:
+            if payload["kind"] == "hnsw":
+                self.partitions[(s, g)] = _HNSWPartition(payload, cfg)
+            else:  # an empty partition
+                self.partitions[(s, g)] = _Partition(payload["vectors"], payload["keys"], cfg,
+                                                     self.device)
+            per_partition_seconds[f"{s}/{g}"] = secs
+        self._invalidate_stack()
+        self._hnsw_stack(quantized=cfg.quantized == "q8")  # the one upload, now
+        return per_partition_seconds
+
+    def _build_scan(self, data, keys, assignment, sgs) -> dict:
+        cfg = self.config
+        per_partition_seconds = {}
+        vecs = dict(zip(sgs, _host_map(lambda sg: data[assignment.rows[sg[0]][sg[1]]], sgs)))
+        q8s = {}
+        with Timer() as t_encode:
+            if cfg.quantized == "q8":
+                todo = [sg for sg in sgs if len(vecs[sg])]
+                q8s = dict(zip(todo, _host_map(
+                    lambda sg: quantize_q8(vecs[sg], _scan_metric(cfg)), todo
+                )))
+        for s, g in sgs:
+            rows = assignment.rows[s][g]
+            t0 = time.perf_counter()
+            self.partitions[(s, g)] = _Partition(
+                vecs[(s, g)], keys[rows], cfg, self.device, q8=q8s.get((s, g))
+            )
+            per_partition_seconds[f"{s}/{g}"] = time.perf_counter() - t0
+        del vecs
+        self._invalidate_stack()
+        if cfg.quantized == "q8":
+            self.build_stats["q8_encode_seconds"] = t_encode.seconds
+            self._q8_executor()  # upload the codes now, not at the first query
+        return per_partition_seconds
+
     # -- query ---------------------------------------------------------------
 
-    def query(self, queries, topk, *, ef=None, return_stats: bool = False):
+    def query(self, queries, topk, *, ef=None, return_stats: bool = False,
+              hnsw_mode: str = "stacked"):
         """Two-level partitioned search with perShardTopK (paper §5.3).
 
-        ``topk`` is a scalar or a per-request array of shape (B,); with mixed
-        ``topk`` the outputs are (B, max(topk)) and row r carries topk[r]
-        results then (+inf, -1).  ``ef`` is the HNSW beam knob: the scan
-        engine ignores it.  Returns host numpy (dists float32, ids int64),
-        and optionally the routing stats.
+        ``topk`` and ``ef`` are scalars or per-request arrays of shape (B,);
+        ``ef`` entries <= 0 mean the index default, and the scan engine
+        ignores ``ef``.  With mixed ``topk`` the outputs are (B, max(topk))
+        and row r carries topk[r] results then (+inf, -1).  ``hnsw_mode``:
+        'stacked' (one beam over every (partition, query) lane of the flat
+        stack), 'partition' (one beam per partition on cached device arrays
+        padded to shared buckets) or 'legacy' (the graph uploaded per call);
+        all three give the same answers, and q8 serves only 'stacked'.
+        Returns host numpy (dists float32, ids int64), and optionally the
+        routing stats.
         """
+        if hnsw_mode not in ("stacked", "partition", "legacy"):
+            raise ValueError(
+                f"hnsw_mode={hnsw_mode!r} — expected 'stacked', 'partition' or 'legacy'"
+            )
         cfg = self.config
+        if cfg.quantized == "q8" and cfg.engine == "hnsw" and hnsw_mode != "stacked":
+            raise ValueError(
+                "quantized='q8' with engine='hnsw' serves only hnsw_mode='stacked' "
+                "(the flat quantized beam)"
+            )
         queries = np.asarray(queries, dtype=np.float32)
         if cfg.metric == "mips":
             if not hasattr(self, "_mips_M2"):
@@ -292,18 +559,23 @@ class LannsIndex:
                 [queries, np.zeros((queries.shape[0], 1), np.float32)], axis=1
             )
         B = queries.shape[0]
+        if cfg.engine != "hnsw":
+            # ef is an HNSW beam knob: dropping it BEFORE grouping keeps a
+            # batch whole instead of splitting it into identical groups
+            ef = None
         q_dev = torch.from_numpy(queries).to(self.device)  # the batch's one upload
-        scalar, groups = knob_groups(topk, None, B)
+        scalar, groups = knob_groups(topk, ef, B)
         if scalar:
-            tk, _, _ = groups[0]
-            return self._query_group(q_dev, tk, return_stats)
+            tk, efv, _ = groups[0]
+            return self._query_group(q_dev, tk, efv, return_stats, hnsw_mode)
         k_max = max((tk for tk, _, _ in groups), default=0)
         out_d = np.full((B, k_max), np.inf, np.float32)
         out_i = np.full((B, k_max), -1, np.int64)
         group_stats = []
-        for tk, _, rows in groups:
+        for tk, efv, rows in groups:
             res = self._query_group(
-                q_dev.index_select(0, torch.from_numpy(rows).to(self.device)), tk, return_stats
+                q_dev.index_select(0, torch.from_numpy(rows).to(self.device)), tk, efv,
+                return_stats, hnsw_mode,
             )
             if return_stats:
                 d, i, st = res
@@ -316,8 +588,9 @@ class LannsIndex:
             return out_d, out_i
         return out_d, out_i, self._combine_group_stats(group_stats, B)
 
-    def _query_group(self, queries: torch.Tensor, topk: int, return_stats: bool):
-        """One homogeneous topk group through the staged executor."""
+    def _query_group(self, queries: torch.Tensor, topk: int, ef, return_stats: bool,
+                     hnsw_mode: str):
+        """One homogeneous (topk, ef) group through the staged executor."""
         cfg = self.config
         pstk = per_shard_topk(topk, cfg.num_shards, cfg.topk_confidence)
         if queries.shape[0] == 0:
@@ -328,7 +601,7 @@ class LannsIndex:
                     pstk, np.zeros((0,), np.int64), choose_merge_path(cfg)
                 )
             return out_d, out_i
-        out_d, out_i, plan = self._exec.execute(queries, topk)
+        out_d, out_i, plan = self._exec.execute(queries, topk, ef, hnsw_mode)
         out_d, out_i = out_d.cpu().numpy(), out_i.cpu().numpy()  # the results' one sync
         if return_stats:
             return out_d, out_i, query_stats(pstk, plan.segments_visited, plan.merge_path)

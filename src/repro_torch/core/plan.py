@@ -1,16 +1,25 @@
-"""Staged query executor: route -> candidates -> merge (scan engine).
+"""Staged query executor: route -> candidates -> merge.
 
-The port of ``repro.core.plan`` for ``engine="scan"``, fp32 and q8:
+The port of ``repro.core.plan``, both engines, fp32 and q8:
 
     route       virtual-spill segment routing on the device, the compact
                 per-route slot layout and perShardTopK.  The host reads the
                 (B, m) routing mask back once, to size the per-segment
-                launches.
-    candidates  fp32: for each (shard, segment) partition, one fused
-                distance + top-k call (K1) over the segment's routed
-                queries.  q8: the two-stage executor (``quant/twostage.py``:
-                K2 candidates, exact re-rank).  Results scatter into device
-                candidate buffers (B, S, max_routes, lane_width).
+                launches and the beam's lanes.
+    candidates  one stage per engine x precision:
+                  * fp32 scan: for each (shard, segment) partition, one
+                    fused distance + top-k call (K1) over the segment's
+                    routed queries;
+                  * q8 scan: the two-stage executor (``quant/twostage.py``:
+                    K2 candidates, exact re-rank);
+                  * fp32 hnsw: ONE ``beam_search_flat`` call over every
+                    (partition, routed query) lane of the flat device stack;
+                  * q8 hnsw: the same beam over int8 codes (each lane's
+                    query pre-folded with its partition's scales), then the
+                    shared exact re-rank (``quant/rerank.py``).
+                ``hnsw_mode`` 'partition' / 'legacy' run one beam per
+                partition instead.  Results scatter into device candidate
+                buffers (B, S, max_routes, lane_width).
     merge       the merge-path decision (``choose_merge_path``), the
                 dedup-free or two-level merge on the device, the q8 ||q||^2
                 add-back, then the mips augmented-L2 -> inner-product
@@ -20,11 +29,18 @@ The port of ``repro.core.plan`` for ``engine="scan"``, fp32 and q8:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.hnsw import beam_search_flat
 from repro_torch.core.merge import merge_topk_disjoint, merge_topk_vec, per_shard_topk
+from repro_torch.quant.rerank import exact_candidate_distances
+
+#: the flat HNSW row lattice (lane offsets, adjacency entries) is int32 on
+#: the device: every flattened row must stay below this
+_INT32_MAX = np.iinfo(np.int32).max
 
 
 def knob_groups(topk, ef, B: int):
@@ -111,7 +127,7 @@ def query_stats(pstk, segments_visited, merge_path="two_level", knob_groups_coun
 
 @dataclasses.dataclass
 class QueryPlan:
-    """Routing result + the batch's topk flowing through the stages."""
+    """Routing result + the batch's (topk, ef) flowing through the stages."""
 
     queries: torch.Tensor  # (B, d) fp32 on the device, mips-augmented
     topk: int
@@ -128,6 +144,8 @@ class QueryPlan:
     # the q8 exact re-rank's share of the candidates stage, accumulated only
     # while ``QueryPlanExecutor.rerank_clock`` is set
     rerank_s: float = 0.0
+    ef: Optional[int] = None  # the HNSW beam width (None: the index default)
+    hnsw_mode: str = "stacked"
 
 
 class QueryPlanExecutor:
@@ -141,7 +159,8 @@ class QueryPlanExecutor:
         self.index = index
         self.rerank_clock = None
 
-    def plan(self, queries: torch.Tensor, topk: int) -> QueryPlan:
+    def plan(self, queries: torch.Tensor, topk: int, ef: Optional[int] = None,
+             hnsw_mode: str = "stacked") -> QueryPlan:
         """Route the batch and lay out the compact candidate slots."""
         index = self.index
         cfg = index.config
@@ -158,7 +177,7 @@ class QueryPlanExecutor:
         # scored rows each) so the dedup-free merge sees every candidate;
         # all other lanes are trimmed to pstk.
         lane_w = pstk
-        if cfg.quantized == "q8" and cfg.spill == "virtual":
+        if cfg.quantized == "q8" and cfg.engine == "scan" and cfg.spill == "virtual":
             lane_w = min(
                 cfg.rerank_factor * pstk,
                 max((p.size for p in index.partitions.values()), default=pstk),
@@ -173,14 +192,19 @@ class QueryPlanExecutor:
         return QueryPlan(
             queries=queries, topk=topk, pstk=pstk, lane_width=lane_w, slot=slot, sels=sels,
             segments_visited=segments_visited, max_routes=max_routes,
-            cand_d=cand_d, cand_i=cand_i,
+            cand_d=cand_d, cand_i=cand_i, ef=ef, hnsw_mode=hnsw_mode,
         )
 
     def candidates(self, plan: QueryPlan) -> QueryPlan:
         """Fill the plan's candidate slots; every partition exactly once."""
         index = self.index
         cfg = index.config
-        if cfg.quantized == "q8":  # every non-empty partition is a q8 one
+        if plan.hnsw_mode == "stacked":
+            if cfg.quantized == "q8":
+                plan.handled |= self._candidates_hnsw_q8(plan)
+            else:
+                plan.handled |= self._candidates_hnsw_fp32(plan)
+        if cfg.quantized == "q8" and cfg.engine == "scan":
             clock = self.rerank_clock
             acc = None if clock is None else [0.0]
             plan.handled |= index._q8_executor().run(
@@ -189,7 +213,9 @@ class QueryPlanExecutor:
             )
             if acc is not None:
                 plan.rerank_s += acc[0]
-            return plan
+        n_pad = l_pad = None
+        if plan.hnsw_mode == "partition":
+            n_pad, l_pad = index._hnsw_pads()
         for g in range(cfg.num_segments):
             sel = plan.sels[g]
             if sel.numel() == 0:
@@ -197,15 +223,161 @@ class QueryPlanExecutor:
             q_sel = plan.queries.index_select(0, sel)
             sl = plan.slot[sel, g]
             for s in range(cfg.num_shards):
+                if (s, g) in plan.handled:
+                    continue
                 part = index.partitions.get((s, g))
                 if part is None or part.size == 0:
                     continue
                 # the SHARD-level perShardTopK propagates to the segments
                 # (never a per-segment trim) — §5.3.2.
-                d, i = part.search(q_sel, plan.pstk)
+                if part.kind == "hnsw":
+                    d, i = part.search(q_sel, plan.pstk, ef=plan.ef, n_pad=n_pad, l_pad=l_pad,
+                                       legacy=plan.hnsw_mode == "legacy")
+                else:
+                    d, i = part.search(q_sel, plan.pstk)
                 plan.cand_d[:, s][sel, sl] = d
                 plan.cand_i[:, s][sel, sl] = i
         return plan
+
+    def _assemble_beam_lanes(self, plan: QueryPlan, stack: dict, q_eff: torch.Tensor,
+                             scales=None):
+        """The (partition, routed query) lanes of a flat beam.
+
+        Partition (s, g) searches the routed subset of segment g (the same
+        in every shard); lanes are laid out in (shard, segment) order.
+        ``scales`` (P, d), when given, folds each partition's per-dim
+        quantization scales into its lanes' queries (the q8 beam).  The
+        reference pads the lanes to a quarter-pow2 bucket for its jit
+        traces; eager lanes are independent, so the port does not pad.
+        Returns ``(blocks, handled, Q, OFF, EP, V, T)`` with blocks
+        ``(s, g, pi, lane_start, count)``; Q/OFF/EP/V are None when no lane
+        routed (T == 0).
+        """
+        n_pad = stack["n_pad"]
+        blocks = []
+        q_blocks, off_blocks, ep_blocks = [], [], []
+        T = 0
+        for (s, g), pi in sorted(stack["index"].items()):
+            sel = plan.sels[g]
+            cnt = sel.numel()
+            if cnt == 0:
+                continue
+            blocks.append((s, g, pi, T, cnt))
+            q_blk = q_eff.index_select(0, sel)
+            if scales is not None:
+                q_blk = q_blk * scales[pi][None, :]
+            q_blocks.append(q_blk)
+            off = pi * n_pad
+            if off + n_pad > _INT32_MAX:
+                raise OverflowError(
+                    f"beam lane offset {off} + n_pad {n_pad} exceeds the int32 flat row "
+                    "lattice — shard the index"
+                )
+            off_blocks.append(np.full(cnt, off, np.int64))
+            ep_blocks.append(np.full(cnt, stack["entry"][pi] + off, np.int64))
+            T += cnt
+        handled = set(stack["index"])
+        if T == 0:
+            return blocks, handled, None, None, None, None, 0
+        dev = q_eff.device
+        Q = torch.cat(q_blocks)
+        OFF = torch.from_numpy(np.concatenate(off_blocks)).to(dev)
+        EP = torch.from_numpy(np.concatenate(ep_blocks)).to(dev)
+        V = torch.ones((T,), dtype=torch.bool, device=dev)
+        return blocks, handled, Q, OFF, EP, V, T
+
+    @staticmethod
+    def _cos_normalize(q_eff: torch.Tensor, hcfg) -> torch.Tensor:
+        if hcfg.metric != "cos":
+            return q_eff
+        return q_eff / q_eff.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+    def _candidates_hnsw_fp32(self, plan: QueryPlan) -> set:
+        """One ``beam_search_flat`` call covering every HNSW partition;
+        results scatter into the plan's per-route candidate slots.  Returns
+        the set of (shard, segment) partitions served."""
+        index = self.index
+        stack = index._hnsw_stack()
+        if not stack:
+            return set()
+        hcfg = index.config.hnsw_config()
+        pstk = plan.pstk
+        q_eff = self._cos_normalize(plan.queries, hcfg)
+        blocks, handled, Q, OFF, EP, V, T = self._assemble_beam_lanes(plan, stack, q_eff)
+        if T == 0:
+            return handled
+        ef_eff = max(plan.ef or hcfg.ef_search, pstk)
+        d_all, i_all = beam_search_flat(
+            stack["arrs"], Q, EP, OFF, V, k=pstk, ef=ef_eff, max_iters=ef_eff + 2 * hcfg.M,
+            metric="l2" if hcfg.metric == "l2" else "ip",
+        )
+        i_all = torch.where(i_all >= 0, stack["keys"][i_all.clamp_min(0)], -1)
+        for (s, g, _pi, start, cnt) in blocks:
+            sel = plan.sels[g]
+            sl = plan.slot[sel, g]
+            plan.cand_d[:, s][sel, sl] = d_all[start: start + cnt]
+            plan.cand_i[:, s][sel, sl] = i_all[start: start + cnt]
+        return handled
+
+    def _candidates_hnsw_q8(self, plan: QueryPlan) -> set:
+        """Quantized HNSW beam + shared exact re-rank.
+
+        The same flat beam as the fp32 stage, over the int8-code stack: each
+        lane's query is pre-folded with its partition's per-dim scales, so
+        every in-walk distance is a dot against the dequantized row at a
+        quarter of the gather bytes.  The beam returns ``C = min(
+        rerank_factor * pstk, ef)`` candidates per lane by quantized
+        distance; the exact re-rank re-scores them against the fp32
+        originals and the best ``pstk`` (by a stable sort) land in the plan
+        slots, so the merged distances carry no quantization error.
+        """
+        index = self.index
+        stack = index._hnsw_stack(quantized=True)
+        if not stack:
+            return set()
+        cfg = index.config
+        hcfg = cfg.hnsw_config()
+        pstk = plan.pstk
+        # the walk and the re-rank both use the beam's metric: 'cos' rows
+        # were normalized at build, so their exact scores reduce to 'ip'
+        rmetric = "l2" if hcfg.metric == "l2" else "ip"
+        q_eff = self._cos_normalize(plan.queries, hcfg)
+        n_pad = stack["n_pad"]
+        ef_eff = max(plan.ef or hcfg.ef_search, pstk)
+        C = max(min(cfg.rerank_factor * pstk, ef_eff), pstk)
+        blocks, handled, Q, OFF, EP, V, T = self._assemble_beam_lanes(
+            plan, stack, q_eff, scales=stack["scales"]
+        )
+        if T == 0:
+            return handled
+        _, i_all = beam_search_flat(
+            stack["arrs"], Q, EP, OFF, V, k=C, ef=ef_eff, max_iters=ef_eff + 2 * hcfg.M,
+            metric=rmetric,
+        )
+        clock = self.rerank_clock
+        kk = min(pstk, C)
+        for (s, g, pi, start, cnt) in blocks:
+            sel = plan.sels[g]
+            store = stack["stores"][pi]
+            rows = i_all[start: start + cnt]  # (b, C) flat rows, -1 padded
+            invalid = rows < 0
+            cand = (rows - pi * n_pad).clamp(0, store.size - 1)
+            t_rr = None if clock is None else clock()
+            ex = exact_candidate_distances(q_eff.index_select(0, sel), cand, store, rmetric,
+                                           mode=stack["store_mode"])
+            if t_rr is not None:
+                plan.rerank_s += clock() - t_rr
+            ex = torch.where(invalid, float("inf"), ex)
+            if kk < C:
+                order = torch.sort(ex, dim=1, stable=True).indices[:, :kk]
+                d_lane, cand_sel = ex.gather(1, order), cand.gather(1, order)
+            else:
+                d_lane, cand_sel = ex, cand
+            i_lane = torch.where(torch.isinf(d_lane), -1, stack["keys"][cand_sel + pi * n_pad])
+            sl = plan.slot[sel, g]
+            plan.cand_d[sel, s, sl, :kk] = d_lane
+            plan.cand_i[sel, s, sl, :kk] = i_lane
+        return handled
 
     def merge(self, plan: QueryPlan):
         """Dedup-free or two-level merge + the mips conversion."""
@@ -245,9 +417,11 @@ class QueryPlanExecutor:
             )
         return out_d, out_i
 
-    def execute(self, queries: torch.Tensor, topk: int):
-        """route -> candidates -> merge for ONE topk group; device outputs."""
-        plan = self.plan(queries, topk)
+    def execute(self, queries: torch.Tensor, topk: int, ef: Optional[int] = None,
+                hnsw_mode: str = "stacked"):
+        """route -> candidates -> merge for ONE (topk, ef) group; device
+        outputs."""
+        plan = self.plan(queries, topk, ef, hnsw_mode)
         self.candidates(plan)
         out_d, out_i = self.merge(plan)
         return out_d, out_i, plan

@@ -1,6 +1,7 @@
 """K1, K2 and K3 on the card: the CUDA kernels against their plain PyTorch
-versions, card indexes against CPU indexes, and the LM path on the card
-against the CPU.
+versions, card indexes against CPU indexes (scan and HNSW), the HNSW beam on
+the card against the beam on the CPU, and the LM path on the card against
+the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU; the
 module imports torch and the port only (no JAX), so it runs on a machine
@@ -14,7 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import LannsConfig, LannsIndex
+from repro_torch.convert import index_from_numpy_state, index_numpy_state
+from repro_torch.core import LannsConfig, LannsIndex, beam_search_flat
 from repro_torch.data.synthetic import sift_like
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.distance_topk import TILE_N, TILE_Q, split_plan
@@ -212,6 +214,85 @@ def test_card_q8_index_matches_cpu_index(cuda, spill, rerank_store):
     d_c, i_c = cpu.query(queries, 10)
     np.testing.assert_array_equal(i, i_c)
     np.testing.assert_allclose(d, d_c, rtol=3e-4, atol=3e-4)
+
+
+def _hnsw_cfg(**kw):
+    return LannsConfig(num_shards=2, num_segments=4, engine="hnsw", hnsw_m=8,
+                       ef_construction=40, ef_search=48, **kw)
+
+
+def _beams_agree(d, i, d_c, i_c):
+    """The HNSW acceptance (tests/test_torch_hnsw.py): ids equal in >= 99%
+    of entries, distances within 1e-4 where they are."""
+    d, i, d_c, i_c = (np.asarray(a) for a in (d, i, d_c, i_c))
+    assert d.shape == d_c.shape
+    same = i == i_c
+    assert same.mean() >= 0.99, same.mean()
+    fin = same & np.isfinite(d_c)
+    np.testing.assert_allclose(d[fin], d_c[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", ["none", "q8"])
+def test_card_beam_matches_cpu_beam(cuda, quantized):
+    """One set of frozen graphs: ``beam_search_flat`` on the card against
+    the same call on the CPU, over every partition's lanes plus padding
+    lanes."""
+    data, queries = sift_like(3000, 32, 64, seed=7)
+    gpu = LannsIndex(_hnsw_cfg(quantized=quantized)).build(data)
+    stack = gpu._hnsw_stack(quantized=quantized == "q8")
+    n_pad, P = stack["n_pad"], len(stack["index"])
+    lane_p = np.repeat(np.arange(P), len(queries))
+    T = len(lane_p) + 5
+    q = np.zeros((T, 32), np.float32)
+    q[: len(lane_p)] = np.tile(queries, (P, 1))
+    q = torch.from_numpy(q)
+    if quantized == "q8":
+        q[: len(lane_p)] *= stack["scales"].cpu()[torch.from_numpy(lane_p)]
+    off = torch.zeros(T, dtype=torch.int64)
+    off[: len(lane_p)] = torch.from_numpy(lane_p * n_pad)
+    ep = off + torch.from_numpy(np.pad(stack["entry"][lane_p], (0, 5)))
+    valid = torch.arange(T) < len(lane_p)
+    kw = {"k": 20, "ef": 48, "max_iters": 64, "metric": "l2"}
+    d, i = beam_search_flat(stack["arrs"], q.to(cuda), ep.to(cuda), off.to(cuda),
+                            valid.to(cuda), **kw)
+    cpu_arrs = {k: t.cpu() for k, t in stack["arrs"].items()}
+    d_c, i_c = beam_search_flat(cpu_arrs, q, ep, off, valid, **kw)
+    n = len(lane_p)
+    _beams_agree(d.cpu()[:n], i.cpu()[:n], d_c[:n], i_c[:n])
+    assert (i.cpu()[n:, 1:] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", ["none", "q8"])
+@pytest.mark.parametrize("spill", ["virtual", "physical"])
+def test_card_hnsw_index_matches_cpu_index(cuda, quantized, spill):
+    """The card index and a CPU index carrying its graphs answer alike."""
+    data, queries = sift_like(3000, 24, 64, seed=5)
+    gpu = LannsIndex(_hnsw_cfg(quantized=quantized, spill=spill)).build(data)
+    cpu = index_from_numpy_state(*index_numpy_state(gpu), device="cpu")
+    ops.reset_launches()
+    d, i = gpu.query(queries, 10)
+    assert not any(ops.KERNEL_LAUNCHES.values())  # the beam is torch ops
+    d_c, i_c = cpu.query(queries, 10)
+    _beams_agree(d, i, d_c, i_c)
+
+
+@pytest.mark.cuda
+def test_pool_build_after_cuda_init(cuda):
+    """``build(workers=2)`` in a process that holds a CUDA context gives
+    the graphs of ``workers=0``."""
+    torch.zeros(1, device=cuda)
+    data, queries = sift_like(2000, 16, 16, seed=3)
+    a = LannsIndex(_hnsw_cfg()).build(data, workers=2)
+    b = LannsIndex(_hnsw_cfg()).build(data, workers=0)
+    for sg, p in a.partitions.items():
+        if p.kind == "hnsw":
+            fa, fb = p.frozen, b.partitions[sg].frozen
+            assert fa.entry == fb.entry
+            for name in ("vectors", "levels", "adj0", "upper_adj", "keys"):
+                np.testing.assert_array_equal(getattr(fa, name), getattr(fb, name))
+    np.testing.assert_array_equal(a.query(queries, 10)[1], b.query(queries, 10)[1])
 
 
 # K3's shapes: a few of the model's, then the kernel's tile edges (64-row q
