@@ -76,8 +76,12 @@ def pad_axis_to(a: np.ndarray, axis: int, n: int, fill=0) -> np.ndarray:
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
 
-    Raises when CUDA is asked for (explicitly or by default) and missing —
-    the port never falls back to the CPU on its own.
+    A CUDA device comes back with an explicit index (the calling thread's
+    current device when the caller names none), because the current device
+    is per thread: a serving thread other than the one that built the index
+    must find the same card.  Raises when CUDA is asked for (explicitly or
+    by default) and missing — the port never falls back to the CPU on its
+    own.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -87,6 +91,8 @@ def resolve_device(device=None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device={device!r} — expected a cuda or cpu device")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -13,34 +13,48 @@
      batch is uploaded once; the host reads the routing mask once and the
      results once.
 
+  4. ``save`` / ``load`` / ``build(resume_dir=)``: the reference's artifact,
+     byte for byte in layout — one ``shard{s:04d}_seg{g:04d}.npz`` per
+     partition, each written atomically, plus ``manifest.json``
+     (``format_version`` 2) and ``segmenter.npz`` — so an artifact written
+     by either package loads in the other.  A resumed build loads the
+     partitions already on disk and saves each new one as soon as it is
+     built.
+
 Ported: both engines, ``quantized="none"`` and ``"q8"`` (int8 two-stage
 scan; quantized beam + exact re-rank), metrics l2/ip/cos/mips, virtual and
 physical spill, per-request ``topk`` and ``ef`` arrays, ``hnsw_mode``
-stacked / partition / legacy, and the build process pool.  Not yet
-ported: telemetry (``attach_telemetry`` raises ``NotImplementedError``
-naming its ROADMAP item) and persistence (``save`` / ``load``, ROADMAP
-item 6).
+stacked / partition / legacy, the build process pool, persistence and
+resume, ``warm_traces`` and telemetry (``attach_telemetry``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import multiprocessing
 import os
+import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, as_completed
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.common.utils import Timer, next_pow2, resolve_device
-from repro_torch.core.hnsw import DEFAULT_BUILD_CHUNK, FrozenHNSW, HNSWConfig, HNSWIndex
+from repro_torch.core.hnsw import (
+    DEFAULT_BUILD_CHUNK,
+    FrozenHNSW,
+    HNSWConfig,
+    HNSWIndex,
+    stack_upper_adj,
+)
 from repro_torch.core.merge import per_shard_topk
 from repro_torch.core.plan import QueryPlanExecutor, choose_merge_path, knob_groups, query_stats
 from repro_torch.core.segmenter import SegmenterConfig
 from repro_torch.core.sharding import TwoLevelPartitioner
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.quant.codec import Q8Corpus, quantize_q8
 from repro_torch.quant.rerank import ExactStore, resolve_store_mode
 from repro_torch.quant.twostage import QuantizedScanExecutor, _Q8Partition
@@ -139,6 +153,8 @@ def _host_map(fn, items: list) -> list:
 
 
 def _summarize_seconds(secs: list) -> dict:
+    """Compact build-cost summary persisted in manifests in place of the
+    raw per-partition timing dict (which scales with partition count)."""
     if not secs:
         return {}
     return {
@@ -147,6 +163,23 @@ def _summarize_seconds(secs: list) -> dict:
         "max": float(np.max(secs)),
         "total": float(np.sum(secs)),
         "count": len(secs),
+    }
+
+
+def _merge_seconds_summary(prior: dict, cur: dict) -> dict:
+    """min/max/total/count merge exactly across build runs; the merged
+    median is count-weighted (raw times are deliberately not persisted)."""
+    if not prior or not prior.get("count"):
+        return cur
+    if not cur or not cur.get("count"):
+        return prior
+    n0, n1 = prior["count"], cur["count"]
+    return {
+        "min": min(prior["min"], cur["min"]),
+        "median": (prior["median"] * n0 + cur["median"] * n1) / (n0 + n1),
+        "max": max(prior["max"], cur["max"]),
+        "total": prior["total"] + cur["total"],
+        "count": n0 + n1,
     }
 
 
@@ -284,11 +317,22 @@ class LannsIndex:
         self._stack: dict[bool, Optional[dict]] = {}
         self._q8_exec = None  # the two-stage scan executor, built at first use
         self._exec = QueryPlanExecutor(self)
+        # optional obs.Telemetry bundle; None (default) = untimed serving
+        self.telemetry = None
 
     def attach_telemetry(self, telemetry) -> "LannsIndex":
-        raise NotImplementedError(
-            "telemetry is not ported yet (ROADMAP 'Modules to port' item 8)"
-        )
+        """Attach (or, with None, detach) an ``obs.Telemetry`` bundle.
+
+        Attached, the staged executor times its route/candidates/rerank/
+        merge boundaries (CUDA events on the card, read after the batch's
+        results sync, so no host sync is added; the telemetry clock on the
+        CPU) into the bundle's registry and span sink, labeled by
+        engine/quantized/merge_path/pow2 batch bucket.  Detached — the
+        default — the executor reads no clock and records no event, so
+        results are bit-identical either way.
+        """
+        self.telemetry = telemetry
+        return self
 
     # -- cached device state ---------------------------------------------------
 
@@ -427,7 +471,7 @@ class LannsIndex:
         return self
 
     def build(self, data: np.ndarray, keys: Optional[np.ndarray] = None, *, workers: int = 0,
-              chunk: int = DEFAULT_BUILD_CHUNK):
+              resume_dir: Optional[str] = None, chunk: int = DEFAULT_BUILD_CHUNK):
         """Partition ``data`` (host numpy) and build every (shard, segment).
 
         'scan': each corpus is uploaded to the device once — for
@@ -438,6 +482,13 @@ class LannsIndex:
         workers run numpy only), then one upload of the flat stack.
         ``chunk`` is the wavefront batch size.  The built graphs are
         bit-identical for any ``chunk`` >= 1 and any worker count.
+
+        ``resume_dir`` checkpoints the build: partitions already saved there
+        are loaded instead of built, and each partition built now is saved
+        there atomically as soon as it is built (as the pool returns it), so
+        a build that dies restarts where it stopped.  ``build_stats
+        ["per_partition_seconds"]`` holds the partitions built by this call
+        only; the persisted summary folds in the earlier runs'.
         """
         cfg = self.config
         data = np.asarray(data, dtype=np.float32)
@@ -455,19 +506,32 @@ class LannsIndex:
         with Timer() as t_assign:
             assignment = self.partitioner.assign(data, keys)
         sgs = [(s, g) for s in range(cfg.num_shards) for g in range(cfg.num_segments)]
+        todo = []
+        for s, g in sgs:
+            if resume_dir and self._partition_done(resume_dir, s, g):
+                self.partitions[(s, g)] = self._load_partition(resume_dir, s, g)
+            else:
+                todo.append((s, g))
         with Timer() as t_build:
             if cfg.engine == "hnsw":
-                per_partition_seconds = self._build_hnsw(data, keys, assignment, sgs, workers,
-                                                         chunk)
+                per_partition_seconds = self._build_hnsw(data, keys, assignment, todo, workers,
+                                                         chunk, resume_dir)
             else:
-                per_partition_seconds = self._build_scan(data, keys, assignment, sgs)
+                per_partition_seconds = self._build_scan(data, keys, assignment, todo,
+                                                         resume_dir)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        summary = _summarize_seconds(list(per_partition_seconds.values()))
+        if resume_dir:
+            # resumed builds keep their build-cost provenance: fold the
+            # previous runs' summary (persisted in the manifest) into this
+            # run's — per-partition times themselves are not persisted.
+            summary = _merge_seconds_summary(self._prior_seconds_summary(resume_dir), summary)
         self.build_stats.update(
             assign_seconds=t_assign.seconds,
             build_wall_seconds=t_build.seconds,
             per_partition_seconds=per_partition_seconds,
-            per_partition_seconds_summary=_summarize_seconds(list(per_partition_seconds.values())),
+            per_partition_seconds_summary=summary,
             partition_sizes=assignment.partition_sizes().tolist(),
             total_stored=assignment.total_stored,
             n_input=n,
@@ -477,29 +541,37 @@ class LannsIndex:
         )
         return self
 
-    def _build_hnsw(self, data, keys, assignment, sgs, workers: int, chunk: int) -> dict:
+    def _build_hnsw(self, data, keys, assignment, sgs, workers: int, chunk: int,
+                    resume_dir: Optional[str]) -> dict:
         cfg = self.config
         jobs = [(s, g, data[assignment.rows[s][g]], keys[assignment.rows[s][g]], cfg.engine,
                  cfg.hnsw_config(), chunk) for s, g in sgs]
+        results = {}
+
+        def done(res):
+            s, g, payload, _ = res
+            results[(s, g)] = res
+            if resume_dir:
+                self._save_partition(resume_dir, s, g, payload)
+
         if workers and len(jobs) > 1:
             ctx = multiprocessing.get_context("spawn")
             with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
-                results = list(pool.map(_build_one_partition, jobs))
+                for fut in as_completed([pool.submit(_build_one_partition, j) for j in jobs]):
+                    done(fut.result())
         else:
-            results = [_build_one_partition(j) for j in jobs]
+            for j in jobs:
+                done(_build_one_partition(j))
         per_partition_seconds = {}
-        for s, g, payload, secs in results:
-            if payload["kind"] == "hnsw":
-                self.partitions[(s, g)] = _HNSWPartition(payload, cfg)
-            else:  # an empty partition
-                self.partitions[(s, g)] = _Partition(payload["vectors"], payload["keys"], cfg,
-                                                     self.device)
+        for sg in sgs:
+            s, g, payload, secs = results[sg]
+            self.partitions[sg] = self._partition_from_payload(payload)
             per_partition_seconds[f"{s}/{g}"] = secs
         self._invalidate_stack()
         self._hnsw_stack(quantized=cfg.quantized == "q8")  # the one upload, now
         return per_partition_seconds
 
-    def _build_scan(self, data, keys, assignment, sgs) -> dict:
+    def _build_scan(self, data, keys, assignment, sgs, resume_dir: Optional[str]) -> dict:
         cfg = self.config
         per_partition_seconds = {}
         vecs = dict(zip(sgs, _host_map(lambda sg: data[assignment.rows[sg[0]][sg[1]]], sgs)))
@@ -517,6 +589,10 @@ class LannsIndex:
                 vecs[(s, g)], keys[rows], cfg, self.device, q8=q8s.get((s, g))
             )
             per_partition_seconds[f"{s}/{g}"] = time.perf_counter() - t0
+            if resume_dir:
+                # the build payload, as the reference's resume saves it
+                self._save_partition(resume_dir, s, g, {"kind": "scan", "vectors": vecs[(s, g)],
+                                                        "keys": keys[rows]})
         del vecs
         self._invalidate_stack()
         if cfg.quantized == "q8":
@@ -524,7 +600,81 @@ class LannsIndex:
             self._q8_executor()  # upload the codes now, not at the first query
         return per_partition_seconds
 
+    @staticmethod
+    def _prior_seconds_summary(resume_dir: str) -> dict:
+        manifest_path = os.path.join(resume_dir, "manifest.json")
+        if not os.path.exists(manifest_path):
+            return {}
+        try:
+            with open(manifest_path) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError):
+            return {}
+        stats = manifest.get("build_stats") or {}
+        return stats.get("per_partition_seconds_summary") or {}
+
     # -- query ---------------------------------------------------------------
+
+    def warm_traces(self, max_batch: int, topk: int, *, ef: Optional[int] = None,
+                    knobs=None) -> "LannsIndex":
+        """Take the first-use stalls off the serving path for batches up to
+        ``max_batch`` (the reference's name and signature).
+
+        There is no jit in the port.  What stalls the first live traffic
+        instead is the ``nvcc`` build and ``ctypes`` load of a kernel
+        library at its first use (``kernels/_build.py``), and CUDA
+        caching-allocator growth for an unseen (batch bucket, topk, ef)
+        shape.  So this loads every kernel library the index's path launches
+        (K1 for the fp32 scan, K2 for the q8 scan; the HNSW beam launches
+        none), then runs one ``query`` per pow2 batch bucket up to
+        ``next_pow2(max_batch)`` for each knob pair — ``(topk, ef)`` and
+        every pair of ``knobs`` (an iterable of ``(topk, ef)``, None entries
+        meaning the defaults above) — and, for fp32 scan partitions, one
+        direct search per (pow2 subset, partition), as the reference does.
+        ``analysis.sentinels.RetraceSentinel`` checks what is left.
+        """
+        parts = [p for p in self.partitions.values() if p.size > 0]
+        if not parts or max_batch < 1:
+            return self
+        cfg = self.config
+        if self.device.type == "cuda" and cfg.engine == "scan":
+            _build.load("distance_topk_q8.cu" if cfg.quantized == "q8" else "distance_topk.cu")
+        p0 = parts[0]
+        if p0.kind == "hnsw":
+            dim = p0.frozen.vectors.shape[1]
+        else:
+            dim = (p0.host_vectors if p0.vectors is None else p0.vectors).shape[1]
+        qdim = dim - 1 if cfg.metric == "mips" else dim
+        rng = np.random.default_rng(0)
+        # pow2 buckets up to next_pow2(max_batch): a non-pow2 max_batch's
+        # own size pads to the top bucket in the reference
+        b_top = next_pow2(max_batch)
+        dummy = rng.standard_normal((b_top, qdim)).astype(np.float32)
+        pairs = [(topk, ef)]
+        for tk_k, ef_k in knobs or ():
+            pair = (topk if tk_k is None else int(tk_k), ef if ef_k is None else int(ef_k))
+            if pair not in pairs:
+                pairs.append(pair)
+        for tk_w, ef_w in pairs:
+            b = 1
+            while b <= b_top:
+                self.query(dummy[:b], tk_w, ef=ef_w)
+                b *= 2
+        if cfg.engine == "scan" and cfg.quantized == "none":
+            full = dummy
+            if cfg.metric == "mips":
+                full = np.concatenate([dummy, np.zeros((len(dummy), 1), np.float32)], axis=1)
+            full = torch.from_numpy(full).to(self.device)
+            for tk_w, _ in pairs:
+                pstk = per_shard_topk(tk_w, cfg.num_shards, cfg.topk_confidence)
+                for p in parts:
+                    b = 1
+                    while b <= b_top:
+                        p.search(full[:b], pstk)
+                        b *= 2
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
 
     def query(self, queries, topk, *, ef=None, return_stats: bool = False,
               hnsw_mode: str = "stacked"):
@@ -603,6 +753,7 @@ class LannsIndex:
             return out_d, out_i
         out_d, out_i, plan = self._exec.execute(queries, topk, ef, hnsw_mode)
         out_d, out_i = out_d.cpu().numpy(), out_i.cpu().numpy()  # the results' one sync
+        self._exec.report(plan)  # the stage marks, now complete (telemetry only)
         if return_stats:
             return out_d, out_i, query_stats(pstk, plan.segments_visited, plan.merge_path)
         return out_d, out_i
@@ -624,3 +775,172 @@ class LannsIndex:
         )
         stats["max_segments_visited"] = max(st["max_segments_visited"] for _, _, st in group_stats)
         return stats
+
+    # -- persistence (atomic, resumable) --------------------------------------
+
+    @staticmethod
+    def _partition_path(root, s, g):
+        return os.path.join(root, f"shard{s:04d}_seg{g:04d}.npz")
+
+    def _partition_done(self, root, s, g):
+        return os.path.exists(self._partition_path(root, s, g))
+
+    def _save_partition(self, root, s, g, payload):
+        """Write one partition's payload as ``.npz``, atomically: a list
+        value ``key`` becomes ``key__0``, ``key__1``, ... and ``key__len``."""
+        os.makedirs(root, exist_ok=True)
+        path = self._partition_path(root, s, g)
+        arrays = {"kind": np.array(payload["kind"])}
+        for key, val in payload.items():
+            if key == "kind" or val is None:
+                continue
+            if isinstance(val, list):
+                for li, arr in enumerate(val):
+                    arrays[f"{key}__{li}"] = arr
+                arrays[f"{key}__len"] = np.array(len(val))
+            else:
+                arrays[key] = np.asarray(val)
+        fd, tmp = tempfile.mkstemp(dir=root, suffix=".tmp")
+        os.close(fd)
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)  # atomic publish
+
+    def _load_payload(self, root, s, g) -> dict:
+        """One partition's saved payload, its ragged ``key__i`` lists joined
+        back; a legacy HNSW artifact (ragged ``level_nodes`` / ``level_adj``,
+        no ``upper_adj``) gets its (L, n, M) stack rebuilt."""
+        with np.load(self._partition_path(root, s, g), allow_pickle=False) as z:
+            payload = {}
+            lists: dict[str, dict[int, np.ndarray]] = {}
+            for key in z.files:
+                if "__" in key:
+                    base, idx = key.rsplit("__", 1)
+                    if idx == "len":
+                        payload.setdefault(base, [None] * int(z[key]))
+                    else:
+                        lists.setdefault(base, {})[int(idx)] = z[key]
+                elif key == "kind":
+                    payload["kind"] = str(z[key])
+                else:
+                    payload[key] = z[key]
+            for base, items in lists.items():
+                payload.setdefault(base, [None] * len(items))
+                for idx, arr in items.items():
+                    payload[base][idx] = arr
+        if payload.get("kind") == "hnsw" and "upper_adj" not in payload:
+            payload["upper_adj"] = stack_upper_adj(
+                payload.get("level_nodes", []),
+                payload.get("level_adj", []),
+                payload["vectors"].shape[0],
+                self.config.hnsw_config().M,
+            )
+        return payload
+
+    def _partition_from_payload(self, payload: dict):
+        """A partition object from a build or artifact payload.  Saved q8
+        codes are used as they are; an fp32 payload under a q8 config is
+        quantized here (deterministically: equal to a q8 build's codes)."""
+        cfg = self.config
+        if payload["kind"] == "hnsw":
+            return _HNSWPartition(payload, cfg)
+        vectors = np.asarray(payload["vectors"], np.float32)
+        keys = payload.get("keys")
+        if keys is None:
+            keys = np.arange(vectors.shape[0], dtype=np.int64)
+        q8 = None
+        if cfg.quantized == "q8" and payload.get("q8_codes") is not None:
+            q8 = Q8Corpus(codes=payload["q8_codes"], scales=payload["q8_scales"],
+                          norms2=payload["q8_norms2"], metric=_scan_metric(cfg))
+        return _Partition(vectors, keys, cfg, self.device, q8=q8)
+
+    def _load_partition(self, root, s, g):
+        return self._partition_from_payload(self._load_payload(root, s, g))
+
+    @staticmethod
+    def _save_payload(part) -> dict:
+        """The artifact payload of a built partition.  A scan partition's
+        device corpus is read back once; a q8 partition's host fp32 rows are
+        its exact re-rank store and are saved as its ``vectors``."""
+        if part.kind == "hnsw":
+            fr = part.frozen
+            payload = {"kind": "hnsw", "vectors": fr.vectors, "keys": fr.keys,
+                       "levels": fr.levels, "adj0": fr.adj0, "entry": fr.entry,
+                       "upper_adj": fr.upper_adj}
+        else:
+            vectors = part.host_vectors if part.vectors is None else part.vectors.cpu().numpy()
+            payload = {"kind": "scan", "vectors": vectors, "keys": part.keys.cpu().numpy()}
+        if part.q8 is not None:
+            # int8 codes + per-dim scales + per-vector norm corrections; the
+            # fp32 ``vectors`` above double as the exact re-rank store
+            payload.update(q8_codes=part.q8.codes, q8_scales=part.q8.scales,
+                           q8_norms2=part.q8.norms2)
+        return payload
+
+    def save(self, root: str):
+        """Write the index under ``root``: every partition not already there
+        (one ``.npz`` each, atomic), ``manifest.json`` and, for a tree
+        segmenter, ``segmenter.npz``."""
+        os.makedirs(root, exist_ok=True)
+        for (s, g), part in self.partitions.items():
+            if not self._partition_done(root, s, g):
+                self._save_partition(root, s, g, self._save_payload(part))
+        tree = self.partitioner.segmenter.tree_arrays()
+        manifest = {
+            # v2 adds the optional q8_* arrays per partition (and the
+            # quantized/rerank_* config knobs); v1 artifacts load unchanged
+            "format_version": 2,
+            "config": dataclasses.asdict(self.config),
+            "partitions": sorted([f"{s}/{g}" for s, g in self.partitions]),
+            "build_stats": {
+                k: v for k, v in self.build_stats.items() if k != "per_partition_seconds"
+            },
+            # mips needs the corpus max-norm M^2 to convert augmented-L2
+            # distances back to inner products at query time
+            "mips_M2": getattr(self, "_mips_M2", None),
+        }
+        with open(os.path.join(root, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2, default=str)
+        if tree is not None:
+            np.savez(
+                os.path.join(root, "segmenter.npz"),
+                hyperplanes=tree["hyperplanes"], split=tree["split"],
+                lo=tree["lo"], hi=tree["hi"],
+            )
+
+    @classmethod
+    def load(cls, root: str, device=None) -> "LannsIndex":
+        """The index saved under ``root`` (by either package), on ``device``
+        (CUDA unless the caller names another).  An HNSW index ends with one
+        upload of its flat stack, a q8 scan index with one of its codes, as
+        ``build`` does; fp32 scan partitions upload as they load."""
+        with open(os.path.join(root, "manifest.json")) as f:
+            manifest = json.load(f)
+        version = int(manifest.get("format_version", 1))
+        if version > 2:
+            raise ValueError(
+                f"artifact format_version={version} is newer than this build understands (max 2)"
+            )
+        config = LannsConfig(**manifest["config"])
+        index = cls(config, device=device)
+        if manifest.get("mips_M2") is not None:
+            index._mips_M2 = float(manifest["mips_M2"])
+        seg_path = os.path.join(root, "segmenter.npz")
+        if os.path.exists(seg_path):
+            with np.load(seg_path) as z:
+                # set_tree drops the segmenter's cached device copies
+                index.partitioner.segmenter.set_tree(z["hyperplanes"], z["split"], z["lo"],
+                                                     z["hi"])
+        index.partitioner._fitted = True
+        for pstr in manifest["partitions"]:
+            s, g = (int(v) for v in pstr.split("/"))
+            index.partitions[(s, g)] = index._load_partition(root, s, g)
+        index.build_stats = manifest.get("build_stats", {})
+        index._invalidate_stack()
+        if config.engine == "hnsw":
+            index._hnsw_stack(quantized=config.quantized == "q8")  # the one upload
+        elif config.quantized == "q8":
+            index._q8_executor()  # the codes' one upload
+        if index.device.type == "cuda":
+            torch.cuda.synchronize(index.device)
+        return index

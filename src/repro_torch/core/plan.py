@@ -24,6 +24,13 @@ The port of ``repro.core.plan``, both engines, fp32 and q8:
                 dedup-free or two-level merge on the device, the q8 ||q||^2
                 add-back, then the mips augmented-L2 -> inner-product
                 conversion.
+
+Stage timing (``LannsIndex.attach_telemetry``): a ``StageTimer`` marks the
+stage boundaries and each exact re-rank.  On the card a host clock at a
+boundary would measure dispatch, not work, so each mark is a CUDA event
+recorded on the index's stream, read after the batch's one results sync;
+on the CPU a mark is a read of the telemetry clock.  Detached, the executor
+makes no mark at all.
 """
 
 from __future__ import annotations
@@ -125,6 +132,44 @@ def query_stats(pstk, segments_visited, merge_path="two_level", knob_groups_coun
     }
 
 
+class StageTimer:
+    """Marks at the executor's stage boundaries, read after the results
+    sync: CUDA events on ``device``'s current stream, or reads of ``clock``
+    on the CPU.  ``bounds`` holds the four stage boundaries, ``rerank`` the
+    (start, end) pair of every exact re-rank inside the candidates stage."""
+
+    def __init__(self, device: torch.device, telemetry):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self.telemetry = telemetry
+        self.bounds: list = []
+        self.rerank: list = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            return ev
+        return self.telemetry.clock()
+
+    def seconds(self, a, b) -> float:
+        """Seconds from mark ``a`` to mark ``b``; on the card both events
+        must have completed (the caller has synced the results)."""
+        return a.elapsed_time(b) / 1e3 if self.cuda else b - a
+
+    def stage_seconds(self) -> dict:
+        """{route, candidates, rerank, merge} seconds; the re-rank's share is
+        taken out of the candidates stage."""
+        m0, m1, m2, m3 = self.bounds
+        rr = sum(self.seconds(a, b) for a, b in self.rerank)
+        return {
+            "route": self.seconds(m0, m1),
+            "candidates": max(self.seconds(m1, m2) - rr, 0.0),
+            "rerank": rr,
+            "merge": self.seconds(m2, m3),
+        }
+
+
 @dataclasses.dataclass
 class QueryPlan:
     """Routing result + the batch's (topk, ef) flowing through the stages."""
@@ -141,23 +186,19 @@ class QueryPlan:
     cand_i: torch.Tensor
     handled: set = dataclasses.field(default_factory=set)
     merge_path: str = ""
-    # the q8 exact re-rank's share of the candidates stage, accumulated only
-    # while ``QueryPlanExecutor.rerank_clock`` is set
-    rerank_s: float = 0.0
     ef: Optional[int] = None  # the HNSW beam width (None: the index default)
     hnsw_mode: str = "stacked"
+    # set only while telemetry is attached: the stage marks, then (after the
+    # results sync, ``QueryPlanExecutor.report``) the per-stage seconds
+    timer: Optional[StageTimer] = None
+    stage_s: Optional[dict] = None
 
 
 class QueryPlanExecutor:
-    """Runs ``QueryPlan``s against one ``LannsIndex``'s partitions.
-
-    ``rerank_clock``: None (the default) reads no clock; a callable makes
-    the q8 candidates stage time its exact re-rank with it (``plan.rerank_s``).
-    """
+    """Runs ``QueryPlan``s against one ``LannsIndex``'s partitions."""
 
     def __init__(self, index):
         self.index = index
-        self.rerank_clock = None
 
     def plan(self, queries: torch.Tensor, topk: int, ef: Optional[int] = None,
              hnsw_mode: str = "stacked") -> QueryPlan:
@@ -205,14 +246,10 @@ class QueryPlanExecutor:
             else:
                 plan.handled |= self._candidates_hnsw_fp32(plan)
         if cfg.quantized == "q8" and cfg.engine == "scan":
-            clock = self.rerank_clock
-            acc = None if clock is None else [0.0]
             plan.handled |= index._q8_executor().run(
                 plan.queries, plan.sels, plan.slot, plan.cand_d, plan.cand_i, plan.pstk,
-                lane_width=plan.lane_width, rerank_s=acc, clock=clock,
+                lane_width=plan.lane_width, timer=plan.timer,
             )
-            if acc is not None:
-                plan.rerank_s += acc[0]
         n_pad = l_pad = None
         if plan.hnsw_mode == "partition":
             n_pad, l_pad = index._hnsw_pads()
@@ -354,7 +391,7 @@ class QueryPlanExecutor:
             stack["arrs"], Q, EP, OFF, V, k=C, ef=ef_eff, max_iters=ef_eff + 2 * hcfg.M,
             metric=rmetric,
         )
-        clock = self.rerank_clock
+        timer = plan.timer
         kk = min(pstk, C)
         for (s, g, pi, start, cnt) in blocks:
             sel = plan.sels[g]
@@ -362,11 +399,11 @@ class QueryPlanExecutor:
             rows = i_all[start: start + cnt]  # (b, C) flat rows, -1 padded
             invalid = rows < 0
             cand = (rows - pi * n_pad).clamp(0, store.size - 1)
-            t_rr = None if clock is None else clock()
+            t_rr = None if timer is None else timer.mark()
             ex = exact_candidate_distances(q_eff.index_select(0, sel), cand, store, rmetric,
                                            mode=stack["store_mode"])
             if t_rr is not None:
-                plan.rerank_s += clock() - t_rr
+                timer.rerank.append((t_rr, timer.mark()))
             ex = torch.where(invalid, float("inf"), ex)
             if kk < C:
                 order = torch.sort(ex, dim=1, stable=True).indices[:, :kk]
@@ -420,8 +457,39 @@ class QueryPlanExecutor:
     def execute(self, queries: torch.Tensor, topk: int, ef: Optional[int] = None,
                 hnsw_mode: str = "stacked"):
         """route -> candidates -> merge for ONE (topk, ef) group; device
-        outputs."""
+        outputs.
+
+        With ``index.telemetry`` attached the plan carries a ``StageTimer``
+        with the stage marks; the caller syncs the results, then calls
+        ``report(plan)``.  Detached, no mark is made."""
+        tel = self.index.telemetry
+        if tel is None:
+            plan = self.plan(queries, topk, ef, hnsw_mode)
+            self.candidates(plan)
+            out_d, out_i = self.merge(plan)
+            return out_d, out_i, plan
+        timer = StageTimer(queries.device, tel)
+        m0 = timer.mark()
         plan = self.plan(queries, topk, ef, hnsw_mode)
+        plan.timer = timer
+        m1 = timer.mark()
         self.candidates(plan)
+        m2 = timer.mark()
         out_d, out_i = self.merge(plan)
+        timer.bounds = [m0, m1, m2, timer.mark()]
         return out_d, out_i, plan
+
+    def report(self, plan: QueryPlan) -> None:
+        """Read the plan's stage marks into ``plan.stage_s`` and report them
+        to the telemetry (labeled by engine / quantized / merge path / pow2
+        batch bucket).  Call after the results' sync, which on the card has
+        completed every marked event; a no-op for an untimed plan."""
+        timer = plan.timer
+        if timer is None:
+            return
+        plan.stage_s = timer.stage_seconds()
+        cfg = self.index.config
+        timer.telemetry.on_execute(
+            engine=cfg.engine, quantized=cfg.quantized, merge_path=plan.merge_path,
+            batch=plan.queries.shape[0], stage_s=plan.stage_s,
+        )

@@ -33,6 +33,9 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: libraries this process has built or loaded (``load`` calls that found
+#: theirs not yet loaded)
+_LOADS = 0
 
 
 def _nvcc() -> str:
@@ -102,10 +105,20 @@ def build_all(sources=SOURCES) -> dict[str, str]:
 
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if missing."""
+    global _LOADS
     with _LOCK:
         lib = _LIBS.get(source)
         if lib is None:
             build_all((source,))
             lib = ctypes.CDLL(str(library_path(source)))
             _LIBS[source] = lib
+            _LOADS += 1
         return lib
+
+
+def load_count() -> int:
+    """How many kernel libraries this process has built or loaded: the
+    first-use stall that ``analysis.sentinels.RetraceSentinel`` watches
+    for on warmed serving traffic."""
+    with _LOCK:
+        return _LOADS

@@ -92,7 +92,7 @@ class QuantizedScanExecutor:
         return sum(p.store.device_nbytes() for p in self.parts.values())
 
     def run(self, queries: torch.Tensor, sels, slot: torch.Tensor, cand_d: torch.Tensor,
-            cand_i: torch.Tensor, pstk: int, *, lane_width=None, rerank_s=None, clock=None):
+            cand_i: torch.Tensor, pstk: int, *, lane_width=None, timer=None):
         """Search every quantized partition; returns the handled set.
 
         ``queries`` are the fp32 queries on the device (mips augmentation
@@ -104,8 +104,8 @@ class QuantizedScanExecutor:
         For metric 'l2' the scattered distances OMIT the per-query ||q||^2
         constant; the caller adds it back after its merge.
 
-        ``rerank_s``: a one-element list; when given, the exact re-rank time
-        of every partition, read with ``clock``, is added to ``rerank_s[0]``.
+        ``timer``: a ``core.plan.StageTimer``; when given, the exact re-rank
+        of every partition is marked into ``timer.rerank``.
         """
         handled = set(self.parts)
         W = pstk if lane_width is None else lane_width
@@ -123,11 +123,11 @@ class QuantizedScanExecutor:
                 cand = part.stage1(q_lane, C)
             else:  # C == n: every row is a candidate
                 cand = torch.arange(C, dtype=torch.int32, device=q_lane.device).expand(b, C)
-            t_rr = None if rerank_s is None else clock()
+            t_rr = None if timer is None else timer.mark()
             ex = exact_candidate_distances(q_lane, cand, part.store, self.metric,
                                            mode=self.rerank_store)
             if t_rr is not None:
-                rerank_s[0] += clock() - t_rr
+                timer.rerank.append((t_rr, timer.mark()))
             kk = min(W, C)
             if kk < C:
                 d_lane, loc = torch.topk(ex, kk, dim=1, largest=False)

@@ -407,3 +407,47 @@ def test_card_lm_engine_matches_cpu(cuda):
                                                             p.embed.device), 99)[0]
           for p in (gpu_params, cpu_params)]
     assert float((lg[0].cpu() - lg[1]).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,quantized", [("scan", "none"), ("scan", "q8"),
+                                              ("hnsw", "none"), ("hnsw", "q8")])
+def test_saved_index_loads_on_card_and_serves_warm(cuda, tmp_path, engine, quantized):
+    """An index built on the card, saved and loaded on the card gives equal
+    ids (and the CPU's, loaded from the same artifact, up to ties); after
+    ``warm_traces`` the front end's serving window loads no kernel
+    library."""
+    from repro_torch.analysis import RetraceSentinel
+    from repro_torch.obs import Telemetry
+    from repro_torch.serve import AsyncAnnFrontend
+
+    data, queries = sift_like(6000, 32, 64, seed=11)
+    cfg = LannsConfig(num_shards=2, num_segments=2, segmenter="rh", engine=engine,
+                      quantized=quantized, hnsw_m=8, ef_construction=40, ef_search=40)
+    built = LannsIndex(cfg).build(data)
+    d_built, i_built = built.query(queries, 10)
+    built.save(str(tmp_path))
+    card = LannsIndex.load(str(tmp_path))
+    assert card.device.type == "cuda"
+    d_card, i_card = card.query(queries, 10)
+    np.testing.assert_array_equal(i_card, i_built)
+    np.testing.assert_array_equal(d_card, d_built)
+    _, i_cpu = LannsIndex.load(str(tmp_path), device="cpu").query(queries, 10)
+    overlap = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i_card, i_cpu)])
+    assert overlap >= 0.99, overlap
+    card.warm_traces(16, 10)
+    sentinel = RetraceSentinel(card.device)
+    assert sentinel.available
+    tel = Telemetry(sentinel=RetraceSentinel(card.device))
+    card.attach_telemetry(tel)
+    try:
+        with AsyncAnnFrontend(card, topk=10, max_batch=16, max_wait_ms=1.0,
+                              telemetry=tel) as fe:
+            reqs = [fe.submit(q) for q in queries]
+            assert all(r.wait(60.0) for r in reqs)
+    finally:
+        card.attach_telemetry(None)
+    assert all(r.done for r in reqs)
+    assert sentinel.deltas()["kernel_library_loads"] == 0
+    plans = tel.spans.events(kind="plan")
+    assert plans and all(ev["stage_s"]["candidates"] >= 0.0 for ev in plans)

@@ -18,8 +18,10 @@ from repro.core import LannsIndex as JIndex
 from repro.core import brute_force_topk as jbrute_force
 from repro.core import recall_at_k as jrecall
 from repro.data.synthetic import clustered_vectors, sift_like
+from repro_torch.analysis import RetraceSentinel
 from repro_torch.convert import index_from_numpy_state
 from repro_torch.core import LannsConfig, LannsIndex, brute_force_topk, recall_at_k
+from repro_torch.obs import Telemetry
 
 TOPK = 10
 
@@ -121,13 +123,22 @@ def test_build_stats_match_reference(sift):
     assert all(p.keys.dtype == torch.int64 for p in port.partitions.values())
 
 
-def test_unported_modes_raise():
+def test_q8_queries_telemetry_is_bit_identical_and_bad_modes_raise():
     q8 = LannsIndex(LannsConfig(engine="scan", quantized="q8", num_segments=2), device="cpu")
     q8.build(np.random.default_rng(0).standard_normal((200, 8)).astype(np.float32))
     assert q8.query(np.zeros((3, 8), np.float32), 5)[1].shape == (3, 5)
     idx = LannsIndex(LannsConfig(engine="scan", num_segments=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        idx.attach_telemetry(object())
+    idx.build(np.random.default_rng(1).standard_normal((300, 8)).astype(np.float32))
+    q = np.random.default_rng(2).standard_normal((7, 8)).astype(np.float32)
+    d0, i0 = idx.query(q, 5)
+    tel = Telemetry(sentinel=RetraceSentinel(idx.device))
+    assert idx.attach_telemetry(tel) is idx
+    d1, i1 = idx.query(q, 5)
+    idx.attach_telemetry(None)
+    d2, i2 = idx.query(q, 5)
+    for d, i in ((d1, i1), (d2, i2)):
+        assert np.array_equal(d, d0) and np.array_equal(i, i0)
+    assert len(tel.spans.events(kind="plan")) == 1
     with pytest.raises(ValueError):
         LannsIndex(LannsConfig(engine="scan", quantized="q4"), device="cpu")
 

@@ -21,10 +21,12 @@ from repro.models import layers as jl
 from repro.models import transformer as jtf
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
+from repro_torch.analysis import RetraceSentinel
 from repro_torch.configs import get_config, serving_config
 from repro_torch.convert import transformer_from_jax
 from repro_torch.models import layers as pl
 from repro_torch.models import transformer as tf
+from repro_torch.obs import Telemetry
 from repro_torch.serve import Request, ServeEngine, make_prefill_fn
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -357,7 +359,19 @@ def test_engine_tokens_match_jax_engine(q_chunk):
     assert peng.stats["prefill_traces"] == 3
 
 
-def test_engine_telemetry_not_ported(tiny_lm):
+def test_engine_telemetry_registers_gauges(tiny_lm):
+    """One exposition covers the LM engine: its stats dict registers as
+    serve_engine_* pull gauges on the shared registry
+    (``tests/test_obs.py``'s ``test_register_serve_engine_pull_gauges``)."""
     _, cfg, params = tiny_lm
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        ServeEngine(cfg, params, telemetry=object())
+    tel = Telemetry(sentinel=RetraceSentinel(torch.device("cpu")))
+    eng = ServeEngine(cfg, params, slots=2, max_seq=32, telemetry=tel)
+    text = tel.registry.expose_text()
+    for key in eng.stats:
+        assert f"serve_engine_{key} 0" in text
+    eng.submit(Request(0, np.arange(4, dtype=np.int32), max_new_tokens=2))
+    eng.run()
+    # pull mode: the next collection reads the live dict, no push needed
+    text = tel.registry.expose_text()
+    assert "serve_engine_completed 1" in text
+    assert f"serve_engine_decode_steps {eng.stats['decode_steps']}" in text
