@@ -71,6 +71,22 @@ Phases, each printed as JSON records; any failure exits non-zero:
    allocator-segment delta; (f) ``index.query`` on the loaded HNSW index
    for 180 and 1,024 queries, alone and beside a thread that submits at a
    load generator's rate.
+3f. the distributed serve step (``serve.retrieval.make_serve_fn`` over a
+   ``torch.distributed`` mesh), on phase 3's data, ground truth and batches,
+   in worlds of spawned ranks (``launch.mesh.run_world``; indexes from
+   ``build_device_index``, saved under a temporary directory of ``build/``
+   and memory-mapped by each rank): (a) one rank, NCCL, mesh (data 1,
+   model 1): full mode over 1 x 4 RH segments (id-set overlap with phase
+   3's K1 ground truth >= 0.999); routed over 1 x 8 RH segments, alpha
+   0.15, capacity 422: recall@{1,10,100} (>= 0.5 at 100), overflow, QPS,
+   p50/p99 batch latency (CUDA events), K1 launches (one per segment
+   scan, every batch), the overlap with the same serve step on CPU tensors
+   for 256 queries (>= 0.999), then the same routed configuration with a
+   bfloat16 and an int8 corpus (recall relative to f32's ids, resident
+   bytes); (b) the paper cell (2 shards x 4 RH segments, routed, f32) on
+   two ranks sharing the one card over gloo, mesh (data 1, model 2):
+   recall@100, overflow, QPS, p50, each rank's resident bytes, K1
+   launches, the overlap with the same world on CPU tensors (>= 0.999).
 4. deployment scale: 10M x 512 fp32 in 8 shards x 8 RH segments (halved
    until it fits the host and the card): QPS, p50/p99 batch latency, the
    route/candidates/merge split, recall@100 on 1,000 queries.
@@ -115,7 +131,7 @@ Phases, each printed as JSON records; any failure exits non-zero:
    3d, each on an index carrying 3c's graphs again — kernel launches,
    device busy time and idle share, the top kernels by device time.
 8. the kernels line: launches on the main path (K1: phases 3, 3c's ground
-   truth, 3e and 4; K2: 3b and 4b; K3: 5 and 6; the HNSW beam is torch ops and
+   truth, 3e, 3f and 4; K2: 3b and 4b; K3: 5 and 6; the HNSW beam is torch ops and
    launches none of them), max error, kernel / plain / library times at a
    main-path shape, and each bound; K3 also by shape (``instances``: the
    bf16 32k prefill's and each float32 bucket's launches, times and bound).
@@ -1223,6 +1239,210 @@ def phase_persist_serve(scan_idx, hnsw_idx, hnsw_q8_idx, corpus, queries, gt_i, 
     return {"launches": k1}
 
 
+def save_device_index(index, root: str) -> None:
+    """``index``'s arrays as ``.npy`` files under ``root`` (read back by
+    each rank with ``load_device_index``, memory-mapped copy-on-write: a
+    rank reads its own shard and nothing is pickled to it)."""
+    os.makedirs(root)
+    for name in ("corpus", "ids", "norms"):
+        np.save(os.path.join(root, f"{name}.npy"), getattr(index, name))
+    if index.scale is not None:
+        np.save(os.path.join(root, "scale.npy"), index.scale)
+    if index.tree is not None:
+        np.savez(os.path.join(root, "tree.npz"), **index.tree)
+
+
+def load_device_index(root: str, config):
+    from repro_torch.serve.retrieval import DeviceIndex
+
+    arrays = {name: np.load(os.path.join(root, f"{name}.npy"), mmap_mode="c")
+              for name in ("corpus", "ids", "norms")}
+    scale_path, tree_path = os.path.join(root, "scale.npy"), os.path.join(root, "tree.npz")
+    tree = None
+    if os.path.exists(tree_path):
+        with np.load(tree_path) as f:
+            tree = {k: f[k] for k in f.files}
+        tree["depth"] = int(tree["depth"])
+    scale = np.load(scale_path) if os.path.exists(scale_path) else None
+    return DeviceIndex(tree=tree, config=config, scale=scale, **arrays)
+
+
+def serve_step_rank(mesh, jobs, queries, batch: int, topk: int) -> dict:
+    """Rank body of 3f: each job (label, index dir, config, serve kwargs)
+    through ``make_serve_fn`` on this rank's shard and rows, in batches of
+    ``batch``: one untimed batch first on the card, then the K1 count set
+    to 0 and every batch timed (host clock over the loop; per batch, CUDA
+    events on the card, the host clock on the CPU).  Returns, per job, this rank's outputs, times,
+    overflow, K1 launches and resident bytes."""
+    from repro_torch.common.utils import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.serve.retrieval import make_serve_fn, shard_arrays
+
+    dev = resolve_device(mesh.device_type)
+    out = {}
+    for label, root, config, kw in jobs:
+        serve_fn, info = make_serve_fn(mesh, config, topk=topk, batch_per_device=batch, **kw)
+        arrays = shard_arrays(load_device_index(root, config), info["shard"], dev)
+        resident = sum(t.numel() * t.element_size() for t in
+                       (arrays["corpus"], arrays["ids"], arrays["norms"], arrays["scale"])
+                       if t is not None)
+        blocks, b = info["query_blocks"], info["query_block"]
+
+        def rows(qb):  # this rank's rows of one global batch
+            n = len(qb) // blocks
+            return torch.from_numpy(qb[b * n: (b + 1) * n]).to(dev)
+
+        batches = [queries[s: s + batch] for s in range(0, len(queries), batch)]
+        if dev.type == "cuda":
+            serve_fn(rows(batches[0]), **arrays)
+            torch.cuda.synchronize()
+        ops.reset_launches()
+        dists, ids, lat, ovf = [], [], [], 0
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        for qb in batches:
+            t1 = time.perf_counter()
+            if dev.type == "cuda":
+                start.record()
+            d, i, o = serve_fn(rows(qb), **arrays)
+            if dev.type == "cuda":
+                end.record()
+                end.synchronize()
+                lat.append(start.elapsed_time(end))
+            else:
+                lat.append(1e3 * (time.perf_counter() - t1))
+            dists.append(d.cpu().numpy())
+            ids.append(i.cpu().numpy())
+            ovf += int(o)
+        seconds = time.perf_counter() - t0
+        out[label] = {"dists": np.concatenate(dists), "ids": np.concatenate(ids),
+                      "seconds": seconds, "batch_ms": lat, "overflow": ovf,
+                      "k1_launches": ops.KERNEL_LAUNCHES["distance_topk"],
+                      "resident_bytes": resident, "per_shard_topk": info["per_shard_topk"],
+                      "capacity": info["capacity"], "shard": info["shard"]}
+        del arrays
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_step(corpus, queries, gt_i, batch: int = 1024, topk: int = 100,
+                     n_cpu: int = 256) -> dict:
+    """3f: the distributed serve step (``serve.retrieval.make_serve_fn``)
+    on phase 3's data, in worlds of spawned ranks (``launch.mesh.run_world``).
+    (a) one rank, NCCL, mesh (data 1, model 1): full mode over 1 x 4 RH
+    segments against phase 3's K1 ground truth; routed mode over 1 x 8 RH
+    segments (alpha 0.15) in float32, bfloat16 and int8.  (b) the paper
+    cell's 2 shards x 4 RH segments, routed, float32, on two ranks on the one
+    card over gloo, mesh (data 1, model 2).  Each card world's routed f32
+    ids against the same world on CPU tensors for ``n_cpu`` queries."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import LannsConfig, recall_table
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.serve.retrieval import build_device_index
+
+    axes = ("data", "model")
+    configs = {
+        "full": (LannsConfig(num_shards=1, num_segments=4, segmenter="rh", engine="scan"),
+                 "float32", {"mode": "full"}),
+        "routed": (LannsConfig(num_shards=1, num_segments=8, segmenter="rh", alpha=0.15,
+                               engine="scan"), "float32", {"mode": "routed"}),
+        "routed_bf16": (LannsConfig(num_shards=1, num_segments=8, segmenter="rh", alpha=0.15,
+                                    engine="scan"), "bfloat16", {"mode": "routed"}),
+        "routed_int8": (LannsConfig(num_shards=1, num_segments=8, segmenter="rh", alpha=0.15,
+                                    engine="scan"), "int8", {"mode": "routed"}),
+        "paper": (LannsConfig(num_shards=2, num_segments=4, segmenter="rh", alpha=0.15,
+                              engine="scan"), "float32", {"mode": "routed"}),
+    }
+    workdir = tempfile.mkdtemp(prefix="serve_step_3f_", dir=ROOT / "build")
+    try:
+        jobs, build_s = {}, {}
+        for label, (cfg, dtype, kw) in configs.items():
+            t0 = time.perf_counter()
+            index = build_device_index(corpus, cfg, corpus_dtype=dtype)
+            build_s[label] = time.perf_counter() - t0
+            save_device_index(index, os.path.join(workdir, label))
+            jobs[label] = (label, os.path.join(workdir, label), cfg, kw)
+            del index
+        world_s = {}
+
+        def world(name, shape, labels, qs, **kw):
+            t0 = time.perf_counter()
+            outs = run_world(serve_step_rank, shape, axes,
+                             ([jobs[lb] for lb in labels], qs, batch, topk), timeout=900, **kw)
+            world_s[name] = time.perf_counter() - t0
+            return outs
+
+        a = world("a", (1, 1), ["full", "routed", "routed_bf16", "routed_int8"], queries)[0]
+        a_cpu = world("a_cpu", (1, 1), ["routed"], queries[:n_cpu], device="cpu")[0]
+        print("3f (b): two ranks share the one card over gloo (NCCL refuses two ranks on "
+              "one GPU); this world measures the serve step's code, not NCCL across cards",
+              flush=True)
+        b = world("b", (1, 2), ["paper"], queries, backend="gloo")
+        b_cpu = world("b_cpu", (1, 2), ["paper"], queries[:n_cpu], device="cpu")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    n_batches = -(-len(queries) // batch)
+    n = len(corpus)
+
+    def summary(r, label):
+        check_results(r["dists"], r["ids"], len(queries), topk, n, f"3f {label}")
+        lat = np.asarray(r["batch_ms"])
+        return {"qps": len(queries) / r["seconds"], "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)), "overflow": r["overflow"],
+                "k1_launches_per_batch": r["k1_launches"] / n_batches,
+                "resident_bytes": r["resident_bytes"], "capacity": r["capacity"],
+                "per_shard_topk": r["per_shard_topk"]}
+
+    full = summary(a["full"], "full")
+    full["gt_overlap"] = overlap(a["full"]["ids"], gt_i)
+    routed = summary(a["routed"], "routed")
+    routed["recall"] = {f"R@{k}": v for k, v in recall_table(a["routed"]["ids"], gt_i,
+                                                              (1, 10, 100)).items()}
+    routed["cpu_overlap"] = overlap(a["routed"]["ids"][:n_cpu], a_cpu["routed"]["ids"])
+    quant = {}
+    for label in ("routed_bf16", "routed_int8"):
+        quant[label] = summary(a[label], label)
+        quant[label]["recall_rel_f32"] = overlap(a[label]["ids"], a["routed"]["ids"])
+        quant[label]["recall"] = {f"R@{k}": v for k, v in recall_table(
+            a[label]["ids"], gt_i, (1, 10, 100)).items()}
+    emit({"phase": "serve_step", "step": "a", "world": "1 rank, nccl, mesh (data 1, model 1)",
+          "batch": batch, "topk": topk, "build_s": build_s, "world_s": world_s,
+          "full": full, "routed": routed, **quant})
+    b0 = b[0]["paper"]
+    for r in b[1:]:  # every rank holds the broker's answer for the batch
+        if not np.array_equal(r["paper"]["ids"], b0["ids"]):
+            raise AssertionError("3f (b): the ranks' merged ids differ")
+    paper = summary(b0, "paper")
+    paper["resident_bytes"] = [r["paper"]["resident_bytes"] for r in b]
+    paper["recall"] = {f"R@{k}": v for k, v in recall_table(b0["ids"], gt_i,
+                                                             (1, 10, 100)).items()}
+    paper["cpu_overlap"] = overlap(b0["ids"][:n_cpu], b_cpu[0]["paper"]["ids"])
+    paper["k1_launches_per_rank"] = [r["paper"]["k1_launches"] for r in b]
+    emit({"phase": "serve_step", "step": "b",
+          "world": "2 ranks on one card, gloo, mesh (data 1, model 2)",
+          "config": "2 shards x 4 RH segments, alpha 0.15, routed, f32", **paper})
+    if full["gt_overlap"] < 0.999:
+        raise AssertionError(f"3f full mode vs K1 ground truth overlap {full['gt_overlap']}")
+    if routed["recall"]["R@100"] < 0.5 or paper["recall"]["R@100"] < 0.5:
+        raise AssertionError("3f: routed recall@100 is implausibly low")
+    for label, ov in (("a routed", routed["cpu_overlap"]), ("b", paper["cpu_overlap"])):
+        if ov < 0.999:
+            raise AssertionError(f"3f {label}: card vs CPU id-set overlap {ov} < 0.999")
+    launches = [(a["full"]["k1_launches"], 4), (a["routed"]["k1_launches"], 8)]
+    launches += [(r["paper"]["k1_launches"], 4) for r in b]
+    for got, segments in launches:  # K1 in every f32 segment scan of every batch
+        if got != segments * n_batches:
+            raise AssertionError(f"3f: K1 launched {got} times for {segments} segments x "
+                                 f"{n_batches} batches")
+    return {"launches": sum(got for got, _ in launches)}
+
+
 def phase_beam_profile(state, batch_queries: np.ndarray, topk: int = 100) -> dict:
     """7: one batch of 3c and one of 3d (the same graphs carried in again)
     under ``torch.profiler``: kernel launches, device busy time, idle share
@@ -1805,6 +2025,7 @@ def main() -> int:
     persist = timed("3e", phase_persist_serve, paper.pop("index"), paper_hnsw.pop("index"),
                     paper_hnsw_q8.pop("index"), corpus, queries, gt_i, scan_ids, hnsw_ids,
                     paper_hnsw_q8.pop("ids"), paper_hnsw["build_s"])
+    serve_step = timed("3f", phase_serve_step, corpus, queries, gt_i)
     profile_batch = queries[1024:2048]
     del corpus, queries, gt_i, scan_ids, hnsw_ids
     gc.collect()
@@ -1816,7 +2037,7 @@ def main() -> int:
     timed("7", phase_beam_profile, hnsw_state, profile_batch)
     del hnsw_state
     k1_launches = (paper["launches"] + paper_hnsw["launches"] + persist["launches"]
-                   + deploy["launches"])
+                   + serve_step["launches"] + deploy["launches"])
     k2_launches = paper_q8["launches"] + deploy_q8["launches"]
     k3_launches = prefill["launches"] + serve["launches"]
     if k1_launches <= 0 or k2_launches <= 0 or k3_launches <= 0:

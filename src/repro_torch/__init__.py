@@ -16,9 +16,12 @@ online serving (``serve``: ``AnnFrontend`` / ``AsyncAnnFrontend``, the SLO
 controller, the load generator, ``launch/serve.py``) with telemetry
 (``obs``) and the retrace sentinel (``analysis``); and the LM serving path
 (dense GQA transformer, ``serve.ServeEngine``) with the flash-attention
-kernel (``flash_attention.cu``) for long prefill.
+kernel (``flash_attention.cu``) for long prefill; the distributed serve
+step over a ``torch.distributed`` mesh (``serve.retrieval.make_serve_fn``
+over ``launch.mesh``'s named meshes, the broker an all-gather in
+``distributed``, K1 in every float32 segment scan) and the searcher
+fleet's elastic plans (``train.elastic``).
 
-Not ported: the benchmark twins, elastic serving over saved artifacts
-(``train/elastic.py``), on-mesh sharded serving, the models beyond the
-dense LMs, and the static analyzers (ROADMAP "Modules to port").
+Not ported: the training slice, the sharded LM cells, the models beyond
+the dense LMs, and the static analyzers (ROADMAP "Modules to port").
 """

@@ -451,3 +451,69 @@ def test_saved_index_loads_on_card_and_serves_warm(cuda, tmp_path, engine, quant
     assert sentinel.deltas()["kernel_library_loads"] == 0
     plans = tel.spans.events(kind="plan")
     assert plans and all(ev["stage_s"]["candidates"] >= 0.0 for ev in plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_k1_segment_scan_matches_plain(cuda, metric):
+    """The distributed serve step's segment scan: one K1 launch per segment
+    over that segment's valid rows, against the plain version on the same
+    blocks (C = 300 queries, ragged segments padded to a multiple of 8)."""
+    from repro_torch.serve.retrieval import _segment_scan_topk, build_device_index, shard_arrays
+
+    data, queries = sift_like(20_000, 64, 300, seed=13)
+    cfg = LannsConfig(num_shards=1, num_segments=8, segmenter="rh", engine="scan")
+    index = build_device_index(data, cfg)
+    card, cpu = shard_arrays(index, 0, cuda), shard_arrays(index, 0, "cpu")
+    q_seg = torch.from_numpy(queries).expand(8, *queries.shape)
+    ops.reset_launches()
+    d, i = _segment_scan_topk(q_seg.to(cuda), card["corpus"][0], card["ids"][0],
+                              card["norms"][0], 60, metric)
+    assert ops.KERNEL_LAUNCHES["distance_topk"] == 8
+    d_p, i_p = _segment_scan_topk(q_seg, cpu["corpus"][0], cpu["ids"][0], cpu["norms"][0], 60,
+                                  metric)
+    torch.cuda.synchronize()
+    for g in range(8):
+        _assert_topk_close(d[g], i[g], d_p[g], i_p[g])
+
+
+def _serve_rank(mesh, index, queries, kw):
+    """Rank body: this rank's rows through the serve step; (query block,
+    dists, ids, overflow, K1 launches)."""
+    from repro_torch.common.utils import resolve_device
+    from repro_torch.serve.retrieval import make_serve_fn, shard_arrays
+
+    dev = resolve_device(mesh.device_type)
+    serve_fn, info = make_serve_fn(mesh, index.config, **kw)
+    rows = len(queries) // info["query_blocks"]
+    b = info["query_block"]
+    q = torch.from_numpy(queries[b * rows: (b + 1) * rows]).to(dev)
+    ops.reset_launches()
+    d, i, ovf = serve_fn(q, **shard_arrays(index, info["shard"], dev))
+    return b, d.cpu().numpy(), i.cpu().numpy(), int(ovf), ops.KERNEL_LAUNCHES["distance_topk"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,backend", [((1, 1), None), ((1, 2), "gloo")])
+def test_serve_step_on_card_matches_cpu(cuda, shape, backend):
+    """``make_serve_fn`` in a world on the card (NCCL for one rank; two
+    ranks on the one card on gloo) gives the CPU world's answers."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.serve.retrieval import build_device_index
+
+    _build.build_all(("distance_topk.cu",))  # here, not in two ranks at once
+    data, queries = sift_like(20_000, 64, 256, seed=17)
+    cfg = LannsConfig(num_shards=shape[1], num_segments=4, segmenter="rh", engine="scan")
+    index = build_device_index(data, cfg)
+    kw = dict(topk=20, mode="routed", batch_per_device=256)
+    args = (index, queries, kw)
+    card = run_world(_serve_rank, shape, ("data", "model"), args, backend=backend, timeout=300)
+    cpu = run_world(_serve_rank, shape, ("data", "model"), args, device="cpu", timeout=300)
+    for (_, d, i, ovf, launches), (_, d_c, i_c, ovf_c, _) in zip(card, cpu):
+        assert launches == 4 and ovf == ovf_c
+        fin = np.isfinite(d_c)
+        assert np.array_equal(fin, np.isfinite(d))
+        np.testing.assert_allclose(d[fin], d_c[fin], rtol=3e-4, atol=3e-4)
+        overlap = np.mean([len(set(a) & set(b)) / len(b) for a, b in zip(i, i_c)])
+        assert overlap >= 0.999, overlap
