@@ -105,6 +105,20 @@ Phases, each printed as JSON records; any failure exits non-zero:
    copies first.  Then K3 / plain / SDPA milliseconds and the bound at
    (32, 8192, 128) causal bf16, seeded: the head dim of codeqwen1.5-7b and
    qwen2-72b, which no later phase runs.
+2d. K3-bwd vs plain: K3 with its row log-sum-exp (``flash_attention_cuda(...,
+   with_lse=True)``) and ``ops.flash_attention_bwd`` on CUDA tensors
+   against ``ref.flash_attention_ref`` / ``ref.flash_attention_bwd_ref`` run
+   in float32 on the same tensors, float32 and bfloat16, D in {16, 32, 64,
+   128}, causal and bidirectional, S in {64, 1000 (ragged), 4096}; one
+   float32 case with a permuted (non-contiguous) dO and one with q 4 bytes
+   off the 16-byte grid (the launcher refuses it, the wrapper copies).
+   Limits per tensor (dq, dk, dv): float32 max |kernel - plain| / max
+   |plain| <= 1e-4, bfloat16 ``ref.bf16_agreement`` <= 1; lse within 1e-4
+   of the plain version's; K3's output with lse requested bit-equal to the
+   output without.  Then K3-bwd / plain / SDPA-backward milliseconds
+   (SDPA's forward + backward minus its forward, a yardstick) and the
+   bound (2.5x the forward's operations, causal half, on the bf16 tensor
+   cores) at the slice's layer shape (60, 4096, 64) causal bf16, seeded.
 4b. deployment scale, q8, on phase 4's corpus, queries and ground truth,
    after the fp32 index is freed: QPS, p50/p99, the stage split, recall@100,
    resident scan bytes (codes + scales + bias + keys), the exact store's
@@ -126,15 +140,35 @@ Phases, each printed as JSON records; any failure exits non-zero:
    SDPA milliseconds at each shape the prefills launched K3 at, (15, 4096,
    64) and (15, 2048, 64) causal float32 (seeded inputs), with the launches
    at each, and the bound (float32-grade, 3xTF32).
+6b. LM training: ``make_train_step(lm_loss_fn(cfg), AdamWConfig(lr=1e-3,
+   warmup_steps=2, total_steps=10), num_micro=4)`` with smollm-360m at full
+   width and depth under ``training_config`` (bf16, remat, q_chunk 1024),
+   S = 4,096, 16 sequences (the train_4k cell's global batch cut from 256)
+   of one seeded ``token_batch``, repeated: one warm-up step, then 5 timed
+   steps (CUDA events): step p50, tokens/s, 6 N T / step time as a share
+   of the bf16 peak, peak device memory, K3 and K3-bwd launches a step
+   against 2 x layers x microbatches (remat runs each forward twice) and
+   layers x microbatches.  Losses finite and step 6's below step 1's.  The
+   state after step 3 is checkpointed (``train.checkpoint``) and restored
+   bit-equal, and steps 4-6 resumed from it give the uninterrupted losses
+   within 1e-4 relative.  Then the grads of one step of the first 2 layers
+   at full width in float32 (S 1100, q_chunk 256) on the card and on the
+   CPU: loss within 1e-5 relative, each grad within 1e-3 of the CPU's
+   largest entry, grad norm within 1e-4 relative.  Then ``python -m
+   repro_torch.launch.train`` (reduced config, on the card) for 4 steps
+   with a checkpoint every 2, and ``--resume``: equal final losses.  Then
+   K3 / plain / SDPA milliseconds at the step's layer shape.
 7. the HNSW beam under ``torch.profiler``, last (a profiler session slows
    the rest of the process's kernel launches): one batch of 3c and one of
    3d, each on an index carrying 3c's graphs again — kernel launches,
    device busy time and idle share, the top kernels by device time.
 8. the kernels line: launches on the main path (K1: phases 3, 3c's ground
-   truth, 3e, 3f and 4; K2: 3b and 4b; K3: 5 and 6; the HNSW beam is torch ops and
+   truth, 3e, 3f and 4; K2: 3b and 4b; K3: 5, 6 and 6b's forward launches;
+   K3-bwd: 6b; the HNSW beam is torch ops and
    launches none of them), max error, kernel / plain / library times at a
    main-path shape, and each bound; K3 also by shape (``instances``: the
-   bf16 32k prefill's and each float32 bucket's launches, times and bound).
+   bf16 32k prefill's, each float32 bucket's and the bf16 training
+   step's launches, times and bound).
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
@@ -172,6 +206,11 @@ K3_REPLACES = "src/repro/kernels/flash_attention.py:28"
 K3_TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
 #: K3's operations bound per dtype
 K3_PEAK = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
+K3_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+#: the JAX package has no backward kernel: its gradient is autodiff of this
+K3_BWD_REPLACES = "src/repro/models/layers.py:137"
+#: K3-bwd's float32 limit: max |kernel - plain| / max |plain| per tensor
+K3_BWD_REL_TOL = 1e-4
 
 
 def emit(record: dict) -> None:
@@ -956,7 +995,8 @@ def phase_paper_hnsw_q8(state, queries, gt_i, hnsw_ids, n_corpus: int, batch: in
 
 
 def dir_bytes(root: str) -> int:
-    return sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root)
+               for f in files)
 
 
 def query_all(idx, queries, batch: int = 1024, topk: int = 100):
@@ -1994,6 +2034,352 @@ def phase_serve_engine(n_requests: int = 8, max_new: int = 32, cpu_layers: int =
     return {"launches": launches, "instances": instances}
 
 
+# ------------------------------------------------------------------ K3-bwd
+
+
+def k3_bwd_case(q, k, v, do, causal: bool, label: str) -> dict:
+    """K3 with its row log-sum-exp and K3-bwd against the plain versions on
+    the same tensors (run in float32): lse within 1e-4, the output with lse
+    bit-equal to the output without it, and per tensor (dq, dk, dv)
+    max |kernel - plain| / max |plain| <= 1e-4 (float32) or
+    ``ref.bf16_agreement`` <= 1 (bfloat16).  Raises past the limits."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    scale = q.shape[-1] ** -0.5
+    fwd_in = [ops._aligned(t) for t in (q, k, v)]  # K3's launcher takes the grid only
+    out, lse = flash_attention_cuda(*fwd_in, causal=causal, scale=scale, with_lse=True)
+    bare = flash_attention_cuda(*fwd_in, causal=causal, scale=scale)
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, scale=scale)
+    f = lambda t: t.float()
+    _, lse_plain = ref.flash_attention_ref(f(q), f(k), f(v), causal=causal, scale=scale,
+                                           with_lse=True)
+    want = ref.flash_attention_bwd_ref(f(q), f(k), f(v), f(out), f(do), lse, causal=causal,
+                                       scale=scale)
+    torch.cuda.synchronize()
+    res = {"lse_max_abs_err": float((lse - lse_plain).abs().max()),
+           "out_bit_equal": bool(torch.equal(out, bare)), "max_abs_err": 0.0, "rel_err": 0.0,
+           "bf16_agreement": 0.0}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        if a.dtype != q.dtype or a.shape != q.shape:
+            raise AssertionError(f"K3-bwd {label}: {name} {a.dtype} {tuple(a.shape)}")
+        err = float((a.float() - w).abs().max())
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if q.dtype == torch.float32:
+            res["rel_err"] = max(res["rel_err"], err / max(float(w.abs().max()), 1e-30))
+        else:
+            res["bf16_agreement"] = max(res["bf16_agreement"], ref.bf16_agreement(a, w))
+    if not (res["lse_max_abs_err"] <= 1e-4 and res["out_bit_equal"]
+            and res["rel_err"] <= K3_BWD_REL_TOL and res["bf16_agreement"] <= 1.0):
+        raise AssertionError(f"K3-bwd {label}: {res}")
+    return res
+
+
+def k3_bwd_layout_cases(gen) -> dict:
+    """A dO that is a permuted view (autograd's layout through the (B, S, H,
+    D) fold) and a float32 q 4 bytes off the 16-byte grid, which the
+    launcher refuses and ``ops.flash_attention_bwd`` copies."""
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    BH, S, D = 7, 1000, 64
+    q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda") for _ in range(3))
+    do = torch.randn(S, BH, D, generator=gen, device="cuda").transpose(0, 1)
+    if do.is_contiguous():
+        raise AssertionError("K3-bwd layout case: dO is contiguous")
+    strided = k3_bwd_case(q, k, v, do, True, "float32 with a permuted dO")
+    flat = torch.empty(BH * S * D + 1, device="cuda")[1:]
+    q_off = flat.view(BH, S, D)
+    q_off.copy_(q)
+    if q_off.data_ptr() % 16 == 0:
+        raise AssertionError("K3-bwd layout case: q is on the 16-byte grid")
+    try:
+        flash_attention_bwd_cuda(q_off, k, v, q, do.contiguous(),
+                                 torch.zeros(BH, S, device="cuda"), causal=True, scale=0.125)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K3-bwd launcher took float32 inputs off the 16-byte grid")
+    misaligned = k3_bwd_case(q_off, k, v, do.contiguous(), True, "float32 q off the grid")
+    return {"cases": 2, **{key: max(strided[key], misaligned[key])
+                           for key in ("max_abs_err", "rel_err", "lse_max_abs_err")}}
+
+
+def time_flash_bwd_kernel(q, k, v, do, label: str) -> dict:
+    """K3-bwd at one main-path shape (BH, S, D), causal: K3-bwd / plain /
+    SDPA-backward milliseconds and the bound.  SDPA's backward is timed as
+    (forward + backward) - forward and is a yardstick only."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    BH, S, D = q.shape
+    scale = 1.0 / D ** 0.5
+    out, lse = flash_attention_cuda(q, k, v, causal=True, scale=scale, with_lse=True)
+    kern = lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True, scale=scale)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=True, scale=scale)
+    f = lambda t: t.float()
+    want = ref.flash_attention_bwd_ref(f(q), f(k), f(v), f(out), f(do), lse, causal=True,
+                                       scale=scale)
+    got = kern()
+    err = max(float((a.float() - w).abs().max()) for a, w in zip(got, want))
+    agree = max(ref.bf16_agreement(a, w) for a, w in zip(got, want)) if q.dtype == torch.bfloat16 \
+        else 0.0
+    del want, got
+    ms = cuda_ms(kern, iters=5, warmup=1)
+    plain_ms = cuda_ms(plain, iters=2, warmup=1)
+    qs, ks, vs = (t[None].detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                                    scale=scale)
+    sdpa_fwd_ms = cuda_ms(lambda: sdpa().detach(), iters=10, warmup=2)
+    sdpa_both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do[None]),
+                           iters=10, warmup=2)
+    flops = 2.5 * 4.0 * BH * S * S * D / 2  # the gradient: 2.5x the forward, causal half
+    nbytes = 8.0 * BH * S * D * q.element_size() + 4.0 * BH * S  # q k v o dO in, dq dk dv out
+    t_ops, t_bytes = flops / K3_PEAK[q.dtype], nbytes / PEAK_HBM_BYTES
+    rec = {"shape": label, "BH": BH, "S": S, "D": D, "dtype": str(q.dtype), "causal": True,
+           "max_abs_err": err, "bf16_agreement": agree, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": sdpa_both_ms - sdpa_fwd_ms, "library_fwd_bwd_ms": sdpa_both_ms,
+           "library_fwd_ms": sdpa_fwd_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+    emit({"phase": "flash_bwd_timing", **rec})
+    if agree > 1.0:
+        raise AssertionError(f"K3-bwd at {label}: bf16 agreement {agree}")
+    return rec
+
+
+def phase_flash_bwd_vs_plain() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(dtype, D, S, causal) for dtype in (torch.float32, torch.bfloat16)
+             for D in (16, 32, 64, 128) for S in (64, 1000, 4096) for causal in (True, False)]
+    worst = {"max_abs_err": 0.0, "rel_err": 0.0, "bf16_agreement": 0.0, "lse_max_abs_err": 0.0}
+    for dtype, D, S, causal in cases:
+        BH = 2 if S == 4096 else 3
+        q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        res = k3_bwd_case(q, k, v, do, causal, f"{dtype} D={D} S={S} causal={causal} BH={BH}")
+        for key in worst:
+            worst[key] = max(worst[key], res[key])
+    layout = k3_bwd_layout_cases(gen)
+    emit({"phase": "flash_bwd_vs_plain", "cases": len(cases) + layout["cases"],
+          "max_abs_err": max(worst["max_abs_err"], layout["max_abs_err"]),
+          "max_rel_err_f32": max(worst["rel_err"], layout["rel_err"]),
+          "rel_tol_f32": K3_BWD_REL_TOL, "max_bf16_agreement": worst["bf16_agreement"],
+          "bf16_agreement_limit": 1.0,
+          "lse_max_abs_err": max(worst["lse_max_abs_err"], layout["lse_max_abs_err"]),
+          "out_with_lse_bit_equal": True})
+    # the slice's layer shape: smollm-360m's 15 heads x 4 sequences a microbatch
+    q, k, v, do = (torch.randn(60, 4096, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    timing = time_flash_bwd_kernel(q, k, v, do, "train_4k layer: smollm-360m, 4 x 4096 tokens")
+    return {"max_abs_err": max(worst["max_abs_err"], layout["max_abs_err"],
+                               timing["max_abs_err"]), "timing": timing}
+
+
+# ------------------------------------------------------------ training step
+
+
+def train_card_vs_cpu(n_layers: int = 2, S: int = 1100, q_chunk: int = 256) -> dict:
+    """The grads of one train step of smollm-360m's first ``n_layers``
+    layers at full width in float32, 2 sequences in 2 microbatches (K3 f32
+    and K3-bwd on the card, the plain versions on the CPU), from the same
+    params carried through ``convert``'s numpy: loss within 1e-5 relative,
+    every grad tensor within 1e-3 of the CPU's largest entry, the grad norm
+    within 1e-4 relative.  (The AdamW update is the same torch ops on
+    both.)"""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import transformer_from_jax, transformer_to_numpy
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import _accumulate_grads, lm_loss_fn
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=n_layers, q_chunk=q_chunk,
+                              remat=True)
+    params_np = transformer_to_numpy(tf.init(cfg, seed=0, device="cpu"))
+    toks, labels = token_batch(2, S, cfg.vocab, seed=5)
+    batch = {"tokens": toks, "labels": labels}
+    out = {}
+    for name in ("cuda", "cpu"):
+        params = transformer_from_jax(cfg, params_np, device=name)
+        ops.reset_launches()
+        loss, grads, _ = _accumulate_grads(lm_loss_fn(cfg), params, batch, 2)
+        gnorm = float(global_norm(grads))
+        if name == "cuda":
+            launches = dict(ops.KERNEL_LAUNCHES)
+        out[name] = (float(loss), [g.cpu() for g in grads], gnorm)
+    (lg, gg, ng), (lc, gc, nc) = out["cuda"], out["cpu"]
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(gg, gc))
+    rec = {"reduced": {"n_layers": f"32 -> {n_layers}", "dtype": "bfloat16 -> float32",
+                       "S": f"4096 -> {S}", "q_chunk": f"1024 -> {q_chunk}"},
+           "sequences": 2, "num_micro": 2,
+           "loss_cuda": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc) / abs(lc),
+           "grad_max_rel_err": grad_err, "grad_norm_cuda": ng, "grad_norm_cpu": nc,
+           "grad_norm_rel_err": abs(ng - nc) / nc,
+           "k3_launches": launches["flash_attention"],
+           "k3_bwd_launches": launches["flash_attention_bwd"]}
+    if not (rec["loss_rel_err"] <= 1e-5 and grad_err <= 1e-3 and rec["grad_norm_rel_err"] <= 1e-4
+            and rec["k3_launches"] == 2 * 2 * n_layers and rec["k3_bwd_launches"] == 2 * n_layers):
+        raise AssertionError(f"train card vs CPU: {rec}")
+    return rec
+
+
+def train_entry_point(workdir: str) -> dict:
+    """``python -m repro_torch.launch.train`` on the card (the arch's reduced
+    config): 4 steps with a checkpoint every 2, then ``--resume`` from it;
+    the resumed run's final loss must equal the first run's."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "4", "--ckpt-dir",
+           os.path.join(workdir, "entry"), "--ckpt-every", "2", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for name, extra in (("first", []), ("resumed", ["--resume"])):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd + extra, capture_output=True, text=True, env=env, cwd=ROOT,
+                           timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"launch.train {name} exited {p.returncode}:\n{p.stderr[-3000:]}")
+        final = [line for line in p.stdout.splitlines() if line.startswith("done: final loss")]
+        runs[name] = {"seconds": time.perf_counter() - t0, "final": final[-1] if final else None,
+                      "resumed_line": "resumed from step 2" in p.stdout,
+                      "device_line": "device=cuda" in p.stdout}
+    ok = (runs["first"]["final"] is not None and runs["first"]["final"] == runs["resumed"]["final"]
+          and runs["resumed"]["resumed_line"] and runs["first"]["device_line"])
+    if not ok:
+        raise AssertionError(f"launch.train resume: {runs}")
+    return runs
+
+
+def phase_train_step(S: int = 4096, global_batch: int = 16, num_micro: int = 4,
+                     steps: int = 5) -> dict:
+    import shutil
+    import tempfile
+
+    from repro_torch.common.tree import leaves
+    from repro_torch.configs import get_config, training_config
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import lm_loss_fn, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = training_config(get_config("smollm-360m"))
+    L = cfg.n_layers
+    params = tf.init(cfg, seed=0)
+    opt_state = init_state(params)
+    step_fn = make_train_step(lm_loss_fn(cfg), AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                           total_steps=10), num_micro=num_micro)
+    toks, labels = token_batch(global_batch, S, cfg.vocab, seed=0)
+    batch = {"tokens": torch.from_numpy(toks).cuda(), "labels": torch.from_numpy(labels).cuda()}
+    losses = []
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+
+    step()  # warm-up: step 1, cuBLAS plans and the kernel libraries
+    (ROOT / "build").mkdir(exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="train_6b_", dir=ROOT / "build")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, saved = [], None
+        mgr = CheckpointManager(os.path.join(workdir, "ckpt"))
+        with RecordAttention() as rec:
+            ops.reset_launches()
+            for i in range(steps):  # steps 2 .. steps + 1
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                if len(losses) == 3:  # checkpoint the state after step 3
+                    tree = {"p": tf.param_tree(params), "o": opt_state}
+                    saved = [t.detach().cpu() for t in leaves(tree)]  # off the card's peak
+                    t0 = time.perf_counter()
+                    mgr.save(3, tree, extra={"loss": losses[-1]})
+                    save_s = time.perf_counter() - t0
+            launches = dict(ops.KERNEL_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        shapes = rec.shapes
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"train step: losses {losses}")
+        per_step_fwd, per_step_bwd = launches["flash_attention"] / steps, \
+            launches["flash_attention_bwd"] / steps
+        want_fwd, want_bwd = 2 * L * num_micro, L * num_micro  # remat: each forward twice
+        if per_step_fwd != want_fwd or per_step_bwd != want_bwd:
+            raise AssertionError(f"train step: K3 {per_step_fwd} / K3-bwd {per_step_bwd} "
+                                 f"launches a step, want {want_fwd} / {want_bwd}")
+        B_micro = global_batch // num_micro
+        if set(shapes) != {(torch.bfloat16, B_micro * cfg.n_heads, S, cfg.head_dim)}:
+            raise AssertionError(f"train step: K3 shapes {shapes}")
+
+        # restore step 3's checkpoint (bit-equal) and resume steps 4 .. 6 from it
+        tree_like = {"p": tf.param_tree(params), "o": opt_state}
+        t0 = time.perf_counter()
+        restored, extra = mgr.restore(3, tree_like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bit_equal = all(torch.equal(a.cpu(), b) for a, b in zip(leaves(restored), saved))
+        if not bit_equal or extra != {"loss": losses[2]}:
+            raise AssertionError("train step: the restored checkpoint is not the saved state")
+        del saved
+        with torch.no_grad():
+            for p, a in zip(leaves(tf.param_tree(params)), leaves(restored["p"])):
+                p.copy_(a)
+        opt_state = restored["o"]
+        del restored
+        resumed = []
+        for _ in range(3):
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            resumed.append(float(m["loss"]))
+        resume_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[3:6]))
+        if resume_rel > 1e-4:
+            raise AssertionError(f"train step: resumed losses {resumed} vs {losses[3:6]}")
+        ckpt_bytes = dir_bytes(os.path.join(workdir, "ckpt"))
+        del params, opt_state, batch, tree_like
+        gc.collect()
+        torch.cuda.empty_cache()
+        card_cpu = train_card_vs_cpu()
+        entry = train_entry_point(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    p50_ms = float(np.percentile(times, 50))
+    tokens = global_batch * S
+    N = cfg.num_params()
+    rec = {"phase": "train_step", "arch": "smollm-360m", "n_layers": L, "d_model": cfg.d_model,
+           "dtype": "bfloat16", "remat": cfg.remat, "q_chunk": cfg.q_chunk, "S": S,
+           "global_batch": global_batch, "num_micro": num_micro,
+           "reduced": {"global_batch": f"256 -> {global_batch}"},
+           "optimizer": {"lr": 1e-3, "warmup_steps": 2, "total_steps": 10},
+           "losses": losses, "step_ms": times, "step_p50_ms": p50_ms,
+           "tokens_per_s": tokens / (p50_ms * 1e-3), "N": N, "T": tokens,
+           "model_flops_share_of_bf16_peak": 6.0 * N * tokens / (p50_ms * 1e-3) / PEAK_BF16_FLOPS,
+           "k3_launches_per_step": per_step_fwd, "k3_bwd_launches_per_step": per_step_bwd,
+           "launch_formula": "K3 2 x layers x num_micro (remat), K3-bwd layers x num_micro",
+           "k3_shapes": {f"{BH}x{s}x{D}": n for (_, BH, s, D), n in shapes.items()},
+           "peak_device_bytes": peak, "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+           "restore_s": restore_s, "restore_bit_equal": bit_equal, "resumed_losses": resumed,
+           "resume_max_rel_err": resume_rel, "card_vs_cpu": card_cpu, "entry_point": entry}
+    emit(rec)
+    # K3 forward at the step's layer shape, seeded (its time does not depend on the values)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(B_micro * cfg.n_heads, S, cfg.head_dim, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    timing = time_flash_kernel(q, k, v, f"train_4k layer: smollm-360m, {B_micro} x {S} tokens")
+    return {"launches": launches["flash_attention"],
+            "bwd_launches": launches["flash_attention_bwd"],
+            "instances": [{**timing, "launches": launches["flash_attention"]}]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2014,6 +2400,7 @@ def main() -> int:
     max_err = timed("2", phase_kernel_vs_plain)
     max_err_q8 = timed("2b", phase_q8_kernel_vs_plain)
     max_err_k3 = timed("2c", phase_flash_vs_plain)
+    k3_bwd = timed("2d", phase_flash_bwd_vs_plain)
     paper = timed("3", phase_paper)
     corpus, queries, gt_i, scan_ids = paper.pop("data")
     paper_q8 = timed("3b", phase_paper_q8, corpus, queries, gt_i, scan_ids)
@@ -2034,21 +2421,24 @@ def main() -> int:
     deploy_q8 = timed("4b", phase_deployment_q8, *deploy.pop("data"))
     prefill = timed("5", phase_prefill_32k)
     serve = timed("6", phase_serve_engine)
+    train = timed("6b", phase_train_step)
     timed("7", phase_beam_profile, hnsw_state, profile_batch)
     del hnsw_state
     k1_launches = (paper["launches"] + paper_hnsw["launches"] + persist["launches"]
                    + serve_step["launches"] + deploy["launches"])
     k2_launches = paper_q8["launches"] + deploy_q8["launches"]
-    k3_launches = prefill["launches"] + serve["launches"]
-    if k1_launches <= 0 or k2_launches <= 0 or k3_launches <= 0:
+    k3_launches = prefill["launches"] + serve["launches"] + train["launches"]
+    k3_bwd_launches = train["bwd_launches"]
+    if min(k1_launches, k2_launches, k3_launches, k3_bwd_launches) <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
-                             f"K2 {k2_launches}, K3 {k3_launches}")
+                             f"K2 {k2_launches}, K3 {k3_launches}, K3-bwd {k3_bwd_launches}")
     t1, t2 = paper["timing"], paper_q8["timing"]
     k3_instances = [
         {key: rec[key] for key in ("dtype", "BH", "S", "D", "causal", "launches", "max_abs_err",
                                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for rec in prefill["instances"] + serve["instances"]]
+        for rec in prefill["instances"] + serve["instances"] + train["instances"]]
     t3 = k3_instances[0]  # the 32k prefill's bf16 shape
+    t4 = k3_bwd["timing"]  # the training step's layer shape
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
     emit({"kernels": [
         {"name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
@@ -2068,6 +2458,10 @@ def main() -> int:
          "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": t3["bound_ms"],
          "bound_by": t3["bound_by"], "library_ms": t3["library_ms"],
          "instances": k3_instances},
+        {"name": "flash_attention_bwd", "route": "cuda", "source": K3_BWD_SOURCE,
+         "replaces": K3_BWD_REPLACES, "launches": k3_bwd_launches,
+         "max_abs_err": k3_bwd["max_abs_err"], "ms": t4["ms"], "plain_ms": t4["plain_ms"],
+         "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"], "library_ms": t4["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,10 @@ _UNPORTED = {
     "deepseek-v2-lite-16b": "MLA attention and MoE blocks",
 }
 ARCH_IDS = tuple(_CONFIGS)
+#: microbatches of a training step, and the two-level remat group
+#: (``LMArch(num_micro=..., remat_group=...)`` in the reference's registry)
+NUM_MICRO = {"codeqwen1.5-7b": 4, "qwen2-72b": 16, "smollm-360m": 1}
+REMAT_GROUP = {"codeqwen1.5-7b": 0, "qwen2-72b": 5, "smollm-360m": 0}
 
 
 def get_config(arch_id: str) -> TransformerConfig:
@@ -64,4 +68,28 @@ def serving_config(cfg: TransformerConfig, kind: str) -> TransformerConfig:
     return dataclasses.replace(
         cfg, param_dtype="bfloat16", compute_dtype="bfloat16", remat=False, remat_group=0,
         q_chunk=0 if kind == "decode" else 1024, kv_chunk=2048,
+    )
+
+
+def training_config(cfg: TransformerConfig) -> TransformerConfig:
+    """The reference's training-cell overrides (``LMArch._dryrun_model_cfg``
+    for a train cell such as ``train_4k``): bf16 params and compute, remat
+    with the arch's ``remat_group``, chunked (K3) attention with q_chunk
+    1024 and kv_chunk 2048."""
+    return dataclasses.replace(
+        cfg, param_dtype="bfloat16", compute_dtype="bfloat16", remat=True,
+        remat_group=REMAT_GROUP.get(cfg.name, 0), q_chunk=1024, kv_chunk=2048,
+    )
+
+
+def reduced_config(cfg: TransformerConfig) -> TransformerConfig:
+    """The reference's reduced config (``LMArch.model_config(reduced=True)``
+    of a dense arch): 2 layers, d_model 64, 4 heads of 16, d_ff 128,
+    vocab 512, float32, unchunked attention, no remat."""
+    return dataclasses.replace(
+        cfg, n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads else 4,
+        head_dim=16, d_ff=128, vocab=512, mla_kv_lora_rank=32, mla_qk_nope_head_dim=16,
+        mla_qk_rope_head_dim=8, mla_v_head_dim=16, q_chunk=0, remat=False,
+        param_dtype="float32", compute_dtype="float32",
     )

@@ -4,7 +4,8 @@ LANNS's counterpart of loading weights: the JAX index's config, fitted
 segmenter tree and per-partition corpora (and, for the HNSW engine, its
 frozen graphs) become a port ``LannsIndex`` without refitting,
 re-partitioning or rebuilding, so both packages query the same partitions;
-and the JAX LM's params become the port's ``Transformer``.
+and the JAX LM's params (and AdamW state) become the port's
+``Transformer`` (and optimizer state), and back.
 """
 
 from __future__ import annotations
@@ -22,7 +23,12 @@ from repro_torch.core.lanns import (
     _Partition,
     _scan_metric,
 )
-from repro_torch.models.transformer import Transformer, TransformerConfig, check_supported
+from repro_torch.models.transformer import (
+    Transformer,
+    TransformerConfig,
+    check_supported,
+    param_tree,
+)
 from repro_torch.quant.codec import Q8Corpus
 
 
@@ -103,3 +109,42 @@ def transformer_from_jax(cfg: TransformerConfig, params_np: dict, device=None) -
     lm_head = None if cfg.tie_embeddings else t(params_np["lm_head"])
     return Transformer(t(params_np["embed"]), t(params_np["final_norm"]["scale"]), blocks,
                        lm_head)
+
+
+def transformer_to_numpy(params: Transformer) -> dict:
+    """The inverse of :func:`transformer_from_jax`: the port's params as the
+    reference's pytree of float32 numpy arrays, the per-layer blocks stacked
+    into (L, ...) leaves."""
+    f = lambda t: t.detach().to(torch.float32).cpu().numpy()
+    tree = param_tree(params)
+    blocks = tree["blocks"]
+    out = {
+        "embed": f(tree["embed"]),
+        "final_norm": {"scale": f(tree["final_norm"]["scale"])},
+        "blocks": {group: {name: np.stack([f(b[group][name]) for b in blocks])
+                           for name in leaves_} for group, leaves_ in blocks[0].items()},
+    }
+    if "lm_head" in tree:
+        out["lm_head"] = f(tree["lm_head"])
+    return out
+
+
+def adamw_state_from_jax(cfg: TransformerConfig, state_np: dict, device=None) -> dict:
+    """The port's AdamW state (``train.optimizer.init_state``'s layout) from
+    the reference's as numpy arrays: ``step``, and ``m`` / ``v`` whose
+    stacked (L, ...) ``blocks`` become one float32 dict per layer."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    def moments(tree):
+        out = {"embed": t(tree["embed"]), "final_norm": {"scale": t(tree["final_norm"]["scale"])},
+               "blocks": [{group: {name: t(a[l]) for name, a in leaves_.items()}
+                           for group, leaves_ in tree["blocks"].items()}
+                          for l in range(cfg.n_layers)]}
+        if "lm_head" in tree:
+            out["lm_head"] = t(tree["lm_head"])
+        return out
+
+    step = torch.tensor(int(np.asarray(state_np["step"])), dtype=torch.int32, device=dev)
+    return {"step": step, "m": moments(state_np["m"]), "v": moments(state_np["v"])}

@@ -1,4 +1,4 @@
-"""Deterministic synthetic ANN datasets, bit-identical to
+"""Deterministic synthetic ANN datasets and LM token batches, bit-identical to
 ``repro.data.synthetic`` for a fixed seed (numpy generators)."""
 
 from __future__ import annotations
@@ -45,3 +45,11 @@ def sift_like(n: int = 100_000, d: int = 128, n_queries: int = 1000, seed: int =
     corpus = clustered_vectors(n, d, seed=seed, **kw)
     queries = clustered_vectors(n_queries, d, seed=seed + 1, **kw)
     return corpus, queries
+
+
+def token_batch(batch: int, seq_len: int, vocab: int, seed: int = 0):
+    """(tokens, labels) int32 arrays — a next-token LM batch, the
+    reference's numbers for the same seed."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=(batch, seq_len + 1), dtype=np.int64)
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)

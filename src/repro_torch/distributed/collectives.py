@@ -11,8 +11,10 @@ host, runs the collective there and copies the result back.  That is the
 gloo path of each collective, chosen from the group's backend; NCCL moves
 card tensors directly.
 
-``hierarchical_grad_sync`` is a training path and ports with the training
-slice (ROADMAP).
+``hierarchical_grad_sync`` is the multi-pod gradient path:
+pod-local reduce_scatter -> cross-pod all_reduce on the 1/N shard ->
+pod-local all_gather, so the cross-pod hop carries 1/pod_local_size of the
+gradient bytes of a naive global all-reduce.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.common.tree import flatten, unflatten
 from repro_torch.core.merge import _stable_order
 
 
@@ -45,6 +48,43 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     src = _wire(t, group).clone()
     dist.all_reduce(src, op=dist.ReduceOp.SUM, group=group)
     return src.to(t.device)
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max of ``t`` over the group (``jax.lax.pmax``)."""
+    src = _wire(t, group).clone()
+    dist.all_reduce(src, op=dist.ReduceOp.MAX, group=group)
+    return src.to(t.device)
+
+
+def hierarchical_grad_sync(grads, *, pod_group, local_group):
+    """The mean of ``grads`` (a tensor or a tree of them, replicated per
+    (pod, data) rank) over the whole pod x data world, computed as
+    reduce_scatter over ``local_group`` -> all_reduce over ``pod_group``
+    on the shard -> all_gather over ``local_group``.  The groups are the
+    ``data`` and ``pod`` axes of ``launch.mesh``'s mesh."""
+    n_local = dist.get_world_size(local_group)
+    n_pod = dist.get_world_size(pod_group)
+
+    def sync_leaf(g: torch.Tensor) -> torch.Tensor:
+        flat = _wire(g, local_group).reshape(-1)
+        pad = (-flat.numel()) % n_local
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        # 1. pod-local reduce_scatter (each rank owns 1/n_local of the sum)
+        shard = flat.new_empty(flat.numel() // n_local)
+        dist.reduce_scatter_tensor(shard, flat, group=local_group)
+        # 2. cross-pod all_reduce on the shard only
+        shard = _wire(all_reduce_sum(shard, pod_group), local_group)
+        # 3. pod-local all_gather to restore the full gradient
+        full = flat.new_empty(flat.numel())
+        dist.all_gather_into_tensor(full, shard, group=local_group)
+        out = full[:g.numel()].reshape(g.shape) / (n_local * n_pod)
+        return out.to(g.device)
+
+    if isinstance(grads, torch.Tensor):
+        return sync_leaf(grads)
+    return unflatten(grads, [sync_leaf(g) for _, g in flatten(grads)])
 
 
 def _exchange(tensors, partner: int, group):

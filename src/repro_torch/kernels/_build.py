@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: every kernel source of the package
-SOURCES = ("distance_topk.cu", "distance_topk_q8.cu", "flash_attention.cu")
+SOURCES = ("distance_topk.cu", "distance_topk_q8.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu")
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 

@@ -82,6 +82,12 @@
 // guards of the TPU kernel: m_safe = 0 for a fully masked row, corr = 0
 // while m is -inf, l floored at 1e-30 in the final division.
 //
+// For training the caller may pass an lse buffer (BH, S) float32: each row's
+// log-sum-exp of the scaled scores in natural-log units, with the same
+// guards, which the backward kernel (flash_attention_bwd.cu) reads to
+// rebuild p.  Each kernel has an instance with and one without the lse
+// store (template flag LSE), so with lse null nothing else changes.
+//
 // Interface: a plain C function for ctypes.  It launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
@@ -90,9 +96,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "tf32.cuh"
 
 namespace {
+
+using namespace mma;
 
 constexpr int BK = 64;  // kv rows per tile of the bfloat16 kernel
 
@@ -113,77 +122,11 @@ struct MmaSmem {
   bf16 v[STAGES][BK * LD];
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, asynchronously; zero-fills when !in
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x; 0 for -inf
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x, y) -> the bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// a row's log-sum-exp in natural-log units of the scaled scores,
+// log sum_j exp(scale * q . k_j), from the base-2 running max m (-inf for a
+// fully masked row, taken as 0 like m_safe) and the floored row sum den
+__device__ __forceinline__ float row_lse(float m, float den) {
+  return ((isfinite(m) ? m : 0.f) + log2f(den)) * 0.6931471805599453f;
 }
 
 // rows [row0, row0 + ROWS) of a (S, D) matrix into a padded shared tile
@@ -202,11 +145,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o, int S, int causal,
-                         float scale_log2) {
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int S, int causal, float scale_log2) {
   static_assert(D % 16 == 0, "k-steps of 16 and pairs of n8 tiles");
   constexpr int LD = MmaSmem<D>::LD;
   constexpr int KD = D / 16;   // k-steps of q k^T
@@ -365,6 +308,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
     const float den = fmaxf(quad_sum(l[r]), 1e-30f);  // all lanes shuffle
     const int row = row_a + 8 * r;
     if (row >= S) continue;
+    if constexpr (LSE)
+      if ((lane & 3) == 0) lse[blockIdx.y * (size_t)S + row] = row_lse(m[r], den);
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<__nv_bfloat162*>(&ob[(size_t)row * D + j * 8 + col_t]) =
@@ -473,11 +418,11 @@ __device__ __forceinline__ void split_tile(uint32_t* sm, int tid) {
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(F32_THREADS)
     flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o, int S, int causal,
-                          float scale_log2) {
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int S, int causal, float scale_log2) {
   using T = F32Tile<D>;
   constexpr int BKT = T::BK, LD = T::LD, LDT = T::LDT;
   constexpr int KD = D / 8;    // k-steps of q k^T
@@ -671,6 +616,8 @@ __global__ void __launch_bounds__(F32_THREADS)
     const float den = fmaxf(quad_sum(l[r]), 1e-30f);  // all lanes shuffle
     const int row = row_a + 8 * r;
     if (row >= S) continue;
+    if constexpr (LSE)
+      if ((lane & 3) == 0) lse[blockIdx.y * (size_t)S + row] = row_lse(m[r], den);
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<float2*>(&ob[(size_t)row * D + j * 8 + col_t]) =
@@ -680,47 +627,45 @@ __global__ void __launch_bounds__(F32_THREADS)
 
 // ------------------------------------------------------------- launchers
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem, bool& done) {
-  if (done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  done = e == cudaSuccess;
-  return e;
-}
-
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                       int causal, float scale, cudaStream_t stream) {
+template <int D, bool LSE>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                       int S, int causal, float scale, cudaStream_t stream) {
   const int smem = (int)(F32Tile<D>::WORDS * sizeof(uint32_t));
   static bool attr_set = false;
-  cudaError_t e = allow_smem(flash_fwd_tf32_kernel<D>, smem, attr_set);
+  cudaError_t e = allow_smem(flash_fwd_tf32_kernel<D, LSE>, smem, attr_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + F32_BQ - 1) / F32_BQ, BH);
-  flash_fwd_tf32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(
+  flash_fwd_tf32_kernel<D, LSE><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, causal, (float)(scale * 1.4426950408889634));
+      static_cast<float*>(o), lse, S, causal, (float)(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                        int causal, float scale, cudaStream_t stream) {
+template <int D, bool LSE>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                        int S, int causal, float scale, cudaStream_t stream) {
   const int smem = (int)sizeof(MmaSmem<D>);
   static bool attr_set = false;
-  cudaError_t e = allow_smem(flash_fwd_mma_kernel<D>, smem, attr_set);
+  cudaError_t e = allow_smem(flash_fwd_mma_kernel<D, LSE>, smem, attr_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, BH);
-  flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+  flash_fwd_mma_kernel<D, LSE><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, causal, (float)(scale * 1.4426950408889634));
+      static_cast<bf16*>(o), lse, S, causal, (float)(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                   int dtype, int causal, float scale, cudaStream_t st) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, BH, S, causal, scale, st);
-  if (dtype == 1) return launch_bf16<D>(q, k, v, o, BH, S, causal, scale, st);
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                   int S, int dtype, int causal, float scale, cudaStream_t st) {
+  // the row log-sum-exp is a separate instance, so inference runs the code
+  // it ran before the backward existed
+  if (dtype == 0)
+    return lse ? launch_f32<D, true>(q, k, v, o, lse, BH, S, causal, scale, st)
+               : launch_f32<D, false>(q, k, v, o, lse, BH, S, causal, scale, st);
+  if (dtype == 1)
+    return lse ? launch_bf16<D, true>(q, k, v, o, lse, BH, S, causal, scale, st)
+               : launch_bf16<D, false>(q, k, v, o, lse, BH, S, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -728,18 +673,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
 
 // q, k, v, o (BH, S, D) row-major on the device, all of one dtype:
 // 0 = float32, 1 = bfloat16, 16-byte aligned.  D: 16, 32, 64 or 128.
+// lse: null, or (BH, S) float32 that receives each row's log-sum-exp of the
+// scaled scores in natural-log units (what the backward kernel reads).
 // causal: 0 or 1.  Returns a cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int BH, int S, int D, int dtype, int causal, float scale,
-                                     void* stream) {
+                                     void* lse, int BH, int S, int D, int dtype, int causal,
+                                     float scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (BH <= 0 || BH > 65535 || S <= 0 || (causal != 0 && causal != 1))
     return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return (int)launch<16>(q, k, v, o, BH, S, dtype, causal, scale, st);
-    case 32: return (int)launch<32>(q, k, v, o, BH, S, dtype, causal, scale, st);
-    case 64: return (int)launch<64>(q, k, v, o, BH, S, dtype, causal, scale, st);
-    case 128: return (int)launch<128>(q, k, v, o, BH, S, dtype, causal, scale, st);
+    case 16: return (int)launch<16>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
+    case 32: return (int)launch<32>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
+    case 64: return (int)launch<64>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
+    case 128: return (int)launch<128>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -30,7 +30,7 @@ def _kernel():
     fn = _FN.get("flash_attention")
     if fn is None:
         fn = _build.load("flash_attention.cu").repro_flash_attention
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float,
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                                    ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN["flash_attention"] = fn
@@ -38,10 +38,12 @@ def _kernel():
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                         scale: float) -> torch.Tensor:
+                         scale: float, with_lse: bool = False):
     """Launch K3: attention forward over q, k, v (BH, S, D), contiguous and
     16-byte aligned, of one dtype (float32 or bfloat16), on one CUDA device.
-    Returns the output (BH, S, D) in that dtype."""
+    Returns the output (BH, S, D) in that dtype; with ``with_lse``, also
+    each row's log-sum-exp of the scaled scores, (BH, S) float32 in
+    natural-log units, which the backward kernel reads."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda: q, k and v must be on one CUDA device")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -61,12 +63,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c
         raise ValueError("flash_attention_cuda: q, k and v must be 16-byte aligned "
                          "(the kernel copies rows in 16-byte pieces)")
     out = torch.empty_like(q)
+    lse = torch.empty((BH, S), dtype=torch.float32, device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             BH, S, D, _DTYPE[q.dtype], int(bool(causal)), float(scale), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
-    return out
+    return (out, lse) if with_lse else out

@@ -21,6 +21,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.distance_topk import distance_topk_cuda
 from repro_torch.kernels.distance_topk_q8 import distance_topk_q8_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.quant.codec import quantize_queries_q8_t
 
 LANE = 128
@@ -28,7 +29,8 @@ LANE = 128
 K_PAD_MAX = 512
 
 #: kernel launches by the wrappers of this module, by kernel name
-KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0, "flash_attention": 0}
+KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0, "flash_attention": 0,
+                   "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -207,6 +209,60 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def _flash_forward(q, k, v, causal: bool, scale: float, with_lse: bool):
+    """K3 on CUDA tensors, its plain version on CPU tensors: the output,
+    and with ``with_lse`` (out, lse)."""
+    dev = q.device
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, with_lse=with_lse)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    res = flash_attention_cuda(_aligned(q), _aligned(k), _aligned(v), causal=causal,
+                               scale=scale, with_lse=with_lse)
+    KERNEL_LAUNCHES["flash_attention"] += 1
+    return res
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, scale: float | None = None):
+    """The gradient of :func:`flash_attention`: (dq, dk, dv) from q, k, v
+    (BH, S, D), the forward's output ``o``, the output's gradient ``do``
+    and the forward's row log-sum-exp ``lse`` (BH, S) float32.  CPU tensors
+    run ``ref.flash_attention_bwd_ref``; CUDA tensors launch K3-bwd (the
+    dtypes and head dims of K3; anything else raises).  Inputs that are
+    not contiguous or not on the 16-byte grid are copied first."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    dev = q.device
+    if dev.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {dev}")
+    grads = flash_attention_bwd_cuda(*(_aligned(t) for t in (q, k, v, o, do)), lse.contiguous(),
+                                     causal=causal, scale=scale)
+    KERNEL_LAUNCHES["flash_attention_bwd"] += 1
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 with a gradient: the forward keeps its output and row
+    log-sum-exp, the backward is K3-bwd (on the CPU, the two plain
+    versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _flash_forward(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, causal=ctx.causal,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     """Attention forward over q, k, v (BH, S, D), one device, one dtype:
     ``softmax(scale * q k^T) v`` per row, causal or bidirectional, with all
@@ -215,24 +271,19 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     launch K3 (float32 or bfloat16, D in 16/32/64/128; anything else
     raises).  Inputs that are not contiguous, or do not start on a
     16-byte boundary (the kernel copies rows in 16-byte pieces), are
-    copied first."""
+    copied first.  Where autograd records (an input requires grad), the
+    call is differentiable: its backward is :func:`flash_attention_bwd`."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}; expected three equal (BH, S, D)")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
-    dev = q.device
-    if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
-    if q.numel() == 0:
+    if q.device.type == "cuda" and q.numel() == 0:
         return torch.empty_like(q)
-    out = flash_attention_cuda(_aligned(q), _aligned(k), _aligned(v), causal=causal,
-                               scale=scale)
-    KERNEL_LAUNCHES["flash_attention"] += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return _flash_forward(q, k, v, causal, scale, with_lse=False)
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, scale: float | None = None):

@@ -151,7 +151,8 @@ def flash_attention_ref(
     scale: float | None = None,
     block_q: int = 1024,
     block_k: int = 1024,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Attention forward over (BH, S, D) as a blocked online softmax: the
     plain version of K3 (``repro/kernels/flash_attention.py::
     _flash_fwd_kernel``), with its masking and guards.
@@ -162,12 +163,17 @@ def flash_attention_ref(
     fully masked rows and ``l`` is floored at 1e-30, as in the kernel.  kv
     blocks wholly above the diagonal are skipped.  Memory is
     O(BH x block_q x block_k), so it runs at S = 32k on the card.
+
+    With ``with_lse`` it returns (out, lse): lse (BH, S) float32 is each
+    row's log-sum-exp of the scaled scores, ``m_safe + log(l)`` with the
+    same guards, in natural-log units, as K3 writes it for the backward.
     """
     BH, S, D = q.shape
     scale = scale or 1.0 / math.sqrt(D)
     _no_tf32(q)
     out = torch.empty_like(q)
     dev = q.device
+    lse = torch.empty((BH, S), dtype=torch.float32, device=dev) if with_lse else None
     for q0 in range(0, S, block_q):
         q1 = min(q0 + block_q, S)
         qb = q[:, q0:q1].to(torch.float32)
@@ -193,7 +199,65 @@ def flash_attention_ref(
             acc = acc * corr + torch.bmm(p, vb)
             m = m_new
         out[:, q0:q1] = (acc / l.clamp_min(1e-30)).to(q.dtype)
-    return out
+        if with_lse:
+            m_safe = torch.where(torch.isfinite(m), m, 0.0)
+            lse[:, q0:q1] = (m_safe + torch.log(l.clamp_min(1e-30)))[..., 0]
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+    block_q: int = 1024,
+    block_k: int = 1024,
+):
+    """The gradient of attention over (BH, S, D): the plain version of
+    K3-bwd (``csrc/flash_attention_bwd.cu``), the function the JAX package
+    gets from autodiff of ``chunked_attention``.
+
+    From q, k, v, the forward's output o, its gradient ``do`` and the row
+    log-sum-exp ``lse`` of :func:`flash_attention_ref` (``with_lse``),
+    rebuilds ``p = exp(scale q k^T - lse)`` block by block with the
+    forward's masks (future kv when causal; kv blocks wholly above the
+    diagonal skipped), then ``delta = rowsum(do o)``, ``ds = p (do v^T -
+    delta)``, ``dv = p^T do``, ``dk = scale ds^T q``, ``dq = scale ds k``.
+    All math and every sum is float32; the results take q's dtype.
+    Returns (dq, dk, dv).
+    """
+    BH, S, D = q.shape
+    scale = scale or 1.0 / math.sqrt(D)
+    _no_tf32(q)
+    dev = q.device
+    f = lambda t: t.to(torch.float32)
+    delta = (f(do) * f(o)).sum(-1)
+    dq = torch.empty_like(q)
+    dk = torch.zeros((BH, S, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((BH, S, D), dtype=torch.float32, device=dev)
+    for q0 in range(0, S, block_q):
+        q1 = min(q0 + block_q, S)
+        qb, dob = f(q[:, q0:q1]), f(do[:, q0:q1])
+        lse_b, delta_b = f(lse[:, q0:q1, None]), delta[:, q0:q1, None]
+        q_pos = torch.arange(q0, q1, device=dev)[:, None]
+        dq_acc = torch.zeros((BH, q1 - q0, D), dtype=torch.float32, device=dev)
+        for k0 in range(0, q1 if causal else S, block_k):
+            k1 = min(k0 + block_k, S)
+            kb, vb = f(k[:, k0:k1]), f(v[:, k0:k1])
+            p = torch.exp(torch.bmm(qb, kb.transpose(1, 2)) * scale - lse_b)
+            if causal:
+                p = torch.where(torch.arange(k0, k1, device=dev)[None, :] <= q_pos, p, 0.0)
+            ds = p * (torch.bmm(dob, vb.transpose(1, 2)) - delta_b)
+            dv[:, k0:k1] += torch.bmm(p.transpose(1, 2), dob)
+            dk[:, k0:k1] += torch.bmm(ds.transpose(1, 2), qb) * scale
+            dq_acc += torch.bmm(ds, kb) * scale
+        dq[:, q0:q1] = dq_acc.to(q.dtype)
+    return dq, dk.to(q.dtype), dv.to(q.dtype)
 
 
 def bf16_agreement(out: torch.Tensor, want_f32: torch.Tensor) -> float:

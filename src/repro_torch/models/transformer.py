@@ -5,8 +5,10 @@ One config class as in the reference; the port runs its dense GQA members
 (SmolLM, CodeQwen, Qwen2 — ``qkv_bias`` toggles the Qwen variant).  A MoE
 block or ``attention="mla"`` raises ``NotImplementedError`` (ROADMAP item
 10).  The params are an ``nn.Module`` holding one block per layer (the
-reference stacks them for ``scan``); ``apply`` runs the layers in a Python
-loop.  Inference only: ``apply`` runs under ``torch.no_grad``.
+reference stacks them for ``scan``); ``forward`` runs the layers in a
+Python loop and carries gradients (``remat`` / ``remat_group`` checkpoint
+blocks or groups of blocks, as the reference's scan does), and ``apply``
+is the same forward under ``torch.no_grad`` for serving.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.utils import resolve_device
 from repro_torch.models.layers import AttentionConfig, attention_apply, mlp_apply, rms_norm
@@ -66,6 +69,14 @@ class TransformerConfig:
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    def num_params(self) -> int:
+        """Total parameter count N of the dense GQA model (the reference's
+        ``num_params``; MODEL_FLOPS = 6 N D)."""
+        d = self.d_model
+        attn = d * self.head_dim * (self.n_heads * 2 + self.n_kv_heads * 2)
+        return self.vocab * d * (1 if self.tie_embeddings else 2) + self.n_layers * (
+            attn + 3 * d * self.d_ff)
+
 
 def check_supported(cfg: TransformerConfig) -> None:
     if cfg.moe is not None:
@@ -98,6 +109,22 @@ class Transformer(nn.Module):
             nn.ModuleDict({name: _pdict(group) for name, group in block.items()})
             for block in blocks
         )
+
+
+def param_tree(params: Transformer) -> dict:
+    """The params as a tree whose leaves are the module's own parameters:
+    ``embed``, ``final_norm``, ``lm_head`` unless tied, and ``blocks`` as a
+    list of per-layer dicts — the reference's pytree with its stacked
+    blocks split by layer (``common.tree`` flattens it in the reference's
+    order)."""
+    tree = {
+        "embed": params.embed,
+        "final_norm": {"scale": params.final_norm["scale"]},
+        "blocks": [{g: dict(pd.items()) for g, pd in blk.items()} for blk in params.blocks],
+    }
+    if params.lm_head is not None:
+        tree["lm_head"] = params.lm_head
+    return tree
 
 
 def init(cfg: TransformerConfig, seed: int = 0, device=None) -> Transformer:
@@ -144,15 +171,30 @@ def _block_apply(cfg: TransformerConfig, bp, x, positions, cache, cache_offset):
     return x + mlp_apply(bp["mlp"], h)
 
 
-@torch.no_grad()
-def apply(params: Transformer, cfg: TransformerConfig, tokens, *, positions=None, cache=None,
-          cache_offset=None):
-    """tokens (B, S) integer -> (logits (B, S, V), cache, aux_loss).
+def _blocks_apply(cfg: TransformerConfig, blocks, x, positions):
+    """Blocks in order over fresh tokens (no cache), each checkpointed when
+    ``cfg.remat``: the reference's scan body under ``jax.checkpoint``."""
+    for bp in blocks:
+        if cfg.remat:
+            x = checkpoint(_block_apply, cfg, bp, x, positions, None, None, use_reentrant=False)
+        else:
+            x = _block_apply(cfg, bp, x, positions, None, None)
+    return x
+
+
+def forward(params: Transformer, cfg: TransformerConfig, tokens, *, positions=None, cache=None,
+            cache_offset=None):
+    """tokens (B, S) integer -> (logits (B, S, V), cache, aux_loss), with
+    gradients where autograd records.
 
     cache: ``make_cache`` output, {"k": (L, B, Smax, KV, hd), "v": ...},
     updated IN PLACE and returned.  cache_offset: the position of
     tokens[:, 0] — an int, or a (B,) tensor of per-row offsets.  aux_loss
-    is 0.0 (no MoE).
+    is 0.0 (no MoE).  Without a cache, ``cfg.remat`` checkpoints every
+    block, and ``cfg.remat_group`` K > 1 dividing the depth checkpoints
+    groups of K blocks as well (the reference's two-level scan: only group
+    boundaries are saved, and a group's backward recomputes it with its
+    blocks checkpointed once more).
     """
     check_supported(cfg)
     dev = params.embed.device
@@ -167,13 +209,31 @@ def apply(params: Transformer, cfg: TransformerConfig, tokens, *, positions=None
         else:
             positions = int(start) + ar
     x = params.embed[tokens].to(compute_dtype)
-    for l, bp in enumerate(params.blocks):
-        layer_cache = None if cache is None else {"k": cache["k"][l], "v": cache["v"][l]}
-        x = _block_apply(cfg, bp, x, positions, layer_cache, cache_offset)
+    blocks = list(params.blocks)
+    K = cfg.remat_group
+    if cache is not None:
+        for l, bp in enumerate(blocks):
+            layer_cache = {"k": cache["k"][l], "v": cache["v"][l]}
+            x = _block_apply(cfg, bp, x, positions, layer_cache, cache_offset)
+    elif cfg.remat and K > 1 and len(blocks) % K == 0:
+        for g in range(0, len(blocks), K):
+            x = checkpoint(_blocks_apply, cfg, blocks[g:g + K], x, positions,
+                           use_reentrant=False)
+    else:
+        x = _blocks_apply(cfg, blocks, x, positions)
     x = rms_norm(params.final_norm, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = x @ head.to(compute_dtype)
     return logits, cache, 0.0
+
+
+@torch.no_grad()
+def apply(params: Transformer, cfg: TransformerConfig, tokens, *, positions=None, cache=None,
+          cache_offset=None):
+    """:func:`forward` without gradients: the serving entry
+    (``ServeEngine``)."""
+    return forward(params, cfg, tokens, positions=positions, cache=cache,
+                   cache_offset=cache_offset)
 
 
 def make_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=torch.bfloat16,

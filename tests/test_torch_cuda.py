@@ -517,3 +517,128 @@ def test_serve_step_on_card_matches_cpu(cuda, shape, backend):
         np.testing.assert_allclose(d[fin], d_c[fin], rtol=3e-4, atol=3e-4)
         overlap = np.mean([len(set(a) & set(b)) / len(b) for a, b in zip(i, i_c)])
         assert overlap >= 0.999, overlap
+
+
+# K3-bwd's shapes: the slice's layer shape, then the tile edges (64-row owned
+# and walked tiles) at every head dim, causal and not
+K3_BWD_CASES = [(60, 4096, 64, True), (1, 1, 16, True), (15, 1100, 64, True),
+                (3, 1025, 128, False)] + [
+    (BH, S, D, causal) for S in (63, 65, 1000) for BH in (1, 3) for D in (16, 32, 64, 128)
+    for causal in (True, False)]
+
+
+def _k3_bwd_case(dev, dtype, BH, S, D, causal, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(BH, S, D, generator=g, device=dev).to(dtype) for _ in range(4))
+    return q, k, v, do
+
+
+def _check_k3_bwd(got, want32, dtype):
+    """float32: max |kernel - plain| / max |plain| <= 1e-4 per tensor;
+    bfloat16: ``ref.bf16_agreement`` <= 1 against the plain version in
+    float32 on the same bf16-valued inputs.  With one key (S = 1) the
+    softmax is constant, so dq and dk are exactly zero and both sides hold
+    rounding noise, whose ratio means nothing: there float32 dq and dk
+    must be zero at 1e-4 of dv's scale."""
+    if dtype == torch.float32 and got[0].shape[1] == 1:
+        zero_tol = 1e-4 * float(want32[2].abs().max())
+        for name, a in (("dq", got[0]), ("dk", got[1])):
+            assert float(a.abs().max()) <= zero_tol, name
+        got, want32 = got[2:], want32[2:]
+    for name, a, w in zip(("dq", "dk", "dv")[-len(got):], got, want32):
+        assert a.dtype == dtype and a.shape == w.shape
+        if dtype == torch.float32:
+            err = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            assert err <= 1e-4, (name, err)
+        else:
+            assert ref.bf16_agreement(a, w) <= 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,D,causal", K3_BWD_CASES)
+def test_k3_bwd_matches_plain(cuda, dtype, BH, S, D, causal):
+    """K3's row log-sum-exp against the plain version's, K3's output with
+    lse requested bit-equal to the output without, and K3-bwd's dq, dk, dv
+    against the plain backward on the same tensors."""
+    q, k, v, do = _k3_bwd_case(cuda, dtype, BH, S, D, causal, seed=BH * S + D)
+    scale = D ** -0.5
+    ops.reset_launches()
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, with_lse=True)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=causal, scale=scale))
+    f = lambda t: t.float()
+    _, lse_plain = ref.flash_attention_ref(f(q), f(k), f(v), causal=causal, with_lse=True)
+    assert float((lse - lse_plain).abs().max()) <= 1e-4
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    assert ops.KERNEL_LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(f(q), f(k), f(v), f(out), f(do), lse, causal=causal)
+    torch.cuda.synchronize()
+    _check_k3_bwd(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_bwd_takes_strided_and_misaligned_inputs_and_is_deterministic(cuda, dtype):
+    """A dO that is a permuted view (as autograd hands it back through the
+    (B, S, H, D) fold) and a q 4 bytes off the 16-byte grid: the launcher
+    refuses the latter, ``ops.flash_attention_bwd`` copies both.  Two
+    launches on the same inputs give the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    BH, S, D = 6, 300, 64
+    q, k, v, _ = _k3_bwd_case(cuda, dtype, BH, S, D, True, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    do = torch.randn(S, BH, D, generator=g, device=cuda).to(dtype).transpose(0, 1)
+    assert not do.is_contiguous()
+    shift = 4 // q.element_size()  # 4 bytes
+    q_off = torch.empty(q.numel() + shift, device=cuda, dtype=dtype)[shift:].view(BH, S, D)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 != 0
+    out, lse = flash_attention_cuda(q, k, v, causal=True, scale=0.125, with_lse=True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd_cuda(q_off, k, v, out, do.contiguous(), lse, causal=True, scale=0.125)
+    got = ops.flash_attention_bwd(q_off, k, v, out, do, lse, causal=True, scale=0.125)
+    again = ops.flash_attention_bwd(q, k, v, out, do.contiguous(), lse, causal=True, scale=0.125)
+    f = lambda t: t.float()
+    want = ref.flash_attention_bwd_ref(f(q), f(k), f(v), f(out), f(do), lse, causal=True,
+                                       scale=0.125)
+    torch.cuda.synchronize()
+    _check_k3_bwd(got, want, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_card_train_step_matches_cpu(cuda):
+    """One train step of a small LM (f32, chunked attention: K3 and K3-bwd
+    on the card, the plain versions on the CPU) from the same params: loss
+    within 1e-5 relative, every grad within 1e-3 of the CPU's largest, the
+    grad norm within 1e-4 relative."""
+    import copy
+    import dataclasses
+
+    from repro_torch.common.tree import leaves
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import _accumulate_grads, lm_loss_fn
+
+    cfg = dataclasses.replace(tf.TransformerConfig(n_layers=2, d_model=128, n_heads=4,
+                                                   n_kv_heads=2, head_dim=32, d_ff=256,
+                                                   vocab=512), q_chunk=64, remat=True)
+    cpu_params = tf.init(cfg, seed=0, device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to(cuda)
+    toks, labels = token_batch(4, 300, cfg.vocab, seed=1)
+    batch = {"tokens": toks, "labels": labels}
+    ops.reset_launches()
+    loss_g, grads_g, _ = _accumulate_grads(lm_loss_fn(cfg), gpu_params, batch, 2)
+    torch.cuda.synchronize()
+    # remat: each layer's forward twice per microbatch, one backward
+    assert ops.KERNEL_LAUNCHES["flash_attention"] == 2 * cfg.n_layers * 2
+    assert ops.KERNEL_LAUNCHES["flash_attention_bwd"] == cfg.n_layers * 2
+    loss_c, grads_c, _ = _accumulate_grads(lm_loss_fn(cfg), cpu_params, batch, 2)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for g, c in zip(grads_g, grads_c):
+        assert float((g.cpu() - c).abs().max()) <= 1e-3 * float(c.abs().max())
+    n_g, n_c = float(global_norm(grads_g)), float(global_norm(grads_c))
+    assert abs(n_g - n_c) <= 1e-4 * n_c
+    assert len(leaves(tf.param_tree(gpu_params))) == len(grads_g)
