@@ -12,34 +12,57 @@
 //   dv_j = sum_i p_ij dO_i,  dk_j = scale sum_i ds_ij q_i,  dq_i = scale sum_j ds_ij k_j
 // with every product and sum to float32 grade.
 //
-// What bounds it: operations.  The gradient is 2.5x the forward's products
-// (q k^T, dO v^T, p^T dO, ds^T q, ds k against q k^T, p v); this design
-// rebuilds p in both of its passes, so it does 4x the forward's.
+// What bounds it: operations.  The gradient needs 5 products of the
+// forward's size (s, dp, dv, dk, dq).  This design does 10: both passes
+// rebuild s and dp, and p and ds enter dv, dk and dq as two bf16 terms each.
+// On the H100 the bf16 path issues its wgmmas at ~40% of the tensor cores'
+// peak, ~5x its bound (PERF.md): each consumer warpgroup runs its tile's
+// scores, softmax and products in series, and only the other warpgroup
+// overlaps it.
 //
 // Three launches, no atomics, so a run gives the same bits every time:
-//  * delta_kernel: delta = rowsum(dO o) in float32, one warp a row.
-//  * dkdv: a block owns 64 kv rows of one (batch, head) and walks the q
-//    tiles that see them (causal: from its own diagonal on), rebuilding p
-//    and ds for each tile and summing dk and dv in registers.
-//  * dq: a block owns 64 q rows and walks the kv tiles they see, rebuilding
-//    p and ds and summing dq.  Blocks take q tiles in reverse order, so the
+//  * a rows pass: per row delta = rowsum(dO o) in float32 (and, for bf16,
+//    lse log2 e beside it), one warp a row;
+//  * dkdv: a block owns kv rows of one (batch, head) and walks the q tiles
+//    that see them (causal: from its own diagonal on), rebuilding p and ds
+//    for each tile and summing dk and dv in registers;
+//  * dq: a block owns q rows and walks the kv tiles they see, rebuilding p
+//    and ds and summing dq.  Blocks take q rows in reverse order, so the
 //    longest causal rows start first.
 //
-// bfloat16 (bwd_dkdv_mma_kernel, bwd_dq_mma_kernel): the tensor cores, with
-// the fragments of K3's bf16 forward (csrc/mma.cuh): 4 warps, each 16 owned
-// rows in the m16n8 accumulator layout.  The owned rows sit in shared
-// memory, the walked tiles flow through a two-stage cp.async ring.
-//  * q k^T and dO v^T: bf16 operands, so every product is exact and the f32
-//    accumulator gives the float32 dot.  In dkdv the block computes the
-//    transposed tiles k q^T and v dO^T, so that its kv rows are the MMA's
-//    rows and p^T, ds^T are A fragments straight from the accumulators.
-//  * p and ds are float32; as K3's forward does for p, each is split into
-//    two bf16 terms (hi = bf16(x), lo = bf16(x - hi)), about 16 significant
-//    bits, before p^T dO, ds^T q and ds k: two MMAs per product.
+// bfloat16 (bwd_dkdv_wgmma_kernel, bwd_dq_wgmma_kernel): warpgroup MMAs
+// fed by TMA (csrc/wgmma.cuh).  A block is three warpgroups: one producer
+// and two consumers, each consumer owning 64 rows (wgmma's M), 128 a block.
+//  * The producer's first thread loads the owned pair (k, v or q, dO) once,
+//    then streams the walked tiles (64 rows; 32 at D = 128, for registers)
+//    through a 4-stage ring under full / empty mbarriers: 3-D tensor maps
+//    over (BH, S, D), so rows past S zero-fill inside a head.  The dkdv
+//    ring also carries each tile's (lse log2 e, delta) pairs, bulk-copied
+//    from the rows pass's padded array.  setmaxnreg moves the producer's
+//    registers to the consumers (24 / 240).
+//  * s^T and dp^T (dkdv) run SS: both operands K-major in shared memory.
+//    s and dp (dq) run RS at D <= 64: each consumer reads its owned q and
+//    dO rows once into A fragments (ldmatrix through the swizzle), which
+//    halves the shared-memory reads of those products; at D = 128 they
+//    run SS, for registers.
+//  * p and ds are float32 in the accumulators; as K3's forward does for p,
+//    each is split into two bf16 terms (hi = bf16(x), lo = bf16(x - hi)),
+//    about 16 significant bits, straight into RS A fragments (the
+//    accumulator layout is the A-fragment layout).  dv += p^T dO, dk +=
+//    ds^T q and dq += ds k run RS against the walked tile read MN-major,
+//    two wgmmas per k-step.
+//  * Descriptors are built once per consumer from warp-uniform values (a
+//    shuffle shows the compiler that they are), so each wgmma's operands
+//    are a uniform register plus an immediate, with no address arithmetic
+//    between the wgmmas of a chain.
 //  * The tensor cores' f32 accumulation truncates, so each walked tile's
 //    product starts from zero and is added into the float32 sum with one
 //    rounded add, as K3's forward folds each kv tile.
-//  * Left for later: one pass for dk, dv and dq, wgmma, a TMA ring.
+//  * Causal: a consumer skips a walked tile that its rows cannot see, and
+//    masks only the tiles that cross the diagonal or S.
+//  * Left for later: one pass for dk, dv and dq (8 products instead of 10),
+//    and overlapping a tile's softmax with the next tile's MMAs inside a
+//    warpgroup (registers are the limit at D = 64).
 //
 // float32 (bwd_dkdv_simt_kernel, bwd_dq_simt_kernel): plain float32 FMAs,
 // 256 threads; the block's tiles in shared memory with rows padded to an
@@ -48,12 +71,14 @@
 // Interface: a plain C function for ctypes.  It launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -85,278 +110,413 @@ __global__ void __launch_bounds__(256)
 
 // --------------------------------------------------------------- bfloat16
 
-constexpr int MMA_THREADS = 128;  // 4 warps, 16 owned rows each
-constexpr int BR = 64;            // rows a block owns
-constexpr int BC = 64;            // rows of a walked tile
+constexpr int WG_THREADS = 128;
+constexpr int CONSUMERS = 2;                // consumer warpgroups, 64 owned rows each
+constexpr int BR = 64 * CONSUMERS;          // rows a block owns
+constexpr int BLOCK_THREADS = WG_THREADS * (1 + CONSUMERS);
+// setmaxnreg: the producer warpgroup gives its registers to the consumers
+// (24 x 128 + 2 x 240 x 128 = 168 x 384, the launch's allotment)
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 
+// a matrix of D columns as panels of one swizzle row each
 template <int D>
-struct BwdSmem {
-  static constexpr int LD = D + 8;  // bf16 per row: 16 bytes of padding
-  bf16 a[BR * LD];     // owned rows: k (dkdv) or q (dq)
-  bf16 b[BR * LD];     // owned rows: v (dkdv) or dO (dq)
-  bf16 c[2][BC * LD];  // walked tiles: q (dkdv) or k (dq), stage i % 2
-  bf16 d[2][BC * LD];  // walked tiles: dO (dkdv) or v (dq)
-  float lse[BC];       // dkdv: the walked q rows' lse (base 2) and delta
-  float delta[BC];
+struct Panels {
+  static constexpr int CW = D < 64 ? D : 64;  // columns of a panel
+  static constexpr int NP = D / CW;           // panels
+  static constexpr int RB = 2 * CW;           // bytes of a panel row
 };
 
-// rows [row0, row0 + ROWS) of a (S, D) matrix into a padded shared tile;
-// rows at or past S zero-fill
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int S, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  constexpr int LD = BwdSmem<D>::LD;
-  static_assert(ROWS * CH % MMA_THREADS == 0, "whole chunks per thread");
+// a block's tiles: owned BR rows, walked tiles of BT rows
+template <int D>
+struct Tiles : Panels<D> {
+  static constexpr int BT = D == 128 ? 32 : 64;  // rows of a walked tile (D = 128: registers)
+  static constexpr int STAGES = 4;               // depth of the ring
+  static constexpr int OWN = BR * D * 2;         // bytes of one owned matrix
+  static constexpr int TILE = BT * D * 2;        // bytes of one walked matrix
+  static constexpr int ROWS = BT * 8;            // bytes of a walked tile's (lse2, delta) pairs
+  // byte offsets from the 1024-aligned base: the owned pair, the ring of
+  // walked pairs, the ring's (lse2, delta), then the barriers
+  static constexpr int STAGE0 = 2 * OWN;
+  static constexpr int ROWS0 = STAGE0 + STAGES * 2 * TILE;
+  static constexpr int BARS = ROWS0 + STAGES * ROWS;
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;  // + the alignment slack
+};
+
+// the rows pass: per (batch-head, row) the pair (lse * log2 e, delta =
+// rowsum(dO o) in float32) in a (BH, S_pad) array, zero past S; one warp a
+// row, delta summed as delta_kernel sums it
+template <int D>
+__global__ void __launch_bounds__(256)
+    rows_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
+                const float* __restrict__ lse, float2* __restrict__ rows, int S, int S_pad) {
+  const int r = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= S_pad) return;
+  float s = 0.f, l2 = 0.f;
+  if (r < S) {
+    const size_t base = ((size_t)blockIdx.y * S + r) * D;
+    for (int d = lane; d < D; d += 32) s = fmaf(to_f32(o[base + d]), to_f32(dO[base + d]), s);
 #pragma unroll
-  for (int j = 0; j < ROWS * CH / MMA_THREADS; ++j) {
-    const int i = tid + j * MMA_THREADS;
-    const int r = i / CH, ch = i % CH;
-    const bool in = row0 + r < S;
-    cp_async16(smem_addr(dst + r * LD + ch * 8), src + (size_t)(in ? row0 + r : 0) * D + ch * 8,
-               in);
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    l2 = lse[(size_t)blockIdx.y * S + r] * LOG2E;
+  }
+  if (lane == 0) rows[(size_t)blockIdx.y * S_pad + r] = make_float2(l2, s);
+}
+
+// a 64 x KR float32 tile in the accumulator layout -> bf16 hi and lo A
+// fragments, one per 16 columns
+template <int KR>
+__device__ __forceinline__ void split_frags(const float (&x)[KR / 2], uint32_t (&hi)[KR / 16][4],
+                                            uint32_t (&lo)[KR / 16][4]) {
+#pragma unroll
+  for (int c = 0; c < KR / 16; ++c)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      split_bf16(x[8 * c + 2 * f], x[8 * c + 2 * f + 1], hi[c][f], lo[c][f]);
+}
+
+// acc (64 x D) += x tile, x (64 x KR) given as its hi and lo fragments,
+// tile (KR rows, D columns; descriptor `tile`) read MN-major; each panel's
+// product starts from zero and folds into acc with one rounded add
+template <int D, int KR>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], uint32_t (&hi)[KR / 16][4],
+                                           uint32_t (&lo)[KR / 16][4], uint64_t tile) {
+  constexpr int CW = Panels<D>::CW;
+#pragma unroll
+  for (int p = 0; p < Panels<D>::NP; ++p) {
+    float t[CW / 2];
+    wg::fence();
+#pragma unroll
+    for (int c = 0; c < KR / 16; ++c) {
+      const uint64_t b = tile + wg::mn_step<D, KR>(p, c);
+      wg::mma_rs<CW, 1>(t, lo[c], b, c > 0);
+      wg::mma_rs<CW, 1>(t, hi[c], b);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(t);
+    wg::fence_operand(hi);
+    wg::fence_operand(lo);
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) acc[p * CW / 2 + i] += t[i];
   }
 }
 
-// acc (16 x 8 n-tiles over D) = rows . tile^T for this warp's 16 owned
-// rows (shared, row-major) against a walked tile of 64 rows: c[j] holds the
-// 16 x 8 scores of tile rows 8j .. 8j + 7
+// s (64 x BT) = 64 owned rows . tile^T, both K-major in shared memory
+// (descriptors: `own` at the warpgroup's first row of a BR-row matrix,
+// `tile`); started with wgmma.fence, left uncommitted
+template <int D, int BT>
+__device__ __forceinline__ void scores(float (&s)[BT / 2], uint64_t own, uint64_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wg::mma_ss<BT, 0>(s, own + wg::k_step<D, BR>(kk), tile + wg::k_step<D, BT>(kk), kk > 0);
+}
+
+// the A fragments of rows [r0, r0 + 64) of an owned matrix (BR rows, D
+// columns, TMA-swizzled panels at generic address `own`): for each k-step,
+// this warp's 16 rows in the RS A layout
 template <int D>
-__device__ __forceinline__ void scores(float (&c)[BC / 8][4], const bf16* own, const bf16* tile,
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const unsigned char* own, int r0,
                                        int warp, int lane) {
-  constexpr int LD = BwdSmem<D>::LD;
-#pragma unroll
-  for (int j = 0; j < BC / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+  using T = Panels<D>;
+  constexpr int B = T::RB == 128 ? 3 : T::RB == 64 ? 2 : 1;  // swizzle bits
+  const int row = r0 + warp * 16 + (lane & 15);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, smem_addr(&own[(warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8]));
-#pragma unroll
-    for (int jp = 0; jp < BC / 16; ++jp) {
-      uint32_t b[4];
-      ldmatrix_x4(b, smem_addr(&tile[(jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                                     ((lane >> 3) & 1) * 8]));
-      mma_bf16(c[2 * jp], a, b[0], b[1]);
-      mma_bf16(c[2 * jp + 1], a, b[2], b[3]);
-    }
+    const int off = row * T::RB + ((kk % (T::CW / 16)) * 2 + (lane >> 4)) * 16;
+    const int phys = off ^ (((off >> 7) & ((1 << B) - 1)) << 4);
+    ldmatrix_x4(a[kk], smem_addr(own + (kk / (T::CW / 16)) * BR * T::RB + phys));
   }
 }
 
-// acc += x . tile, x (16 x 64) float32 in accumulator layout, split into
-// bf16 hi + lo A fragments, tile (64 rows, D) row-major in shared memory;
-// each 16 output columns start from zero and fold in with one rounded add
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&x)[BC / 8][4],
-                                           const bf16* tile, int lane) {
-  constexpr int LD = BwdSmem<D>::LD;
-  constexpr int KC = BC / 16;
-  uint32_t xh[KC][4], xl[KC][4];
+// s (64 x BT) = this warpgroup's 64 owned rows (A fragments) . tile^T
+// (K-major in shared memory); started with wgmma.fence, left uncommitted
+template <int D, int BT>
+__device__ __forceinline__ void scores_rs(float (&s)[BT / 2], uint32_t (&a)[D / 16][4],
+                                          uint64_t tile) {
 #pragma unroll
-  for (int c = 0; c < KC; ++c) {
-    split_bf16(x[2 * c][0], x[2 * c][1], xh[c][0], xl[c][0]);
-    split_bf16(x[2 * c][2], x[2 * c][3], xh[c][1], xl[c][1]);
-    split_bf16(x[2 * c + 1][0], x[2 * c + 1][1], xh[c][2], xl[c][2]);
-    split_bf16(x[2 * c + 1][2], x[2 * c + 1][3], xh[c][3], xl[c][3]);
-  }
-#pragma unroll
-  for (int dp = 0; dp < D / 16; ++dp) {
-    float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, smem_addr(&tile[(c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                           dp * 16 + (lane >> 4) * 8]));
-      mma_bf16(t[0], xl[c], b[0], b[1]);
-      mma_bf16(t[0], xh[c], b[0], b[1]);
-      mma_bf16(t[1], xl[c], b[2], b[3]);
-      mma_bf16(t[1], xh[c], b[2], b[3]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[2 * dp + h][e] += t[h][e];
-  }
+  for (int kk = 0; kk < D / 16; ++kk)
+    wg::mma_rs<BT, 0>(s, a[kk], tile + wg::k_step<D, BT>(kk), kk > 0);
 }
 
-// this warp's 16 rows of acc * mul into out as bf16 (rows past S skipped)
+// this thread's rows of acc * mul into out (S, D) as bf16; rows past S skipped
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4], float mul,
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2], float mul,
                                            int row_a, int S, int lane) {
+  constexpr int CW = Panels<D>::CW;
   const int col_t = 2 * (lane & 3);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     if (row >= S) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(&out[(size_t)row * D + j * 8 + col_t]) =
-          __floats2bfloat162_rn(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int causal,
-                        float scale, float scale_log2) {
-  constexpr int NS = BC / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdSmem<D>& sm = *reinterpret_cast<BwdSmem<D>*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int kv0 = blockIdx.x * BR;
-  const size_t base = (size_t)blockIdx.y * (size_t)S * D;
-  const float* lse_b = lse + (size_t)blockIdx.y * S;
-  const float* delta_b = delta + (size_t)blockIdx.y * S;
-  const bf16* qb = q + base;
-  const bf16* dob = dO + base;
-  const int first = causal ? kv0 / BC : 0;  // q tiles before it see none of these kv rows
-  const int n_tiles = (S + BC - 1) / BC;
-
-  // one copy group for the owned k and v rows, then one per walked tile
-  load_tile<D, BR>(sm.a, k + base, kv0, S, tid);
-  load_tile<D, BR>(sm.b, v + base, kv0, S, tid);
-  cp_async_commit();
-  load_tile<D, BC>(sm.c[0], qb, first * BC, S, tid);
-  load_tile<D, BC>(sm.d[0], dob, first * BC, S, tid);
-  cp_async_commit();
-
-  // a thread's kv rows in the m16n8 layout: g and g + 8 of the warp's 16
-  const int row_a = kv0 + warp * 16 + (lane >> 2);
-  const int col_t = 2 * (lane & 3);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+    for (int p = 0; p < Panels<D>::NP; ++p)
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  for (int it = first; it < n_tiles; ++it) {
-    const int st = (it - first) & 1;
-    const int q0 = it * BC;
-    if (it + 1 < n_tiles) {
-      load_tile<D, BC>(sm.c[st ^ 1], qb, q0 + BC, S, tid);
-      load_tile<D, BC>(sm.d[st ^ 1], dob, q0 + BC, S, tid);
-    }
-    cp_async_commit();
-    if (tid < BC) {
-      const int r = q0 + tid;
-      sm.lse[tid] = r < S ? lse_b[r] * LOG2E : 0.f;
-      sm.delta[tid] = r < S ? delta_b[r] : 0.f;
-    }
-    cp_async_wait<1>();  // tile it has landed; tile it + 1 may be in flight
-    __syncthreads();
-
-    // sT = k q^T and dpT = v dO^T: this warp's 16 kv rows by the tile's 64 q rows
-    float sT[NS][4], dpT[NS][4];
-    scores<D>(sT, sm.a, sm.c[st], warp, lane);
-    scores<D>(dpT, sm.b, sm.d[st], warp, lane);
-
-    // p^T and ds^T, masked
-    const bool edge = q0 + BC > S || kv0 + BR > S || (causal && q0 < kv0 + BR);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + col_t + (e & 1);
-        float p = ex2(sT[j][e] * scale_log2 - sm.lse[qc]);
-        if (edge) {
-          const int kv = row_a + (e >> 1) * 8, qr = q0 + qc;
-          if (qr >= S || kv >= S || (causal && kv > qr)) p = 0.f;
-        }
-        sT[j][e] = p;
-        dpT[j][e] = p * (dpT[j][e] - sm.delta[qc]);
+      for (int j = 0; j < CW / 8; ++j) {
+        const int i = p * CW / 2 + 4 * j + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(&out[(size_t)row * D + p * CW + 8 * j + col_t]) =
+            __floats2bfloat162_rn(acc[i] * mul, acc[i + 1] * mul);
       }
-
-    // dv += p^T dO and dk += ds^T q
-    accumulate<D>(dv_acc, sT, sm.d[st], lane);
-    accumulate<D>(dk_acc, dpT, sm.c[st], lane);
-    __syncthreads();  // stage st and lse / delta are refilled next
   }
-  store_rows<D>(dk + base, dk_acc, scale, row_a, S, lane);
-  store_rows<D>(dv + base, dv_acc, 1.f, row_a, S, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dq, int S, int causal, float scale, float scale_log2) {
-  constexpr int NS = BC / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdSmem<D>& sm = *reinterpret_cast<BwdSmem<D>*>(smem_raw);
+// the block's shared memory, 1024-aligned, and its barriers: full[s] (one
+// expect_tx arrival from the producer), empty[s] (one arrival per consumer
+// warp), own (the owned pair)
+template <typename T>
+struct Ring {
+  uint32_t base, full, empty, own;
+  unsigned char* ptr;  // generic address of base
+  __device__ __forceinline__ Ring(unsigned char* raw) {
+    const uint32_t a = wg::smem_u32(raw);
+    base = (a + 1023) & ~1023u;
+    ptr = raw + (base - a);
+    full = base + T::BARS;
+    empty = full + 8 * T::STAGES;
+    own = empty + 8 * T::STAGES;
+  }
+  __device__ __forceinline__ uint32_t stage(int s) const {
+    return base + T::STAGE0 + s * 2 * T::TILE;
+  }
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < T::STAGES; ++s) {
+      wg::mbar_init(full + 8 * s, 1);
+      wg::mbar_init(empty + 8 * s, 4 * CONSUMERS);
+    }
+    wg::mbar_init(own, 1);
+    wg::mbar_fence_init();
+  }
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int nq = (S + BR - 1) / BR;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * BR;
-  const size_t base = (size_t)blockIdx.y * (size_t)S * D;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
+// the producer's loads of one matrix's rows [row0, row0 + rows) at batch-head
+// bh into a tile of `rows` rows at dst, one box of BT rows and CW columns
+// at a time
+template <typename T>
+__device__ __forceinline__ void load_rows_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row0, int rows, int bh) {
+  for (int p = 0; p < T::NP; ++p)
+    for (int r = 0; r < rows; r += T::BT)
+      wg::tma_load_3d(dst + (p * rows + r) * T::RB, map, bar, p * T::CW, row0 + r, bh);
+}
+
+// dk, dv: a block owns BR kv rows of one batch-head, each consumer
+// warpgroup 64 of them, and walks the q tiles that see them (causal: from
+// the block's diagonal on).  Per tile: s^T = k q^T and dp^T = v dO^T (SS),
+// p^T and ds^T in registers, dv += p^T dO and dk += ds^T q (RS, hi + lo).
+template <int D>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+    bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, const float2* __restrict__ rows,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int S_pad,
+                          int causal, float scale, float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int BT = T::BT;
+  extern __shared__ __align__(1024) unsigned char ring_smem[];
+  const Ring<T> ring(ring_smem);
+  const int bh = blockIdx.y, kv0 = blockIdx.x * BR;
+  const int first = causal ? kv0 / BT : 0;  // q tiles before it see none of these kv rows
+  const int n = (S + BT - 1) / BT - first;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wgi = threadIdx.x / WG_THREADS;
+  if (wgi == 0) {  // producer: one thread issues every copy
+    wg::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      wg::mbar_expect_tx(ring.own, 2 * T::OWN);
+      load_rows_tma<T>(ring.base, &tk, ring.own, kv0, BR, bh);
+      load_rows_tma<T>(ring.base + T::OWN, &tv, ring.own, kv0, BR, bh);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % T::STAGES, q0 = (first + i) * BT;
+        wg::mbar_wait(ring.empty + 8 * s, ((i / T::STAGES) & 1) ^ 1);
+        const uint32_t full = ring.full + 8 * s, st = ring.stage(s);
+        wg::mbar_expect_tx(full, 2 * T::TILE + T::ROWS);
+        load_rows_tma<T>(st, &tq, full, q0, BT, bh);
+        load_rows_tma<T>(st + T::TILE, &tdo, full, q0, BT, bh);
+        wg::bulk_load(ring.base + T::ROWS0 + s * T::ROWS, rows + (size_t)bh * S_pad + q0, T::ROWS,
+                      full);
+      }
+    }
+  } else {
+    wg::regs_inc<CONSUMER_REGS>();
+    // warp-uniform (a shuffle shows the compiler), so that the descriptors
+    // below live in uniform registers and cost no instructions per wgmma
+    const int c = __shfl_sync(0xffffffffu, wgi, 0) - 1;
+    const uint32_t base = __shfl_sync(0xffffffffu, ring.base, 0);
+    const int t = threadIdx.x % WG_THREADS, lane = t & 31;
+    const int r0 = kv0 + 64 * c;                    // this warpgroup's first kv row
+    const int row_a = r0 + (t >> 5) * 16 + (lane >> 2);  // a thread's kv rows: row_a, row_a + 8
+    const int col_t = 2 * (lane & 3);
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const uint64_t own_k = wg::tile_desc<D>(base) + (64 * c * T::RB >> 4);
+    const uint64_t own_v = own_k + (T::OWN >> 4);
+    const uint64_t stage0 = wg::tile_desc<D>(base + T::STAGE0);
+    wg::mbar_wait(ring.own, 0);
+
+    for (int i = 0; i < n; ++i) {
+      const int s = i % T::STAGES, q0 = (first + i) * BT;
+      wg::mbar_wait(ring.full + 8 * s, (i / T::STAGES) & 1);
+      const uint64_t qt = stage0 + (s * 2 * T::TILE >> 4), dot = qt + (T::TILE >> 4);
+      if (!causal || q0 + BT > r0) {  // else every q row of the tile precedes these kv rows
+        float sT[BT / 2], dpT[BT / 2];
+        wg::fence();
+        scores<D, BT>(sT, own_k, qt);
+        scores<D, BT>(dpT, own_v, dot);
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(sT);
+        wg::fence_operand(dpT);
+
+        // p^T and ds^T, masked; a tile's (lse2, delta) pairs sit in the ring
+        const float4* lr = reinterpret_cast<const float4*>(ring.ptr + T::ROWS0 + s * T::ROWS);
+        const bool edge = q0 + BT > S || r0 + 64 > S || (causal && q0 < r0 + 63);
+#pragma unroll
+        for (int j = 0; j < BT / 8; ++j) {
+          const float4 w = lr[4 * j + (lane & 3)];  // q columns 8 j + col_t and + 1
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float l2 = e & 1 ? w.z : w.x, dl = e & 1 ? w.w : w.y;
+            float p = ex2(sT[4 * j + e] * scale_log2 - l2);
+            if (edge) {
+              const int kv = row_a + (e >> 1) * 8, qr = q0 + 8 * j + col_t + (e & 1);
+              if (qr >= S || kv >= S || (causal && kv > qr)) p = 0.f;
+            }
+            sT[4 * j + e] = p;
+            dpT[4 * j + e] = p * (dpT[4 * j + e] - dl);
+          }
+        }
+
+        // dv += p^T dO and dk += ds^T q
+        uint32_t hi[BT / 16][4], lo[BT / 16][4];
+        split_frags<BT>(sT, hi, lo);
+        accumulate<D, BT>(dv_acc, hi, lo, dot);
+        split_frags<BT>(dpT, hi, lo);
+        accumulate<D, BT>(dk_acc, hi, lo, qt);
+      }
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ring.empty + 8 * s);
+    }
+    const size_t at = (size_t)bh * S * D;
+    store_rows<D>(dk + at, dk_acc, scale, row_a, S, lane);
+    store_rows<D>(dv + at, dv_acc, 1.f, row_a, S, lane);
+  }
+}
+
+// dq: a block owns BR q rows, each consumer warpgroup 64 of them, and walks
+// the kv tiles they see.  Blocks take q rows in reverse order, so the
+// longest causal rows start first.  Per tile: s = q k^T and dp = dO v^T
+// (SS), ds in registers, dq += ds k (RS, hi + lo).
+template <int D>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+    bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const float2* __restrict__ rows,
+                        bf16* __restrict__ dq, int S, int S_pad, int causal, float scale,
+                        float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int BT = T::BT;
+  extern __shared__ __align__(1024) unsigned char ring_smem[];
+  const Ring<T> ring(ring_smem);
+  const int bh = blockIdx.y;
+  const int q0 = ((S + BR - 1) / BR - 1 - (int)blockIdx.x) * BR;
   const int kv_end = causal ? min(S, q0 + BR) : S;
-  const int n_tiles = (kv_end + BC - 1) / BC;
+  const int n = (kv_end + BT - 1) / BT;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  load_tile<D, BR>(sm.a, q + base, q0, S, tid);
-  load_tile<D, BR>(sm.b, dO + base, q0, S, tid);
-  cp_async_commit();
-  load_tile<D, BC>(sm.c[0], kb, 0, S, tid);
-  load_tile<D, BC>(sm.d[0], vb, 0, S, tid);
-  cp_async_commit();
-
-  // a thread's q rows in the m16n8 layout, with their lse (base 2) and delta
-  const int row_a = q0 + warp * 16 + (lane >> 2);
-  const int col_t = 2 * (lane & 3);
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    lse2[r] = row < S ? lse[(size_t)blockIdx.y * S + row] * LOG2E : 0.f;
-    dl[r] = row < S ? delta[(size_t)blockIdx.y * S + row] : 0.f;
-  }
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1;
-    const int k0 = it * BC;
-    if (it + 1 < n_tiles) {
-      load_tile<D, BC>(sm.c[st ^ 1], kb, k0 + BC, S, tid);
-      load_tile<D, BC>(sm.d[st ^ 1], vb, k0 + BC, S, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // s = q k^T and dp = dO v^T: this warp's 16 q rows by the tile's 64 kv rows
-    float s[NS][4], dp[NS][4];
-    scores<D>(s, sm.a, sm.c[st], warp, lane);
-    scores<D>(dp, sm.b, sm.d[st], warp, lane);
-
-    const bool edge = k0 + BC > S || q0 + BR > S || (causal && k0 + BC - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = ex2(s[j][e] * scale_log2 - lse2[e >> 1]);
-        if (edge) {
-          const int row = row_a + (e >> 1) * 8, col = k0 + j * 8 + col_t + (e & 1);
-          if (col >= S || row >= S || (causal && col > row)) p = 0.f;
-        }
-        s[j][e] = p * (dp[j][e] - dl[e >> 1]);
+  const int wgi = threadIdx.x / WG_THREADS;
+  if (wgi == 0) {
+    wg::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      wg::mbar_expect_tx(ring.own, 2 * T::OWN);
+      load_rows_tma<T>(ring.base, &tq, ring.own, q0, BR, bh);
+      load_rows_tma<T>(ring.base + T::OWN, &tdo, ring.own, q0, BR, bh);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % T::STAGES;
+        wg::mbar_wait(ring.empty + 8 * s, ((i / T::STAGES) & 1) ^ 1);
+        const uint32_t full = ring.full + 8 * s, st = ring.stage(s);
+        wg::mbar_expect_tx(full, 2 * T::TILE);
+        load_rows_tma<T>(st, &tk, full, i * BT, BT, bh);
+        load_rows_tma<T>(st + T::TILE, &tv, full, i * BT, BT, bh);
       }
+    }
+  } else {
+    wg::regs_inc<CONSUMER_REGS>();
+    const int c = __shfl_sync(0xffffffffu, wgi, 0) - 1;  // warp-uniform, as in dkdv
+    const uint32_t base = __shfl_sync(0xffffffffu, ring.base, 0);
+    const int t = threadIdx.x % WG_THREADS, lane = t & 31;
+    const int r0 = q0 + 64 * c;
+    const int row_a = r0 + (t >> 5) * 16 + (lane >> 2);  // a thread's q rows: row_a, row_a + 8
+    const int col_t = 2 * (lane & 3);
+    float2 lr[2];  // (lse2, delta) of the thread's rows; S_pad covers the block
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lr[r] = rows[(size_t)bh * S_pad + row_a + 8 * r];
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    const uint64_t own_q = wg::tile_desc<D>(base) + (64 * c * T::RB >> 4);
+    const uint64_t own_do = own_q + (T::OWN >> 4);
+    const uint64_t stage0 = wg::tile_desc<D>(base + T::STAGE0);
+    wg::mbar_wait(ring.own, 0);
+    constexpr bool AREG = D <= 64;  // the owned rows' A fragments in registers
+    uint32_t qa[AREG ? D / 16 : 1][4], ga[AREG ? D / 16 : 1][4];
+    if constexpr (AREG) {
+      load_a<D>(qa, ring.ptr, 64 * c, t >> 5, lane);
+      load_a<D>(ga, ring.ptr + T::OWN, 64 * c, t >> 5, lane);
+    }
 
-    // dq += ds k
-    accumulate<D>(dq_acc, s, sm.c[st], lane);
-    __syncthreads();  // stage st is refilled next
+    for (int i = 0; i < n; ++i) {
+      const int s = i % T::STAGES, k0 = i * BT;
+      wg::mbar_wait(ring.full + 8 * s, (i / T::STAGES) & 1);
+      const uint64_t kt = stage0 + (s * 2 * T::TILE >> 4), vt = kt + (T::TILE >> 4);
+      if (!causal || k0 <= r0 + 63) {  // else every kv row of the tile follows these q rows
+        float sc[BT / 2], dp[BT / 2];
+        wg::fence();
+        if constexpr (AREG) {
+          scores_rs<D, BT>(sc, qa, kt);
+          scores_rs<D, BT>(dp, ga, vt);
+        } else {
+          scores<D, BT>(sc, own_q, kt);
+          scores<D, BT>(dp, own_do, vt);
+        }
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(sc);
+        wg::fence_operand(dp);
+        if constexpr (AREG) {
+          wg::fence_operand(qa);
+          wg::fence_operand(ga);
+        }
+
+        const bool edge = k0 + BT > S || r0 + 64 > S || (causal && k0 + BT - 1 > r0);
+#pragma unroll
+        for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 w = lr[e >> 1];
+            float p = ex2(sc[4 * j + e] * scale_log2 - w.x);
+            if (edge) {
+              const int row = row_a + (e >> 1) * 8, col = k0 + 8 * j + col_t + (e & 1);
+              if (col >= S || row >= S || (causal && col > row)) p = 0.f;
+            }
+            sc[4 * j + e] = p * (dp[4 * j + e] - w.y);
+          }
+
+        // dq += ds k
+        uint32_t hi[BT / 16][4], lo[BT / 16][4];
+        split_frags<BT>(sc, hi, lo);
+        accumulate<D, BT>(dq_acc, hi, lo, kt);
+      }
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ring.empty + 8 * s);
+    }
+    store_rows<D>(dq + (size_t)bh * S * D, dq_acc, scale, row_a, S, lane);
   }
-  store_rows<D>(dq + base, dq_acc, scale, row_a, S, lane);
 }
 
 // ---------------------------------------------------------------- float32
@@ -562,7 +722,7 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 struct Args {
   const void *q, *k, *v, *o, *dO;
   const float* lse;
-  float* delta;
+  float* scratch;
   void *dq, *dk, *dv;
   int BH, S, causal;
   float scale;
@@ -573,28 +733,80 @@ template <typename T>
 cudaError_t launch_delta(const Args& a, int D) {
   const int rows = a.BH * a.S;
   delta_kernel<T><<<(rows + 7) / 8, 256, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dO), a.delta, rows, D);
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dO), a.scratch, rows, D);
   return cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime so that the
+// library links no libcuda; null where it is missing
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 3-D map over (BH, S, D) bf16 with boxes of BT rows and CW columns,
+// swizzled as wide as a box row; rows at or past S zero-fill inside a
+// batch-head, and never reach the next one's rows
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S) {
+  using T = Tiles<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)T::CW, (cuuint32_t)T::BT, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = T::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : T::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 cudaError_t launch_bf16(const Args& a) {
-  cudaError_t e = launch_delta<bf16>(a, D);
+  using T = Tiles<D>;
+  const int nb = (a.S + BR - 1) / BR, S_pad = nb * BR;
+  float2* rows = reinterpret_cast<float2*>(a.scratch);
+  rows_kernel<D><<<dim3(S_pad / 8, a.BH), 256, 0, a.stream>>>(
+      static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dO), a.lse, rows, a.S, S_pad);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int smem = (int)sizeof(BwdSmem<D>);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!(tensor_map<D>(&tq, a.q, a.BH, a.S) && tensor_map<D>(&tk, a.k, a.BH, a.S) &&
+        tensor_map<D>(&tv, a.v, a.BH, a.S) && tensor_map<D>(&tdo, a.dO, a.BH, a.S)))
+    return cudaErrorInvalidValue;
   static bool kv_set = false, q_set = false;
-  if ((e = allow_smem(bwd_dkdv_mma_kernel<D>, smem, kv_set)) != cudaSuccess) return e;
-  if ((e = allow_smem(bwd_dq_mma_kernel<D>, smem, q_set)) != cudaSuccess) return e;
-  const dim3 grid((a.S + BR - 1) / BR, a.BH);
+  if ((e = allow_smem(bwd_dkdv_wgmma_kernel<D>, T::BYTES, kv_set)) != cudaSuccess) return e;
+  if ((e = allow_smem(bwd_dq_wgmma_kernel<D>, T::BYTES, q_set)) != cudaSuccess) return e;
+  const dim3 grid(nb, a.BH);
   const float sl2 = a.scale * LOG2E;
-  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
-             *v = static_cast<const bf16*>(a.v), *dO = static_cast<const bf16*>(a.dO);
-  bwd_dkdv_mma_kernel<D><<<grid, MMA_THREADS, smem, a.stream>>>(
-      q, k, v, dO, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S,
+  bwd_dkdv_wgmma_kernel<D><<<grid, BLOCK_THREADS, T::BYTES, a.stream>>>(
+      tq, tk, tv, tdo, rows, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, S_pad,
       a.causal, a.scale, sl2);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dq_mma_kernel<D><<<grid, MMA_THREADS, smem, a.stream>>>(
-      q, k, v, dO, a.lse, a.delta, static_cast<bf16*>(a.dq), a.S, a.causal, a.scale, sl2);
+  bwd_dq_wgmma_kernel<D><<<grid, BLOCK_THREADS, T::BYTES, a.stream>>>(
+      tq, tk, tv, tdo, rows, static_cast<bf16*>(a.dq), a.S, S_pad, a.causal, a.scale, sl2);
   return cudaGetLastError();
 }
 
@@ -611,11 +823,11 @@ cudaError_t launch_f32(const Args& a) {
   const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
               *v = static_cast<const float*>(a.v), *dO = static_cast<const float*>(a.dO);
   bwd_dkdv_simt_kernel<D><<<grid, SIMT_THREADS, smem, a.stream>>>(
-      q, k, v, dO, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S,
+      q, k, v, dO, a.lse, a.scratch, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S,
       a.causal, a.scale, sl2);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   bwd_dq_simt_kernel<D><<<grid, SIMT_THREADS, smem, a.stream>>>(
-      q, k, v, dO, a.lse, a.delta, static_cast<float*>(a.dq), a.S, a.causal, a.scale, sl2);
+      q, k, v, dO, a.lse, a.scratch, static_cast<float*>(a.dq), a.S, a.causal, a.scale, sl2);
   return cudaGetLastError();
 }
 
@@ -630,17 +842,18 @@ cudaError_t launch(const Args& a, int dtype) {
 
 // q, k, v, o, dO, dq, dk, dv (BH, S, D) row-major on the device, all of one
 // dtype: 0 = float32, 1 = bfloat16, 16-byte aligned.  lse (BH, S) float32
-// from K3's forward (natural log of the scaled scores' row sums); delta
-// (BH, S) float32 scratch.  D: 16, 32, 64 or 128.  causal: 0 or 1.
-// Returns a cudaError_t.
+// from K3's forward (natural log of the scaled scores' row sums).  scratch:
+// float32, (BH, S) for float32 inputs (delta), (BH, S_pad, 2) for bfloat16
+// ((lse log2 e, delta) per row, S_pad = S rounded up to 128), 16-byte
+// aligned.  D: 16, 32, 64 or 128.  causal: 0 or 1.  Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dO, const void* lse,
-                                         void* delta, void* dq, void* dk, void* dv, int BH,
+                                         void* scratch, void* dq, void* dk, void* dv, int BH,
                                          int S, int D, int dtype, int causal, float scale,
                                          void* stream) {
   if (BH <= 0 || BH > 65535 || S <= 0 || (causal != 0 && causal != 1))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, dO, static_cast<const float*>(lse), static_cast<float*>(delta),
+  const Args a{q, k, v, o, dO, static_cast<const float*>(lse), static_cast<float*>(scratch),
                dq, dk, dv, BH, S, causal, scale, reinterpret_cast<cudaStream_t>(stream)};
   switch (D) {
     case 16: return (int)launch<16>(a, dtype);

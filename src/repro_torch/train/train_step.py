@@ -24,10 +24,15 @@ _ROADMAP_MODELS = ("the {} model is not ported (ROADMAP §1 item 10: the port ru
 
 def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0, mask=None):
     """Token CE with optional z-loss; logits (..., V) upcast to float32,
-    labels integer (..., ); mask (...) weights the tokens."""
+    labels integer (..., ); mask (...) weights the tokens.  A label
+    outside [0, V) has gold logit 0, as the reference's iota select gives:
+    its row's CE is the log-sum-exp, and its gold logit gets no gradient."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.to(torch.long)[..., None])[..., 0]
+    labels = labels.to(torch.long)
+    V = logits.shape[-1]
+    gold = torch.gather(logits, -1, labels.clamp(0, V - 1)[..., None])[..., 0]
+    gold = torch.where((labels >= 0) & (labels < V), gold, 0.0)
     ce = lse - gold
     if z_loss:
         ce = ce + z_loss * lse**2

@@ -519,12 +519,16 @@ def test_serve_step_on_card_matches_cpu(cuda, shape, backend):
         assert overlap >= 0.999, overlap
 
 
-# K3-bwd's shapes: the slice's layer shape, then the tile edges (64-row owned
-# and walked tiles) at every head dim, causal and not
+# K3-bwd's shapes: the slice's layer shape, then the tile edges at every head
+# dim, causal and not: a consumer warpgroup's 64 rows (63, 65), a block's 128
+# (127, 128, 129; 257: three blocks) and the 32-row walked tiles of D = 128
+# (31, 32, 33)
 K3_BWD_CASES = [(60, 4096, 64, True), (1, 1, 16, True), (15, 1100, 64, True),
                 (3, 1025, 128, False)] + [
     (BH, S, D, causal) for S in (63, 65, 1000) for BH in (1, 3) for D in (16, 32, 64, 128)
-    for causal in (True, False)]
+    for causal in (True, False)] + [
+    (1, S, D, causal) for S in (31, 32, 33, 127, 128, 129) for D in (16, 32, 64, 128)
+    for causal in (True, False)] + [(2, 257, D, True) for D in (64, 128)]
 
 
 def _k3_bwd_case(dev, dtype, BH, S, D, causal, seed):

@@ -330,6 +330,37 @@ def test_cross_entropy_and_bce_match_reference():
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("masked", [True, False])
+def test_cross_entropy_labels_outside_vocab_match_reference(masked):
+    """A label outside [0, V) has gold logit 0, as the reference's iota
+    select gives: the loss and its grads w.r.t. the logits match
+    ``jax.grad`` at 1e-6 relative, with those tokens masked out (the
+    reference gives 2.92399) and with every token counted."""
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((2, 5, 11)).astype(np.float32)
+    labels = rng.integers(0, 11, (2, 5)).astype(np.int32)
+    labels[0, 3], labels[1, 4] = -1, 11
+    mask = np.ones((2, 5), np.float32)
+    mask[0, 3] = mask[1, 4] = 0.0
+    m = mask if masked else None
+
+    def jloss(x):
+        return jts.cross_entropy_loss(x, jnp.asarray(labels), z_loss=1e-4,
+                                      mask=None if m is None else jnp.asarray(m))
+
+    want, want_g = jax.value_and_grad(jloss)(jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    got = pts.cross_entropy_loss(x, torch.from_numpy(labels), z_loss=1e-4,
+                                 mask=None if m is None else torch.from_numpy(m))
+    (got_g,) = torch.autograd.grad(got, x)
+    if masked:
+        assert float(want) == pytest.approx(2.92399, abs=1e-5)
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-6, atol=1e-9)
+    # the out-of-range tokens' gold logits get no gradient beyond the softmax's
+    assert not np.any(got_g.numpy()[0, 3] < 0)
+
+
 # --------------------------------------------------------------------------
 # data
 

@@ -33,7 +33,7 @@ from repro_torch.train.optimizer import AdamWConfig, init_state  # noqa: E402
 from repro_torch.train.train_step import lm_loss_fn, make_train_step  # noqa: E402
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("K3-bwd", ("bwd_dkdv", "bwd_dq", "delta_kernel")),
+    ("K3-bwd", ("bwd_dkdv", "bwd_dq", "delta_kernel", "rows_kernel")),
     ("K3", ("flash_fwd",)),
     ("gemm", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),
     ("copy", ("copy", "Memcpy", "Memset")),
