@@ -109,16 +109,20 @@ Phases, each printed as JSON records; any failure exits non-zero:
    with_lse=True)``) and ``ops.flash_attention_bwd`` on CUDA tensors
    against ``ref.flash_attention_ref`` / ``ref.flash_attention_bwd_ref`` run
    in float32 on the same tensors, float32 and bfloat16, D in {16, 32, 64,
-   128}, causal and bidirectional, S in {64, 1000 (ragged), 4096}; one
-   float32 case with a permuted (non-contiguous) dO and one with q 4 bytes
-   off the 16-byte grid (the launcher refuses it, the wrapper copies).
+   128}, causal and bidirectional, S in {64, 1000 (ragged), 4096}; float32
+   also with q scaled by 4 (a peaky softmax) and with v scaled by 8 at S in
+   {64, 1000}, every D; one float32 case with a permuted (non-contiguous) dO
+   and one with q 4 bytes off the 16-byte grid (the launcher refuses it,
+   the wrapper copies).
    Limits per tensor (dq, dk, dv): float32 max |kernel - plain| / max
    |plain| <= 1e-4, bfloat16 ``ref.bf16_agreement`` <= 1; lse within 1e-4
    of the plain version's; K3's output with lse requested bit-equal to the
    output without.  Then K3-bwd / plain / SDPA-backward milliseconds
    (SDPA's forward + backward minus its forward, a yardstick) and the
    bound (2.5x the forward's operations, causal half, on the bf16 tensor
-   cores) at the slice's layer shape (60, 4096, 64) causal bf16, seeded.
+   cores, or at 165 TFLOP/s of float32-grade 3xTF32) at the slice's layer
+   shape (60, 4096, 64) and at (32, 4096, 128), causal, bf16 and float32,
+   seeded, each checked against the plain version before it is timed.
 4b. deployment scale, q8, on phase 4's corpus, queries and ground truth,
    after the fp32 index is freed: QPS, p50/p99, the stage split, recall@100,
    resident scan bytes (codes + scales + bias + keys), the exact store's
@@ -2155,14 +2159,19 @@ def time_flash_bwd_kernel(q, k, v, do, label: str) -> dict:
 
 def phase_flash_bwd_vs_plain() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
-    cases = [(dtype, D, S, causal) for dtype in (torch.float32, torch.bfloat16)
+    # (dtype, D, S, causal, q scale, v scale): float32 also on a peaky
+    # softmax (q x 4) and large values (v x 8), as phase 2c gives K3
+    cases = [(dtype, D, S, causal, 1.0, 1.0) for dtype in (torch.float32, torch.bfloat16)
              for D in (16, 32, 64, 128) for S in (64, 1000, 4096) for causal in (True, False)]
+    cases += [(torch.float32, D, S, causal, qs, vs) for D in (16, 32, 64, 128)
+              for S in (64, 1000) for causal in (True, False) for qs, vs in ((4.0, 1.0), (1.0, 8.0))]
     worst = {"max_abs_err": 0.0, "rel_err": 0.0, "bf16_agreement": 0.0, "lse_max_abs_err": 0.0}
-    for dtype, D, S, causal in cases:
+    for dtype, D, S, causal, qs, vs in cases:
         BH = 2 if S == 4096 else 3
-        q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
-                       for _ in range(4))
-        res = k3_bwd_case(q, k, v, do, causal, f"{dtype} D={D} S={S} causal={causal} BH={BH}")
+        q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda") for _ in range(4))
+        q, k, v, do = (q * qs).to(dtype), k.to(dtype), (v * vs).to(dtype), do.to(dtype)
+        res = k3_bwd_case(q, k, v, do, causal,
+                          f"{dtype} D={D} S={S} causal={causal} BH={BH} q x{qs:g} v x{vs:g}")
         for key in worst:
             worst[key] = max(worst[key], res[key])
     layout = k3_bwd_layout_cases(gen)
@@ -2174,13 +2183,14 @@ def phase_flash_bwd_vs_plain() -> dict:
           "lse_max_abs_err": max(worst["lse_max_abs_err"], layout["lse_max_abs_err"]),
           "out_with_lse_bit_equal": True})
     # the slice's layer shape (smollm-360m's 15 heads x 4 sequences a
-    # microbatch), the same in float32 (the SIMT path), and one sequence of
-    # codeqwen1.5-7b's 32 heads at train_4k (D = 128)
+    # microbatch) and one sequence of codeqwen1.5-7b's 32 heads at train_4k
+    # (D = 128), in bf16 and in float32 (3xTF32)
     timings = []
     for (BH, S, D), dtype, label in (
             ((60, 4096, 64), torch.bfloat16, "train_4k layer: smollm-360m, 4 x 4096 tokens"),
             ((32, 4096, 128), torch.bfloat16, "train_4k layer: codeqwen1.5-7b, 1 x 4096 tokens"),
-            ((60, 4096, 64), torch.float32, "smollm-360m's layer in float32")):
+            ((60, 4096, 64), torch.float32, "smollm-360m's layer in float32"),
+            ((32, 4096, 128), torch.float32, "codeqwen1.5-7b's layer in float32")):
         q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
         timings.append(time_flash_bwd_kernel(q, k, v, do, label))

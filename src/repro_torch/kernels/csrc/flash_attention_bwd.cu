@@ -13,16 +13,17 @@
 // with every product and sum to float32 grade.
 //
 // What bounds it: operations.  The gradient needs 5 products of the
-// forward's size (s, dp, dv, dk, dq).  This design does 10: both passes
-// rebuild s and dp, and p and ds enter dv, dk and dq as two bf16 terms each.
+// forward's size (s, dp, dv, dk, dq).  This design does 7 (both passes
+// rebuild s and dp), as 10 bf16 MMA units (p and ds enter dv, dk and dq as
+// two bf16 terms each) or 21 tf32 units (3xTF32: three MMAs a product).
 // On the H100 the bf16 path issues its wgmmas at ~40% of the tensor cores'
 // peak, ~5x its bound (PERF.md): each consumer warpgroup runs its tile's
 // scores, softmax and products in series, and only the other warpgroup
 // overlaps it.
 //
 // Three launches, no atomics, so a run gives the same bits every time:
-//  * a rows pass: per row delta = rowsum(dO o) in float32 (and, for bf16,
-//    lse log2 e beside it), one warp a row;
+//  * a rows pass: per row (lse log2 e, delta = rowsum(dO o)) in float32,
+//    one warp a row, into a (BH, S_pad) array of pairs;
 //  * dkdv: a block owns kv rows of one (batch, head) and walks the q tiles
 //    that see them (causal: from its own diagonal on), rebuilding p and ds
 //    for each tile and summing dk and dv in registers;
@@ -64,9 +65,45 @@
 //    and overlapping a tile's softmax with the next tile's MMAs inside a
 //    warpgroup (registers are the limit at D = 64).
 //
-// float32 (bwd_dkdv_simt_kernel, bwd_dq_simt_kernel): plain float32 FMAs,
-// 256 threads; the block's tiles in shared memory with rows padded to an
-// odd stride, scores 64 x 32 at a time.  Slow and simple.
+// float32 (bwd_dkdv_tf32_kernel, bwd_dq_tf32_kernel): the same walk on
+// tf32 warpgroup MMAs, every product a 3xTF32 split (csrc/tf32.cuh: a =
+// hi + lo, hi = tf32(a), lo = tf32(a - hi); lo.hi + hi.lo + hi.hi, small
+// terms first, lo.lo dropped).  A single TF32 product keeps 10 mantissa
+// bits, 30-150x over the float32 limit (flash_attention.cu).
+//  * tf32 wgmma reads shared memory K-major only: s and dp read the owned
+//    and walked rows as stored, but dv += p^T dO, dk += ds^T q and dq +=
+//    ds k sum over the walked rows, so they read a transposed copy of the
+//    walked tile.  TMA cannot split or transpose, so the producer
+//    warpgroup does both: TMA lands each walked tile in a raw ring (2
+//    stages), and the producer's 128 threads split it into hi and lo
+//    planes as stored and hi and lo planes of the transpose (q and dO for
+//    dk/dv, k for dq).  The owned pair is split once, in place.
+//  * The split is ALU and shared-memory work (5 operations and 2 or 4
+//    stores an element) that the consumers would otherwise wait for: at
+//    D = 64 it cost 18% of the time in series.  So each stage is handed on
+//    in two parts under two full / empty pairs: the planes as stored once
+//    the consumers' scores have read the previous tile's, the transposed
+//    planes once their products have (a third of the split's cost came
+//    back: dk/dv 3.43 -> 3.20 ms at (60, 4096, 64); splitting in the
+//    consumers instead, 256 threads once a tile, was slower: 6.27 against
+//    6.08 ms, PERF.md).
+//  * p and ds go from the accumulators straight into RS A fragments,
+//    split hi + lo in registers.  A tf32 fragment holds columns t, t + 4
+//    of a k-step where the accumulator holds 2t, 2t + 1, so the transposed
+//    planes store walked row 2t of each 8 at k position t and 2t + 1 at
+//    t + 4 (kpos): the K index is permuted, not the data.
+//  * Shared memory: an f32 plane is twice a bf16 tile, and each operand
+//    is two planes (hi, lo), four with the transpose.  Walked tiles are 32
+//    rows (16 at D = 128); the plane ring has 2 stages at D <= 32 and 1
+//    at D = 64 and 128, where the owned planes take 128 KB.  At D = 128 a
+//    block owns 64 rows (one consumer warpgroup), else 128 (two).
+//  * s and dp run SS (the owned hi and lo planes as A), but for dq at
+//    D <= 64 the owned hi terms are A fragments in registers, read once:
+//    hi.lo and hi.hi run RS (dq 2.57 -> 2.01 ms).  The products into dk,
+//    dv and dq run RS in column chunks of up to 64 (32 at D = 128, for
+//    registers), each chunk's product started from zero and folded into
+//    the float32 sum with one rounded add.  The rows pass's (lse2, delta)
+//    pairs ride with each walked tile, as in the bf16 path.
 //
 // Interface: a plain C function for ctypes.  It launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
@@ -78,6 +115,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -87,26 +125,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// ------------------------------------------------------------------ delta
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-// delta[r] = sum_d dO[r, d] o[r, d] in float32, one warp a row
-template <typename T>
-__global__ void __launch_bounds__(256)
-    delta_kernel(const T* __restrict__ o, const T* __restrict__ dO, float* __restrict__ delta,
-                 int rows, int D) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const size_t base = (size_t)row * D;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s = fmaf(to_f32(o[base + d]), to_f32(dO[base + d]), s);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) delta[row] = s;
-}
 
 // --------------------------------------------------------------- bfloat16
 
@@ -145,10 +165,10 @@ struct Tiles : Panels<D> {
 
 // the rows pass: per (batch-head, row) the pair (lse * log2 e, delta =
 // rowsum(dO o) in float32) in a (BH, S_pad) array, zero past S; one warp a
-// row, delta summed as delta_kernel sums it
-template <int D>
+// row
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
-    rows_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
+    rows_kernel(const T* __restrict__ o, const T* __restrict__ dO,
                 const float* __restrict__ lse, float2* __restrict__ rows, int S, int S_pad) {
   const int r = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (r >= S_pad) return;
@@ -521,199 +541,536 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 
 // ---------------------------------------------------------------- float32
 
-constexpr int SIMT_THREADS = 256;
-constexpr int SR = 64;  // rows a block owns
-constexpr int SC = 32;  // rows of a walked tile
-constexpr int LDP = SC + 1;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 
-template <int D>
-struct SimtTile {
-  static constexpr int LD = D + 1;  // odd stride: a warp's 32 rows hit 32 banks
-  // word offsets: owned rows (a, b), walked rows (c, d), then the scratch
-  static constexpr int A = 0;
-  static constexpr int B = A + SR * LD;
-  static constexpr int C = B + SR * LD;
-  static constexpr int DD = C + SC * LD;
-  static constexpr int P = DD + SC * LD;  // (SR, LDP): p (dkdv) or ds (dq)
-  static constexpr int DS = P + SR * LDP;  // (SR, LDP): ds (dkdv)
-  static constexpr int LSE = DS + SR * LDP;
-  static constexpr int DELTA = LSE + SR;
-  static constexpr int WORDS = DELTA + SR;
+// the float32 path's block (see the header); DKDV: the dk/dv kernel, else dq
+template <int D_, bool DKDV>
+struct F32Tiles {
+  static constexpr int D = D_;
+  static constexpr int CW = D < 32 ? D : 32;     // floats of a panel row
+  static constexpr int NP = D / CW;              // panels
+  static constexpr int RB = 4 * CW;              // bytes of a panel row (64 or 128)
+  static constexpr int C = D == 128 ? 1 : 2;     // consumer warpgroups (shared memory)
+  static constexpr int BR = 64 * C;              // rows a block owns
+  static constexpr int THREADS = WG_THREADS * (1 + C);
+  static constexpr int BT = D == 128 ? 16 : 32;  // rows of a walked tile
+  static constexpr int KW = BT < 32 ? BT : 32;   // k positions of a transposed panel row
+  static constexpr int RBT = 4 * KW;             // its bytes
+  // the N of one accumulating wgmma; 32 at D = 128, where dk/dv's registers
+  // spill: fewer spills than at 64, and 4% faster when measured
+  static constexpr int NW = D < 64 ? D : D == 128 ? 32 : 64;
+  static constexpr int OWN = BR * D * 4;         // bytes of one owned plane
+  static constexpr int TILE = BT * D * 4;        // bytes of one walked plane
+  static constexpr int ROWS = BT * 8;            // a walked tile's (lse2, delta) pairs
+  static constexpr int PLANES = DKDV ? 8 : 6;    // walked planes a stage
+  static constexpr int RAWS = 2;                 // raw stages (TMA's landing ring)
+  // byte offsets from the 1024-aligned base: the owned planes (a hi, a lo,
+  // b hi, b lo), the raw ring (a, b), the plane ring (a hi, a lo, b hi,
+  // b lo, then the transposed a hi, a lo and, for dk/dv, b hi, b lo), the
+  // raw ring's (lse2, delta) pairs and STAGES + 1 buffers of them beside
+  // the plane ring, the barriers
+  static constexpr int RAW0 = 4 * OWN;
+  static constexpr int PLANE0 = RAW0 + RAWS * 2 * TILE;
+  static constexpr int FIXED = PLANE0 + (RAWS + 1) * ROWS + 1024 + 128;
+  static constexpr int STAGES = SMEM_LIMIT - FIXED >= 2 * (PLANES * TILE + ROWS) ? 2 : 1;
+  static constexpr int ROWBUFS = STAGES + 1;
+  static constexpr int ROWS0 = PLANE0 + STAGES * PLANES * TILE;
+  static constexpr int BARS = ROWS0 + (RAWS + ROWBUFS) * ROWS;
+  static constexpr int BYTES = BARS + (RAWS + 4 * STAGES + 2) * 8 + 1024;
+  static_assert(BYTES <= SMEM_LIMIT, "the float32 block's shared memory");
 };
 
-// rows [row0, row0 + ROWS) of a (S, D) float32 matrix into a padded tile
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int S,
-                                          int tid) {
-  constexpr int LD = SimtTile<D>::LD;
-  for (int i = tid; i < ROWS * D; i += SIMT_THREADS) {
-    const int r = i / D, c = i % D;
-    dst[r * LD + c] = row0 + r < S ? src[(size_t)(row0 + r) * D + c] : 0.f;
-  }
+// setmaxnreg with two consumers: 56 x 128 + 2 x 224 x 128 = 168 x 384
+constexpr int F32_PRODUCER_REGS = 56, F32_CONSUMER_REGS = 224;
+
+// the byte offset of logical offset w in rows of RB bytes under the TMA
+// swizzle (an involution: it also maps a physical offset to its logical one)
+template <int RB>
+__device__ __forceinline__ int swz(int w) {
+  constexpr int M = RB == 128 ? 7 : RB == 64 ? 3 : 1;
+  return w ^ (((w >> 7) & M) << 4);
 }
 
-template <int D>
-__global__ void __launch_bounds__(SIMT_THREADS)
-    bwd_dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dO,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int S, int causal,
-                         float scale, float scale_log2) {
-  using T = SimtTile<D>;
-  constexpr int LD = T::LD;
-  constexpr int NJ = D / 4;  // output columns a thread owns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sm = reinterpret_cast<float*>(smem_raw);
-  const float* K = sm + T::A;
-  const float* V = sm + T::B;
-  const float* Q = sm + T::C;
-  const float* G = sm + T::DD;  // dO
-  float* P = sm + T::P;
-  float* DS = sm + T::DS;
-  float* L = sm + T::LSE;
-  float* DL = sm + T::DELTA;
+// a transposed plane's k position of walked row r: in each 8 rows, row 2t
+// at t and row 2t + 1 at t + 4, so that an accumulator tile read as tf32 A
+// fragments (columns 2t, 2t + 1 where the fragment holds t, t + 4) meets
+// its rows of B
+__device__ __forceinline__ int kpos(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r >> 1) & 3);
+}
 
-  const int tid = threadIdx.x;
-  const int kv0 = blockIdx.x * SR;
-  const size_t base = (size_t)blockIdx.y * (size_t)S * D;
-  const size_t rbase = (size_t)blockIdx.y * S;
-  load_rows<D, SR>(sm + T::A, k + base, kv0, S, tid);
-  load_rows<D, SR>(sm + T::B, v + base, kv0, S, tid);
-
-  const int rr = tid >> 2, cj = tid & 3;  // the accumulation's row and column phase
-  const int qc = tid & 31, kw = tid >> 5;  // the scores' q column and first kv row
-  float dk_acc[NJ], dv_acc[NJ];
+__device__ __forceinline__ float4 split4(float4 x, float4& lo) {
+  uint32_t h[4], l[4];
+  const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+  for (int i = 0; i < 4; ++i) tf32::split_tf32(__float_as_uint(xs[i]), h[i], l[i]);
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                   __uint_as_float(l[3]));
+  return make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                     __uint_as_float(h[3]));
+}
 
-  for (int q0 = causal ? kv0 : 0; q0 < S; q0 += SC) {
-    __syncthreads();  // the previous tile is no longer read
-    load_rows<D, SC>(sm + T::C, q + base, q0, S, tid);
-    load_rows<D, SC>(sm + T::DD, dO + base, q0, S, tid);
-    if (tid < SC) {
-      L[tid] = q0 + tid < S ? lse[rbase + q0 + tid] * LOG2E : 0.f;
-      DL[tid] = q0 + tid < S ? delta[rbase + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // scores of q column qc against kv rows kw, kw + 8, ..., kw + 56
-    float s[SR / 8], dp[SR / 8];
+// the producer warpgroup's split of one walked matrix: the raw tile at src
+// (BT rows, TMA's layout) into hi and lo planes of the same layout
+// (STORED) or of its transpose (D rows of BT k positions in kpos order,
+// panels of KW); thread t of 128.  A warp takes 32 rows of one 16-byte
+// column chunk, so its reads and writes hit distinct banks.
+template <typename T, bool STORED>
+__device__ __forceinline__ void split_walked(const unsigned char* src, unsigned char* hi,
+                                             unsigned char* lo, int t) {
+  constexpr int CHUNKS = T::BT * T::D / 4;
+  static_assert(CHUNKS % WG_THREADS == 0, "whole passes");
 #pragma unroll
-    for (int i = 0; i < SR / 8; ++i) s[i] = dp[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = Q[qc * LD + d], gd = G[qc * LD + d];
+  for (int it = 0; it < CHUNKS / WG_THREADS; ++it) {
+    const int e = t + it * WG_THREADS;
+    const int r = e % T::BT, cc = e / T::BT;  // row, 4-column chunk
+    const int off =
+        (cc / (T::CW / 4)) * T::BT * T::RB + swz<T::RB>(r * T::RB + (cc % (T::CW / 4)) * 16);
+    float4 l;
+    const float4 h = split4(*reinterpret_cast<const float4*>(src + off), l);
+    if constexpr (STORED) {
+      *reinterpret_cast<float4*>(hi + off) = h;
+      *reinterpret_cast<float4*>(lo + off) = l;
+    } else {
+      const int kp = kpos(r);
+      const float hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
-      for (int i = 0; i < SR / 8; ++i) {
-        s[i] = fmaf(K[(kw + 8 * i) * LD + d], qd, s[i]);
-        dp[i] = fmaf(V[(kw + 8 * i) * LD + d], gd, dp[i]);
+      for (int i = 0; i < 4; ++i) {
+        const int n = 4 * cc + i;
+        const int o = (kp / T::KW) * T::D * T::RBT + swz<T::RBT>(n * T::RBT + (kp % T::KW) * 4);
+        *reinterpret_cast<float*>(hi + o) = hs[i];
+        *reinterpret_cast<float*>(lo + o) = ls[i];
       }
-    }
-    const int qr = q0 + qc;
-#pragma unroll
-    for (int i = 0; i < SR / 8; ++i) {
-      const int kr = kw + 8 * i, kv = kv0 + kr;
-      const bool in = qr < S && kv < S && (!causal || kv <= qr);
-      const float p = in ? exp2f(s[i] * scale_log2 - L[qc]) : 0.f;
-      P[kr * LDP + qc] = p;
-      DS[kr * LDP + qc] = p * (dp[i] - DL[qc]);
-    }
-    __syncthreads();
-
-    // dv[rr] += sum_q p[rr, q] dO[q], dk[rr] += sum_q ds[rr, q] q[q]
-    for (int c = 0; c < SC; ++c) {
-      const float p = P[rr * LDP + c], ds = DS[rr * LDP + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dv_acc[j] = fmaf(p, G[c * LD + cj + 4 * j], dv_acc[j]);
-        dk_acc[j] = fmaf(ds, Q[c * LD + cj + 4 * j], dk_acc[j]);
-      }
-    }
-  }
-  if (kv0 + rr < S) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[base + (size_t)(kv0 + rr) * D + cj + 4 * j] = dk_acc[j] * scale;
-      dv[base + (size_t)(kv0 + rr) * D + cj + 4 * j] = dv_acc[j];
     }
   }
 }
 
+// s (64 x BT) = 64 owned rows . tile^T to float32 grade: lo.hi, hi.lo,
+// hi.hi over every k-step, small terms first.  Descriptors: the owned hi
+// and lo planes at the warpgroup's first row, the walked tile's hi and lo
+// planes, all K-major.  Started with wgmma.fence, left uncommitted.
+template <typename T>
+__device__ __forceinline__ void scores_tf32(float (&s)[T::BT / 2], uint64_t a_hi, uint64_t a_lo,
+                                            uint64_t b_hi, uint64_t b_lo) {
+  constexpr int KS = T::D / 8, BR = T::BR, BT = T::BT, RB = T::RB;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wg::mma_ss_tf32<BT>(s, a_lo + wg::k_off<RB, BR>(kk), b_hi + wg::k_off<RB, BT>(kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wg::mma_ss_tf32<BT>(s, a_hi + wg::k_off<RB, BR>(kk), b_lo + wg::k_off<RB, BT>(kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wg::mma_ss_tf32<BT>(s, a_hi + wg::k_off<RB, BR>(kk), b_hi + wg::k_off<RB, BT>(kk), 1);
+}
+
+// the same with the owned rows' hi terms as tf32 A fragments in registers
+// (a_hi, from load_a_tf32): lo.hi reads the owned lo plane (SS), hi.lo and
+// hi.hi only the walked tile (RS), a third of the shared-memory reads of
+// scores_tf32's
+template <typename T>
+__device__ __forceinline__ void scores_tf32_rs(float (&s)[T::BT / 2],
+                                               const uint32_t (&a_hi)[T::D / 8][4], uint64_t a_lo,
+                                               uint64_t b_hi, uint64_t b_lo) {
+  constexpr int KS = T::D / 8, BR = T::BR, BT = T::BT, RB = T::RB;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wg::mma_ss_tf32<BT>(s, a_lo + wg::k_off<RB, BR>(kk), b_hi + wg::k_off<RB, BT>(kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) wg::mma_rs_tf32<BT>(s, a_hi[kk], b_lo + wg::k_off<RB, BT>(kk));
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) wg::mma_rs_tf32<BT>(s, a_hi[kk], b_hi + wg::k_off<RB, BT>(kk));
+}
+
+// the tf32 A fragments of 64 rows from r0 of an owned plane (BR rows, TMA's
+// layout, at generic address `plane`), this warp's 16 of them: for k-step
+// kk, a[kk] = (row g, column t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+template <typename T>
+__device__ __forceinline__ void load_a_tf32(uint32_t (&a)[T::D / 8][4], const unsigned char* plane,
+                                            int r0, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < T::D / 8; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int row = r0 + 16 * warp + g + 8 * (f & 1), col = 8 * kk + t + 4 * (f >> 1);
+      a[kk][f] = *reinterpret_cast<const uint32_t*>(
+          plane + (col / T::CW) * T::BR * T::RB + swz<T::RB>(row * T::RB + (col % T::CW) * 4));
+    }
+}
+
+// acc (64 x D) += x tile (64 x BT, the accumulator layout) . the walked
+// tile (BT rows, D columns), read from its transposed hi and lo planes
+// (descriptors bt_hi, bt_lo).  x is split into tf32 hi and lo A fragments
+// (c0, c2, c1, c3 of each 8 columns: kpos's order); each NW-column
+// product starts from zero and folds into acc with one rounded add.
+template <typename T>
+__device__ __forceinline__ void accumulate_tf32(float (&acc)[T::D / 2], const float (&x)[T::BT / 2],
+                                                uint64_t bt_hi, uint64_t bt_lo) {
+  constexpr int KS = T::BT / 8, NW = T::NW, KP = T::KW / 8;
+  uint32_t hi[KS][4], lo[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      tf32::split_tf32(__float_as_uint(x[4 * j + (f == 1 ? 2 : f == 2 ? 1 : f)]), hi[j][f],
+                       lo[j][f]);
+#pragma unroll
+  for (int nc = 0; nc < T::D / NW; ++nc) {
+    float t[NW / 2];
+    const auto at = [&](int c) -> uint64_t {
+      return ((c / KP) * T::D * T::RBT + nc * NW * T::RBT + (c % KP) * 32) >> 4;
+    };
+    wg::fence();
+#pragma unroll
+    for (int c = 0; c < KS; ++c) wg::mma_rs_tf32<NW>(t, lo[c], bt_hi + at(c), c > 0);
+#pragma unroll
+    for (int c = 0; c < KS; ++c) wg::mma_rs_tf32<NW>(t, hi[c], bt_lo + at(c));
+#pragma unroll
+    for (int c = 0; c < KS; ++c) wg::mma_rs_tf32<NW>(t, hi[c], bt_hi + at(c));
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(t);
+    wg::fence_operand(hi);
+    wg::fence_operand(lo);
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[nc * NW / 2 + i] += t[i];
+  }
+}
+
+// this thread's rows of acc * mul into out (S, D) float32; rows past S skipped
 template <int D>
-__global__ void __launch_bounds__(SIMT_THREADS)
-    bwd_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ dO,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dq, int S, int causal, float scale,
+__device__ __forceinline__ void store_rows_f32(float* out, const float (&acc)[D / 2], float mul,
+                                               int row_a, int S, int lane) {
+  const int col_t = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(&out[(size_t)row * D + 8 * j + col_t]) =
+          make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// the float32 block's shared memory, 1024-aligned, and its barriers:
+// raw[r] (TMA's arrival, one expect_tx); for each stage of the plane ring
+// two full / empty pairs, one for the planes as stored (the scores read
+// them) and one for the transposed planes (the products into dk, dv and
+// dq read them): full (the producer's split, one arrival), empty (one
+// arrival per consumer warp); own_raw (the owned pair's TMA), own (the
+// owned pair split)
+template <typename T>
+struct F32Ring {
+  uint32_t base, raw, full, empty, full_t, empty_t, own_raw, own;
+  unsigned char* ptr;  // generic address of base
+  __device__ __forceinline__ F32Ring(unsigned char* smem) {
+    const uint32_t a = wg::smem_u32(smem);
+    base = (a + 1023) & ~1023u;
+    ptr = smem + (base - a);
+    raw = base + T::BARS;
+    full = raw + 8 * T::RAWS;
+    empty = full + 8 * T::STAGES;
+    full_t = empty + 8 * T::STAGES;
+    empty_t = full_t + 8 * T::STAGES;
+    own_raw = empty_t + 8 * T::STAGES;
+    own = own_raw + 8;
+  }
+  // the (lse2, delta) pairs of walked tile i beside the plane ring
+  __device__ __forceinline__ unsigned char* rows(int i) const {
+    return ptr + T::ROWS0 + (T::RAWS + i % T::ROWBUFS) * T::ROWS;
+  }
+  __device__ __forceinline__ void init() const {
+    for (int r = 0; r < T::RAWS; ++r) wg::mbar_init(raw + 8 * r, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      wg::mbar_init(full + 8 * s, 1);
+      wg::mbar_init(empty + 8 * s, 4 * T::C);
+      wg::mbar_init(full_t + 8 * s, 1);
+      wg::mbar_init(empty_t + 8 * s, 4 * T::C);
+    }
+    wg::mbar_init(own_raw, 1);
+    wg::mbar_init(own, 1);
+    wg::mbar_fence_init();
+  }
+};
+
+// The producer warpgroup of both float32 kernels.  Its first thread loads
+// the owned pair (a, b: k, v or q, dO) into the owned hi planes and keeps
+// RAWS walked tiles in flight in the raw ring; the 128 threads split the
+// owned pair in place (hi) and into the lo planes once, then each walked
+// tile into a stage of the plane ring in two parts, each handed on under
+// its own full / empty pair: the planes as stored with the tile's (lse2,
+// delta) pairs, as soon as the consumers' scores are done with the
+// previous tile's, then the transposed planes (a; b too for dk/dv), once
+// their products are.  So the split overlaps the consumers' scores,
+// softmax and products.  Walked tile i covers rows (first + i) * BT.
+template <typename T>
+__device__ __forceinline__ void f32_producer(const F32Ring<T>& ring, const CUtensorMap* ma,
+                                             const CUtensorMap* mb, const CUtensorMap* wa,
+                                             const CUtensorMap* wb, const float2* rows,
+                                             int own0, int first, int n, int bh, int S_pad) {
+  constexpr int BT = T::BT, TILE = T::TILE;
+  const int t = threadIdx.x;
+  const auto load_walked = [&](int i) {
+    const int r = i % T::RAWS, w0 = (first + i) * BT;
+    const uint32_t bar = ring.raw + 8 * r, dst = ring.base + T::RAW0 + r * 2 * TILE;
+    wg::mbar_expect_tx(bar, 2 * TILE + (T::PLANES == 8 ? T::ROWS : 0));
+    load_rows_tma<T>(dst, wa, bar, w0, BT, bh);
+    load_rows_tma<T>(dst + TILE, wb, bar, w0, BT, bh);
+    if constexpr (T::PLANES == 8)
+      wg::bulk_load(ring.base + T::ROWS0 + r * T::ROWS, rows + (size_t)bh * S_pad + w0, T::ROWS,
+                    bar);
+  };
+  if (t == 0) {
+    wg::mbar_expect_tx(ring.own_raw, 2 * T::OWN);
+    load_rows_tma<T>(ring.base, ma, ring.own_raw, own0, T::BR, bh);
+    load_rows_tma<T>(ring.base + 2 * T::OWN, mb, ring.own_raw, own0, T::BR, bh);
+    for (int i = 0; i < T::RAWS && i < n; ++i) load_walked(i);
+  }
+  unsigned char* const p = ring.ptr;
+  wg::mbar_wait(ring.own_raw, 0);
+  for (int m = 0; m < 2; ++m)  // the owned pair: hi in place, lo beside it
+    for (int off = 16 * t; off < T::OWN; off += 16 * WG_THREADS) {
+      float4* x = reinterpret_cast<float4*>(p + 2 * m * T::OWN + off);
+      float4 l;
+      *x = split4(*x, l);
+      *reinterpret_cast<float4*>(p + (2 * m + 1) * T::OWN + off) = l;
+    }
+  wg::fence_proxy_async();
+  wg::bar_sync<1, WG_THREADS>();
+  if (t == 0) wg::mbar_arrive(ring.own);
+
+  for (int i = 0; i < n; ++i) {
+    const int r = i % T::RAWS, s = i % T::STAGES, ph = ((i / T::STAGES) & 1) ^ 1;
+    const unsigned char* raw = p + T::RAW0 + r * 2 * TILE;
+    unsigned char* pl = p + T::PLANE0 + s * T::PLANES * TILE;
+    wg::mbar_wait(ring.raw + 8 * r, (i / T::RAWS) & 1);
+    wg::mbar_wait(ring.empty + 8 * s, ph);
+    split_walked<T, true>(raw, pl, pl + TILE, t);
+    split_walked<T, true>(raw + TILE, pl + 2 * TILE, pl + 3 * TILE, t);
+    if (T::PLANES == 8 && t < BT / 2)
+      reinterpret_cast<float4*>(ring.rows(i))[t] =
+          reinterpret_cast<const float4*>(p + T::ROWS0 + r * T::ROWS)[t];
+    wg::fence_proxy_async();
+    wg::bar_sync<1, WG_THREADS>();
+    if (t == 0) wg::mbar_arrive(ring.full + 8 * s);
+    wg::mbar_wait(ring.empty_t + 8 * s, ph);
+    split_walked<T, false>(raw, pl + 4 * TILE, pl + 5 * TILE, t);
+    if constexpr (T::PLANES == 8) split_walked<T, false>(raw + TILE, pl + 6 * TILE, pl + 7 * TILE, t);
+    wg::fence_proxy_async();
+    wg::bar_sync<1, WG_THREADS>();  // the raw stage is read, the planes written
+    if (t == 0) {
+      wg::mbar_arrive(ring.full_t + 8 * s);
+      if (i + T::RAWS < n) load_walked(i + T::RAWS);
+    }
+  }
+}
+
+// dk, dv in float32: a block owns BR kv rows of one batch-head, each
+// consumer warpgroup 64 of them, and walks the q tiles that see them
+// (causal: from the block's diagonal on).  Per tile: s^T = k q^T and
+// dp^T = v dO^T (SS, 3xTF32), p^T and ds^T in registers, dv += p^T dO and
+// dk += ds^T q (RS, 3xTF32 against the transposed planes).
+template <int D>
+__global__ void __launch_bounds__(F32Tiles<D, true>::THREADS, 1)
+    bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo, const float2* __restrict__ rows,
+                         float* __restrict__ dk, float* __restrict__ dv, int S, int S_pad,
+                         int causal, float scale, float scale_log2) {
+  using T = F32Tiles<D, true>;
+  constexpr int BT = T::BT, TILE = T::TILE;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const F32Ring<T> ring(f32_smem);
+  const int bh = blockIdx.y, kv0 = blockIdx.x * T::BR;
+  const int first = causal ? kv0 / BT : 0;  // q tiles before it see none of these kv rows
+  const int n = (S + BT - 1) / BT - first;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  const int wgi = threadIdx.x / WG_THREADS;
+  if (wgi == 0) {
+    if constexpr (T::C > 1) wg::regs_dec<F32_PRODUCER_REGS>();
+    f32_producer<T>(ring, &tk, &tv, &tq, &tdo, rows, kv0, first, n, bh, S_pad);
+  } else {
+    if constexpr (T::C > 1) wg::regs_inc<F32_CONSUMER_REGS>();
+    // warp-uniform (a shuffle shows the compiler), as in the bf16 kernels
+    const int c = __shfl_sync(0xffffffffu, wgi, 0) - 1;
+    const uint32_t base = __shfl_sync(0xffffffffu, ring.base, 0);
+    const int t = threadIdx.x % WG_THREADS, lane = t & 31;
+    const int r0 = kv0 + 64 * c;                         // this warpgroup's first kv row
+    const int row_a = r0 + (t >> 5) * 16 + (lane >> 2);  // a thread's kv rows: row_a, row_a + 8
+    const int col_t = 2 * (lane & 3);
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const uint64_t k_hi = wg::rows_desc<T::RB>(base) + (64 * c * T::RB >> 4);
+    const uint64_t k_lo = k_hi + (T::OWN >> 4), v_hi = k_hi + (2 * T::OWN >> 4),
+                   v_lo = k_hi + (3 * T::OWN >> 4);
+    const uint64_t plane0 = wg::rows_desc<T::RB>(base + T::PLANE0);
+    const uint64_t plane0_t = wg::rows_desc<T::RBT>(base + T::PLANE0);
+    wg::mbar_wait(ring.own, 0);
+
+    for (int i = 0; i < n; ++i) {
+      const int s = i % T::STAGES, ph = (i / T::STAGES) & 1, q0 = (first + i) * BT;
+      const uint64_t st = (uint64_t)(s * T::PLANES * TILE) >> 4, pl = TILE >> 4;
+      const bool sees = !causal || q0 + BT > r0;  // else every q row precedes these kv rows
+      float sT[BT / 2], dpT[BT / 2];
+      wg::mbar_wait(ring.full + 8 * s, ph);
+      if (sees) {
+        wg::fence();
+        scores_tf32<T>(sT, k_hi, k_lo, plane0 + st, plane0 + st + pl);
+        scores_tf32<T>(dpT, v_hi, v_lo, plane0 + st + 2 * pl, plane0 + st + 3 * pl);
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(sT);
+        wg::fence_operand(dpT);
+      }
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ring.empty + 8 * s);
+      if (sees) {
+        // p^T and ds^T, masked; a tile's (lse2, delta) pairs sit beside the plane ring
+        const float4* lr = reinterpret_cast<const float4*>(ring.rows(i));
+        const bool edge = q0 + BT > S || r0 + 64 > S || (causal && q0 < r0 + 63);
+#pragma unroll
+        for (int j = 0; j < BT / 8; ++j) {
+          const float4 w = lr[4 * j + (lane & 3)];  // q columns 8 j + col_t and + 1
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float l2 = e & 1 ? w.z : w.x, dl = e & 1 ? w.w : w.y;
+            float p = ex2(sT[4 * j + e] * scale_log2 - l2);
+            if (edge) {
+              const int kv = row_a + (e >> 1) * 8, qr = q0 + 8 * j + col_t + (e & 1);
+              if (qr >= S || kv >= S || (causal && kv > qr)) p = 0.f;
+            }
+            sT[4 * j + e] = p;
+            dpT[4 * j + e] = p * (dpT[4 * j + e] - dl);
+          }
+        }
+
+        // dv += p^T dO and dk += ds^T q
+        wg::mbar_wait(ring.full_t + 8 * s, ph);
+        accumulate_tf32<T>(dv_acc, sT, plane0_t + st + 6 * pl, plane0_t + st + 7 * pl);
+        accumulate_tf32<T>(dk_acc, dpT, plane0_t + st + 4 * pl, plane0_t + st + 5 * pl);
+      } else {
+        wg::mbar_wait(ring.full_t + 8 * s, ph);
+      }
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ring.empty_t + 8 * s);
+    }
+    const size_t at = (size_t)bh * S * D;
+    store_rows_f32<D>(dk + at, dk_acc, scale, row_a, S, lane);
+    store_rows_f32<D>(dv + at, dv_acc, 1.f, row_a, S, lane);
+  }
+}
+
+// dq in float32: a block owns BR q rows, each consumer warpgroup 64 of
+// them, and walks the kv tiles they see; blocks take q rows in reverse
+// order.  Per tile: s = q k^T and dp = dO v^T (SS, 3xTF32), ds in
+// registers, dq += ds k (RS, 3xTF32 against k's transposed planes).
+template <int D>
+__global__ void __launch_bounds__(F32Tiles<D, false>::THREADS, 1)
+    bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, const float2* __restrict__ rows,
+                       float* __restrict__ dq, int S, int S_pad, int causal, float scale,
                        float scale_log2) {
-  using T = SimtTile<D>;
-  constexpr int LD = T::LD;
-  constexpr int NJ = D / 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sm = reinterpret_cast<float*>(smem_raw);
-  const float* Q = sm + T::A;
-  const float* G = sm + T::B;  // dO
-  const float* K = sm + T::C;
-  const float* V = sm + T::DD;
-  float* DS = sm + T::P;
-  float* L = sm + T::LSE;
-  float* DL = sm + T::DELTA;
+  using T = F32Tiles<D, false>;
+  constexpr int BT = T::BT, TILE = T::TILE;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const F32Ring<T> ring(f32_smem);
+  const int bh = blockIdx.y;
+  const int q0 = ((S + T::BR - 1) / T::BR - 1 - (int)blockIdx.x) * T::BR;
+  const int kv_end = causal ? min(S, q0 + T::BR) : S;
+  const int n = (kv_end + BT - 1) / BT;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  const int tid = threadIdx.x;
-  const int nq = (S + SR - 1) / SR;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * SR;
-  const size_t base = (size_t)blockIdx.y * (size_t)S * D;
-  const size_t rbase = (size_t)blockIdx.y * S;
-  load_rows<D, SR>(sm + T::A, q + base, q0, S, tid);
-  load_rows<D, SR>(sm + T::B, dO + base, q0, S, tid);
-  if (tid < SR) {
-    L[tid] = q0 + tid < S ? lse[rbase + q0 + tid] * LOG2E : 0.f;
-    DL[tid] = q0 + tid < S ? delta[rbase + q0 + tid] : 0.f;
-  }
-
-  const int rr = tid >> 2, cj = tid & 3;
-  const int kc = tid & 31, qw = tid >> 5;  // the scores' kv column and first q row
-  float dq_acc[NJ];
+  const int wgi = threadIdx.x / WG_THREADS;
+  if (wgi == 0) {
+    if constexpr (T::C > 1) wg::regs_dec<F32_PRODUCER_REGS>();
+    f32_producer<T>(ring, &tq, &tdo, &tk, &tv, rows, q0, 0, n, bh, S_pad);
+  } else {
+    if constexpr (T::C > 1) wg::regs_inc<F32_CONSUMER_REGS>();
+    const int c = __shfl_sync(0xffffffffu, wgi, 0) - 1;  // warp-uniform, as in dkdv
+    const uint32_t base = __shfl_sync(0xffffffffu, ring.base, 0);
+    const int t = threadIdx.x % WG_THREADS, lane = t & 31;
+    const int r0 = q0 + 64 * c;
+    const int row_a = r0 + (t >> 5) * 16 + (lane >> 2);  // a thread's q rows: row_a, row_a + 8
+    const int col_t = 2 * (lane & 3);
+    float2 lr[2];  // (lse2, delta) of the thread's rows; S_pad covers the block
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) dq_acc[j] = 0.f;
-  const int kv_end = causal ? min(S, q0 + SR) : S;
-
-  for (int k0 = 0; k0 < kv_end; k0 += SC) {
-    __syncthreads();
-    load_rows<D, SC>(sm + T::C, k + base, k0, S, tid);
-    load_rows<D, SC>(sm + T::DD, v + base, k0, S, tid);
-    __syncthreads();
-
-    float s[SR / 8], dp[SR / 8];
+    for (int r = 0; r < 2; ++r) lr[r] = rows[(size_t)bh * S_pad + row_a + 8 * r];
+    float dq_acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < SR / 8; ++i) s[i] = dp[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = K[kc * LD + d], vd = V[kc * LD + d];
-#pragma unroll
-      for (int i = 0; i < SR / 8; ++i) {
-        s[i] = fmaf(Q[(qw + 8 * i) * LD + d], kd, s[i]);
-        dp[i] = fmaf(G[(qw + 8 * i) * LD + d], vd, dp[i]);
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    const uint64_t q_hi = wg::rows_desc<T::RB>(base) + (64 * c * T::RB >> 4);
+    const uint64_t q_lo = q_hi + (T::OWN >> 4), do_hi = q_hi + (2 * T::OWN >> 4),
+                   do_lo = q_hi + (3 * T::OWN >> 4);
+    const uint64_t plane0 = wg::rows_desc<T::RB>(base + T::PLANE0);
+    const uint64_t plane0_t = wg::rows_desc<T::RBT>(base + T::PLANE0);
+    wg::mbar_wait(ring.own, 0);
+    constexpr bool AREG = D <= 64;  // the owned rows' hi terms as A fragments in registers
+    uint32_t qa[AREG ? D / 8 : 1][4], ga[AREG ? D / 8 : 1][4];
+    if constexpr (AREG) {
+      load_a_tf32<T>(qa, ring.ptr, 64 * c, t >> 5, lane);
+      load_a_tf32<T>(ga, ring.ptr + 2 * T::OWN, 64 * c, t >> 5, lane);
+    }
+
+    for (int i = 0; i < n; ++i) {
+      const int s = i % T::STAGES, ph = (i / T::STAGES) & 1, k0 = i * BT;
+      const uint64_t st = (uint64_t)(s * T::PLANES * TILE) >> 4, pl = TILE >> 4;
+      const bool sees = !causal || k0 <= r0 + 63;  // else every kv row follows these q rows
+      float sc[BT / 2], dp[BT / 2];
+      wg::mbar_wait(ring.full + 8 * s, ph);
+      if (sees) {
+        wg::fence();
+        if constexpr (AREG) {
+          scores_tf32_rs<T>(sc, qa, q_lo, plane0 + st, plane0 + st + pl);
+          scores_tf32_rs<T>(dp, ga, do_lo, plane0 + st + 2 * pl, plane0 + st + 3 * pl);
+        } else {
+          scores_tf32<T>(sc, q_hi, q_lo, plane0 + st, plane0 + st + pl);
+          scores_tf32<T>(dp, do_hi, do_lo, plane0 + st + 2 * pl, plane0 + st + 3 * pl);
+        }
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(sc);
+        wg::fence_operand(dp);
+        if constexpr (AREG) {
+          wg::fence_operand(qa);
+          wg::fence_operand(ga);
+        }
       }
-    }
-    const int kv = k0 + kc;
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ring.empty + 8 * s);
+      if (sees) {
+        const bool edge = k0 + BT > S || r0 + 64 > S || (causal && k0 + BT - 1 > r0);
 #pragma unroll
-    for (int i = 0; i < SR / 8; ++i) {
-      const int qrow = qw + 8 * i, qr = q0 + qrow;
-      const bool in = qr < S && kv < S && (!causal || kv <= qr);
-      const float p = in ? exp2f(s[i] * scale_log2 - L[qrow]) : 0.f;
-      DS[qrow * LDP + kc] = p * (dp[i] - DL[qrow]);
-    }
-    __syncthreads();
+        for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 w = lr[e >> 1];
+            float p = ex2(sc[4 * j + e] * scale_log2 - w.x);
+            if (edge) {
+              const int row = row_a + (e >> 1) * 8, col = k0 + 8 * j + col_t + (e & 1);
+              if (col >= S || row >= S || (causal && col > row)) p = 0.f;
+            }
+            sc[4 * j + e] = p * (dp[4 * j + e] - w.y);
+          }
 
-    // dq[rr] += sum_kv ds[rr, kv] k[kv]
-    for (int c = 0; c < SC; ++c) {
-      const float ds = DS[rr * LDP + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) dq_acc[j] = fmaf(ds, K[c * LD + cj + 4 * j], dq_acc[j]);
+        // dq += ds k
+        wg::mbar_wait(ring.full_t + 8 * s, ph);
+        accumulate_tf32<T>(dq_acc, sc, plane0_t + st + 4 * pl, plane0_t + st + 5 * pl);
+      } else {
+        wg::mbar_wait(ring.full_t + 8 * s, ph);
+      }
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ring.empty_t + 8 * s);
     }
-  }
-  if (q0 + rr < S) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dq[base + (size_t)(q0 + rr) * D + cj + 4 * j] = dq_acc[j] * scale;
+    store_rows_f32<D>(dq + (size_t)bh * S * D, dq_acc, scale, row_a, S, lane);
   }
 }
 
@@ -728,14 +1085,6 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
-
-template <typename T>
-cudaError_t launch_delta(const Args& a, int D) {
-  const int rows = a.BH * a.S;
-  delta_kernel<T><<<(rows + 7) / 8, 256, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dO), a.scratch, rows, D);
-  return cudaGetLastError();
-}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -762,25 +1111,33 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 3-D map over (BH, S, D) bf16 with boxes of BT rows and CW columns,
-// swizzled as wide as a box row; rows at or past S zero-fill inside a
-// batch-head, and never reach the next one's rows
-template <int D>
-bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S) {
-  using T = Tiles<D>;
+// a 3-D map over (BH, S, D) elements of `type` with boxes of T::BT rows and
+// T::CW columns, swizzled as wide as a box row (T::RB bytes); rows at or
+// past S zero-fill inside a batch-head, and never reach the next one's rows
+template <int D, typename T>
+bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S, CUtensorMapDataType type) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  constexpr int ES = T::RB / T::CW;  // bytes of an element
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * ES, (cuuint64_t)S * D * ES};
   const cuuint32_t box[3] = {(cuuint32_t)T::CW, (cuuint32_t)T::BT, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle = T::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : T::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// q, k, v and dO's maps
+template <int D, typename T>
+bool tensor_maps(CUtensorMap (&m)[4], const Args& a, CUtensorMapDataType type) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dO};
+  for (int i = 0; i < 4; ++i)
+    if (!tensor_map<D, T>(&m[i], ptrs[i], a.BH, a.S, type)) return false;
+  return true;
 }
 
 template <int D>
@@ -788,14 +1145,13 @@ cudaError_t launch_bf16(const Args& a) {
   using T = Tiles<D>;
   const int nb = (a.S + BR - 1) / BR, S_pad = nb * BR;
   float2* rows = reinterpret_cast<float2*>(a.scratch);
-  rows_kernel<D><<<dim3(S_pad / 8, a.BH), 256, 0, a.stream>>>(
+  rows_kernel<bf16, D><<<dim3(S_pad / 8, a.BH), 256, 0, a.stream>>>(
       static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dO), a.lse, rows, a.S, S_pad);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  CUtensorMap tq, tk, tv, tdo;
-  if (!(tensor_map<D>(&tq, a.q, a.BH, a.S) && tensor_map<D>(&tk, a.k, a.BH, a.S) &&
-        tensor_map<D>(&tv, a.v, a.BH, a.S) && tensor_map<D>(&tdo, a.dO, a.BH, a.S)))
-    return cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  if (!tensor_maps<D, T>(m, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16)) return cudaErrorInvalidValue;
+  const CUtensorMap &tq = m[0], &tk = m[1], &tv = m[2], &tdo = m[3];
   static bool kv_set = false, q_set = false;
   if ((e = allow_smem(bwd_dkdv_wgmma_kernel<D>, T::BYTES, kv_set)) != cudaSuccess) return e;
   if ((e = allow_smem(bwd_dq_wgmma_kernel<D>, T::BYTES, q_set)) != cudaSuccess) return e;
@@ -812,22 +1168,28 @@ cudaError_t launch_bf16(const Args& a) {
 
 template <int D>
 cudaError_t launch_f32(const Args& a) {
-  cudaError_t e = launch_delta<float>(a, D);
+  using TK = F32Tiles<D, true>;
+  using TQ = F32Tiles<D, false>;
+  const int S_pad = (a.S + BR - 1) / BR * BR;  // as the bf16 path's scratch
+  float2* rows = reinterpret_cast<float2*>(a.scratch);
+  rows_kernel<float, D><<<dim3(S_pad / 8, a.BH), 256, 0, a.stream>>>(
+      static_cast<const float*>(a.o), static_cast<const float*>(a.dO), a.lse, rows, a.S, S_pad);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int smem = (int)(SimtTile<D>::WORDS * sizeof(float));
+  CUtensorMap m[4];  // one box shape serves both kernels
+  if (!tensor_maps<D, TK>(m, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) return cudaErrorInvalidValue;
   static bool kv_set = false, q_set = false;
-  if ((e = allow_smem(bwd_dkdv_simt_kernel<D>, smem, kv_set)) != cudaSuccess) return e;
-  if ((e = allow_smem(bwd_dq_simt_kernel<D>, smem, q_set)) != cudaSuccess) return e;
-  const dim3 grid((a.S + SR - 1) / SR, a.BH);
+  if ((e = allow_smem(bwd_dkdv_tf32_kernel<D>, TK::BYTES, kv_set)) != cudaSuccess) return e;
+  if ((e = allow_smem(bwd_dq_tf32_kernel<D>, TQ::BYTES, q_set)) != cudaSuccess) return e;
+  const dim3 grid((a.S + TK::BR - 1) / TK::BR, a.BH);
   const float sl2 = a.scale * LOG2E;
-  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
-              *v = static_cast<const float*>(a.v), *dO = static_cast<const float*>(a.dO);
-  bwd_dkdv_simt_kernel<D><<<grid, SIMT_THREADS, smem, a.stream>>>(
-      q, k, v, dO, a.lse, a.scratch, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S,
-      a.causal, a.scale, sl2);
+  bwd_dkdv_tf32_kernel<D><<<grid, TK::THREADS, TK::BYTES, a.stream>>>(
+      m[0], m[1], m[2], m[3], rows, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S,
+      S_pad, a.causal, a.scale, sl2);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dq_simt_kernel<D><<<grid, SIMT_THREADS, smem, a.stream>>>(
-      q, k, v, dO, a.lse, a.scratch, static_cast<float*>(a.dq), a.S, a.causal, a.scale, sl2);
+  bwd_dq_tf32_kernel<D><<<grid, TQ::THREADS, TQ::BYTES, a.stream>>>(
+      m[0], m[1], m[2], m[3], rows, static_cast<float*>(a.dq), a.S, S_pad, a.causal, a.scale,
+      sl2);
   return cudaGetLastError();
 }
 
@@ -843,9 +1205,8 @@ cudaError_t launch(const Args& a, int dtype) {
 // q, k, v, o, dO, dq, dk, dv (BH, S, D) row-major on the device, all of one
 // dtype: 0 = float32, 1 = bfloat16, 16-byte aligned.  lse (BH, S) float32
 // from K3's forward (natural log of the scaled scores' row sums).  scratch:
-// float32, (BH, S) for float32 inputs (delta), (BH, S_pad, 2) for bfloat16
-// ((lse log2 e, delta) per row, S_pad = S rounded up to 128), 16-byte
-// aligned.  D: 16, 32, 64 or 128.  causal: 0 or 1.  Returns a cudaError_t.
+// float32 (BH, S_pad, 2), (lse log2 e, delta) per row with S_pad = S
+// rounded up to 128, 16-byte aligned.  D: 16, 32, 64 or 128.  causal: 0 or 1.  Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dO, const void* lse,
                                          void* scratch, void* dq, void* dk, void* dv, int BH,

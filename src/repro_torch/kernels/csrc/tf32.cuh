@@ -1,8 +1,9 @@
-// The 3xTF32 arithmetic shared by K1 (distance_topk.cu) and K3's float32
-// path (flash_attention.cu): float32-grade products on the tensor cores.
+// The 3xTF32 arithmetic shared by K1 (distance_topk.cu) and the float32
+// paths of K3 (flash_attention.cu) and K3-bwd (flash_attention_bwd.cu, on
+// wgmma): float32-grade products on the tensor cores.
 //
-// mma.sync m16n8k8 takes tf32 operands, which keep 10 of float32's 23
-// mantissa bits.  Each operand a is split into hi = tf32(a) and
+// mma.sync m16n8k8 and wgmma m64nNk8 take tf32 operands, which keep 10 of
+// float32's 23 mantissa bits.  Each operand a is split into hi = tf32(a) and
 // lo = tf32(a - hi), and a product accumulates a_lo.b_hi + a_hi.b_lo +
 // a_hi.b_hi in float32, small terms first; the lo.lo term is below
 // float32's rounding.

@@ -1,16 +1,21 @@
-// The Hopper pieces of K3-bwd's bfloat16 path (flash_attention_bwd.cu):
-// mbarriers, TMA tile loads, the shared-memory matrix descriptors that
-// match the TMA box's swizzle, and warpgroup MMAs (wgmma.mma_async
-// m64nNk16, f32 += bf16 x bf16) with A from shared memory or registers.
-// Written in inline PTX, as mma.cuh and scan.cuh are; sm_90a only.
+// The Hopper pieces of K3-bwd (flash_attention_bwd.cu): mbarriers, TMA
+// tile loads, the shared-memory matrix descriptors that match the TMA box's
+// swizzle, and warpgroup MMAs with A from shared memory or registers:
+// m64nNk16 f32 += bf16 x bf16 (the bfloat16 path) and m64nNk8 f32 += tf32 x
+// tf32 (the float32 path's 3xTF32 products).  Written in inline PTX, as
+// mma.cuh and scan.cuh are; sm_90a only.
 //
-// Layout.  A matrix tile of R rows and D bf16 columns is stored as D / CW
-// panels of CW = min(D, 64) columns: panel p at byte p * R * 2 CW, row r
-// at r * 2 CW in it, each row's 16-byte chunks swizzled by the TMA box
-// (128-, 64- or 32-byte swizzle for rows of 128, 64 or 32 bytes).  The same
-// tile serves as a K-major operand (rows are M or N, columns are K) and as
-// an MN-major one (rows are K, columns N): the descriptors below differ
-// only in where a k-step starts.  Every tile starts on a 1024-byte boundary.
+// Layout.  A matrix tile of R rows and D columns is stored as panels of
+// one swizzle row each (RB = 128, 64 or 32 bytes: CW = RB / 2 bf16 or
+// RB / 4 float32 columns): panel p at byte p * R * RB, row r at r * RB in
+// it, each row's 16-byte chunks swizzled by the TMA box (128-, 64- or
+// 32-byte swizzle for rows of 128, 64 or 32 bytes).  The same bf16 tile
+// serves as a K-major operand (rows are M or N, columns are K) and as an
+// MN-major one (rows are K, columns N): the descriptors below differ only
+// in where a k-step starts.  tf32 operands are K-major only, so the float32
+// path stores a transposed copy where it needs one.  A k-step is 32 bytes
+// of K in both types (16 bf16, 8 tf32).  Every tile starts on a 1024-byte
+// boundary.
 //
 // scan.cuh has its own mbarrier helpers (for cp.async arrivals); these
 // are kept apart so that an edit here rebuilds K3-bwd alone.
@@ -98,24 +103,35 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
 
-// the descriptor of a tile at `addr` (D columns as panels of CW): the
-// same for a K-major and an MN-major operand, since a wgmma reads one
-// swizzle row of a panel (the leading byte offset is unused) and steps 8
-// rows by the stride byte offset.  Build it once and add the offsets
-// below: a descriptor's start address is its low 14 bits, in 16-byte
-// units, and shared addresses stay under 2^18, so the adds never carry.
-template <int D>
-__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
-  constexpr int RB = 2 * (D < 64 ? D : 64);
+// the descriptor of a tile at `addr` whose rows are RB bytes: the same for
+// a K-major and an MN-major operand, since a wgmma reads one swizzle row of
+// a panel (the leading byte offset is unused) and steps 8 rows by the
+// stride byte offset.  Build it once and add the offsets below: a
+// descriptor's start address is its low 14 bits, in 16-byte units, and
+// shared addresses stay under 2^18, so the adds never carry.
+template <int RB>
+__device__ __forceinline__ uint64_t rows_desc(uint32_t addr) {
   return desc<RB>(addr, 8 * RB, 8 * RB);
 }
 
-// in 16-byte units: k-step kk (16 columns) of a K-major operand, a tile of
-// R rows
+// the descriptor of a bf16 tile of D columns (panels of min(D, 64))
+template <int D>
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+  return rows_desc<2 * (D < 64 ? D : 64)>(addr);
+}
+
+// in 16-byte units: k-step kk (32 bytes of K) of a K-major operand of R
+// rows of RB bytes a panel
+template <int RB, int R>
+__device__ __forceinline__ constexpr uint64_t k_off(int kk) {
+  constexpr int KP = RB / 32;  // k-steps a panel
+  return ((kk / KP) * R * RB + (kk % KP) * 32) >> 4;
+}
+
+// the same for a bf16 tile of D columns
 template <int D, int R>
 __device__ __forceinline__ constexpr uint64_t k_step(int kk) {
-  constexpr int CW = D < 64 ? D : 64, RB = 2 * CW, KP = CW / 16;
-  return ((kk / KP) * R * RB + (kk % KP) * 32) >> 4;
+  return k_off<2 * (D < 64 ? D : 64), R>(kk);
 }
 
 // in 16-byte units: k-step c (16 rows) of panel p of an MN-major operand, a
@@ -238,6 +254,79 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
   }
 }
 
+// d (64 x N, f32) = (acc ? d : 0) + A B, tf32 operands (the low 13 bits of
+// each float32 are ignored), A (64 x 8) and B (8 x N) K-major in shared
+// memory.  The accumulator layout is mma_ss's.
+template <int N>
+__device__ __forceinline__ void mma_ss_tf32(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
+  static_assert(N == 16 || N == 32, "m64n16k8 or m64n32k8");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+}
+
+// d (64 x N, f32) = (acc ? d : 0) + A B, tf32 operands, A (64 x 8) from
+// registers (a[0]: row g, column t; a[1]: row g + 8; a[2], a[3]: column
+// t + 4, with g = lane / 4 of each warp's 16 rows, t = lane % 4), B (8 x N)
+// K-major in shared memory
+template <int N>
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                            int acc = 1) {
+  static_assert(N == 16 || N == 32 || N == 64, "m64n16k8, m64n32k8 or m64n64k8");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+}
+
 // ------------------------------------------------- warp-specialised blocks
 
 template <int REGS>
@@ -248,6 +337,18 @@ __device__ __forceinline__ void regs_dec() {
 template <int REGS>
 __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// makes this thread's shared-memory writes visible to the async proxy
+// (wgmma's operand reads, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier ID among COUNT threads (whole warps)
+template <int ID, int COUNT>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
 }
 
 }  // namespace wg

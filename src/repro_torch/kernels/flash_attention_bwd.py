@@ -3,9 +3,9 @@
 The kernel (``csrc/flash_attention_bwd.cu``) replaces what the JAX package
 gets from autodiff of ``repro/models/layers.py::chunked_attention``: dq,
 dk, dv from q, k, v, the forward's output o, the output's gradient dO and
-K3's row log-sum-exp.  bfloat16 runs on Hopper's warpgroup MMAs fed by
-TMA (``wgmma``, p and ds split into two bf16 terms), float32 as plain
-float32 FMAs.  This module checks the inputs, allocates the outputs and the
+K3's row log-sum-exp.  Both dtypes run on Hopper's warpgroup MMAs fed by
+TMA (``wgmma``): bfloat16 with p and ds split into two bf16 terms, float32
+with every product a 3xTF32 split.  This module checks the inputs, allocates the outputs and the
 kernel's scratch and launches on PyTorch's current stream.  Nothing here
 runs at import: the library is built and loaded at the first launch.
 """
@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import _DTYPE, _MAX_BH, HEAD_DIMS
 
 _FN: dict[str, object] = {}
-#: rows a bf16 block owns; the bf16 scratch pads S to a multiple of it
+#: the scratch pads S to a multiple of this (the rows a bf16 block owns)
 _BLOCK_ROWS = 128
 
 
@@ -35,12 +35,10 @@ def _kernel():
     return fn
 
 
-def _scratch_shape(BH: int, S: int, dtype) -> tuple:
-    """The kernel's float32 scratch: delta per row for float32 inputs; for
-    bfloat16, (lse log2 e, delta) per row with S padded to whole blocks."""
-    if dtype == torch.bfloat16:
-        return (BH, -(-S // _BLOCK_ROWS) * _BLOCK_ROWS, 2)
-    return (BH, S)
+def _scratch_shape(BH: int, S: int) -> tuple:
+    """The kernel's float32 scratch: (lse log2 e, delta) per row, S padded
+    to whole blocks."""
+    return (BH, -(-S // _BLOCK_ROWS) * _BLOCK_ROWS, 2)
 
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, scale: float):
@@ -71,7 +69,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool, scale: float)
         raise ValueError("flash_attention_bwd_cuda: q, k, v, o and dO must be 16-byte aligned "
                          "(the kernel copies rows in 16-byte pieces)")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    scratch = torch.empty(_scratch_shape(BH, S, q.dtype), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(_scratch_shape(BH, S), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = _kernel()(

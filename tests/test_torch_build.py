@@ -21,11 +21,12 @@ def test_every_source_exists_with_its_headers():
 
 def test_includes_are_followed_through_headers():
     # K1 includes scan.cuh, which includes topk.cuh; K3 the bf16 MMA pieces
-    # and the split; K3-bwd the bf16 pieces and Hopper's (TMA, wgmma)
+    # and the split; K3-bwd the bf16 pieces, the split and Hopper's (TMA,
+    # wgmma)
     assert _build.includes("distance_topk.cu") == ["scan.cuh", "tf32.cuh", "topk.cuh"]
     assert _build.includes("distance_topk_q8.cu") == ["scan.cuh", "topk.cuh"]
     assert _build.includes("flash_attention.cu") == ["mma.cuh", "tf32.cuh"]
-    assert _build.includes("flash_attention_bwd.cu") == ["mma.cuh", "wgmma.cuh"]
+    assert _build.includes("flash_attention_bwd.cu") == ["mma.cuh", "tf32.cuh", "wgmma.cuh"]
 
 
 @pytest.fixture()
@@ -44,7 +45,7 @@ def _paths(csrc):
     ("flash_attention_bwd.cu", {"flash_attention_bwd.cu"}),
     ("mma.cuh", {"flash_attention.cu", "flash_attention_bwd.cu"}),
     ("wgmma.cuh", {"flash_attention_bwd.cu"}),
-    ("tf32.cuh", {"distance_topk.cu", "flash_attention.cu"}),
+    ("tf32.cuh", {"distance_topk.cu", "flash_attention.cu", "flash_attention_bwd.cu"}),
     ("topk.cuh", {"distance_topk.cu", "distance_topk_q8.cu"}),
     ("scan.cuh", {"distance_topk.cu", "distance_topk_q8.cu"}),
     ("distance_topk_q8.cu", {"distance_topk_q8.cu"}),

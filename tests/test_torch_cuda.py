@@ -580,6 +580,32 @@ def test_k3_bwd_matches_plain(cuda, dtype, BH, S, D, causal):
     _check_k3_bwd(got, want, dtype)
 
 
+# float32 inputs that stress the 3xTF32 products, as phase 2c gives K3's
+# float32 forward: q x 4 (a peaky softmax: a score's error is amplified
+# through the exponent) and v x 8 (large values), at every head dim, causal
+# and not, on a ragged S and across several blocks
+K3_BWD_F32_SCALED = [(BH, S, D, causal, qs, vs) for BH, S in ((1, 65), (2, 1000))
+                     for D in (16, 32, 64, 128) for causal in (True, False)
+                     for qs, vs in ((4.0, 1.0), (1.0, 8.0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,D,causal,q_scale,v_scale", K3_BWD_F32_SCALED)
+def test_k3_bwd_f32_scaled_inputs_match_plain(cuda, BH, S, D, causal, q_scale, v_scale):
+    """K3-bwd's float32 path on q x 4 or v x 8 against the plain backward at
+    the same 1e-4 relative limit, and two launches bit-equal."""
+    q, k, v, do = _k3_bwd_case(cuda, torch.float32, BH, S, D, causal, seed=BH * S + D + 7)
+    q, v = q * q_scale, v * v_scale
+    scale = D ** -0.5
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, with_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    _check_k3_bwd(got, want, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_bwd_takes_strided_and_misaligned_inputs_and_is_deterministic(cuda, dtype):

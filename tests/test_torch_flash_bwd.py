@@ -133,3 +133,115 @@ def test_bwd_scale_argument_and_noncontiguous_grad():
     want = torch.autograd.grad(dense, (qd, kd, vd), do.double())
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# K3-bwd's float32 path (csrc/flash_attention_bwd.cu) runs all seven of its
+# products on the tensor cores as 3xTF32 splits: s^T = k q^T, dp^T = v dO^T,
+# dv += p^T dO, dk += ds^T q over 32-row q tiles (16 at D = 128), then
+# s = q k^T, dp = dO v^T, dq += ds k over kv tiles of the same size.  Each
+# operand a = hi + lo with hi = tf32(a), lo = tf32(a - hi), rounded as
+# csrc/tf32.cuh rounds ((bits + 0x1000) & 0xffffe000: to nearest, ties away
+# from zero), and a product is lo.hi + hi.lo + hi.hi (lo.lo dropped).
+# Emulated here in numpy float32, each walked tile's product started from
+# zero and added to the float32 sum once, the exponent in base 2 with the
+# rows pass's lse log2 e; held against jax.vjp of the reference's
+# chunked_attention at the card tests' limit (max |d| / max |want| per
+# tensor), and a single TF32 product shown to miss it.
+K3_BWD_REL_TOL = 1e-4
+
+
+def _tf32_np(a: np.ndarray) -> np.ndarray:
+    b = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _dot_3xtf32_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    ah, bh = _tf32_np(a), _tf32_np(b)
+    al, bl = _tf32_np(a - ah), _tf32_np(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _dot_tf32_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return _tf32_np(a) @ _tf32_np(b)
+
+
+def _emulated_k3_bwd(q, k, v, o, do, lse, causal, dot):
+    """K3-bwd's float32 arithmetic over (BH, S, D) float32 arrays, the
+    products done by ``dot``; returns (dq, dk, dv)."""
+    BH, S, D = q.shape
+    bt = 16 if D == 128 else 32
+    scale = np.float32(D ** -0.5)
+    sl2 = np.float32(scale * np.log2(np.e))
+    lse2 = (lse * np.float32(np.log2(np.e))).astype(np.float32)
+    delta = (do * o).sum(-1, dtype=np.float32)
+    pos = np.arange(S)
+    dq, dk, dv = (np.zeros((BH, S, D), np.float32) for _ in range(3))
+    for b in range(BH):
+        for t0 in range(0, S, bt):
+            t = slice(t0, min(t0 + bt, S))
+            # dk, dv: the tile is q rows t, against every kv row
+            sT = dot(k[b], q[b, t].T)
+            dpT = dot(v[b], do[b, t].T)
+            p = np.exp2(sT * sl2 - lse2[b, t][None, :])
+            if causal:
+                p = np.where(pos[:, None] > pos[t][None, :], np.float32(0), p)
+            ds = p * (dpT - delta[b, t][None, :])
+            dv[b] += dot(p, do[b, t])
+            dk[b] += dot(ds, q[b, t])
+            # dq: the tile is kv rows t, against every q row
+            s = dot(q[b], k[b, t].T)
+            dp = dot(do[b], v[b, t].T)
+            p = np.exp2(s * sl2 - lse2[b][:, None])
+            if causal:
+                p = np.where(pos[t][None, :] > pos[:, None], np.float32(0), p)
+            dq[b] += dot(p * (dp - delta[b][:, None]), k[b, t])
+    return dq * scale, dk * scale, dv
+
+
+# (BH, S, D, causal, q scale, v scale): S from 64 to 257 against every
+# walked tile size, D 16-128, plain inputs, a peaky softmax (q x 4) and
+# large values (v x 8)
+K3_BWD_TF32_CASES = [
+    (2, 64, 16, True, 1, 1), (1, 100, 32, False, 1, 1), (2, 129, 64, True, 1, 1),
+    (1, 257, 128, False, 1, 1), (1, 200, 64, True, 4, 1), (1, 96, 16, False, 4, 1),
+    (1, 257, 32, True, 4, 1), (1, 150, 128, True, 4, 1), (1, 77, 64, False, 1, 8),
+    (2, 160, 128, True, 1, 8), (1, 129, 16, True, 1, 8), (1, 65, 32, False, 1, 8)]
+
+
+def _k3_bwd_emulation_err(BH, S, D, causal, q_scale, v_scale, dot):
+    q, k, v, do = _arrays((1, S, BH, D), 4, seed=BH * 1000 + S + D)
+    q = q * np.float32(q_scale)
+    v = v * np.float32(v_scale)
+    _, want = _jax_vjp(q, k, v, do, causal, q_chunk=32, kv_chunk=64)
+    fold = lambda a: torch.from_numpy(np.ascontiguousarray(a[0].transpose(1, 0, 2)))
+    qt, kt, vt, dot_ = (fold(a) for a in (q, k, v, do))
+    o, lse = ref.flash_attention_ref(qt, kt, vt, causal=causal, with_lse=True)
+    got = _emulated_k3_bwd(*(t.numpy() for t in (qt, kt, vt, o, dot_, lse)), causal, dot)
+    return max(float(np.abs(g.transpose(1, 0, 2)[None] - w).max()) / float(np.abs(w).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("BH,S,D,causal,q_scale,v_scale", K3_BWD_TF32_CASES)
+def test_k3_bwd_3xtf32_emulation_matches_jax_vjp(BH, S, D, causal, q_scale, v_scale):
+    err = _k3_bwd_emulation_err(BH, S, D, causal, q_scale, v_scale, _dot_3xtf32_np)
+    assert err <= K3_BWD_REL_TOL, err
+
+
+@pytest.mark.parametrize("BH,S,D,causal,q_scale,v_scale", K3_BWD_TF32_CASES[::3])
+def test_k3_bwd_single_tf32_product_misses_the_limit(BH, S, D, causal, q_scale, v_scale):
+    err = _k3_bwd_emulation_err(BH, S, D, causal, q_scale, v_scale, _dot_tf32_np)
+    assert err > K3_BWD_REL_TOL, err
+
+
+def test_k3_bwd_tf32_rounding_is_the_kernels():
+    """tf32.cuh's rounding: to nearest, ties away from zero, 10 mantissa
+    bits kept; hi + lo keeps 22 of float32's 24 significant bits."""
+    a = np.array([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11, -1.0 - 2.0**-11],
+                 np.float32)
+    assert _tf32_np(a).tolist() == [1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, 1.0 + 2.0**-9,
+                                    -1.0 - 2.0**-10]
+    x = np.random.default_rng(2).standard_normal(1000).astype(np.float32)
+    hi = _tf32_np(x)
+    lo = _tf32_np(x - hi)
+    assert float(np.abs((hi + lo - x) / x).max()) <= 2.0**-22
+    assert float(np.abs((hi - x) / x).max()) > 2.0**-13

@@ -17,12 +17,16 @@ checks are reported, not enforced).  Each is timed with CUDA events
 in turns (first to last, then last to first) at the training step's layer
 (60, 4096, 64) and at one codeqwen1.5-7b sequence's (32, 4096, 128), both
 causal bf16, beside PyTorch's SDPA backward on the same inputs
-((forward + backward) - forward, a yardstick only).  ``--f32`` also times
-the float32 path at (60, 4096, 64) beside SDPA's float32 backward.
-``--profile`` splits one launch's device time by kernel under
-``torch.profiler``.  Every source gets the larger (bf16) scratch, so a
-version whose float32 scratch is smaller runs too.  Prints one JSON line
-per record and writes them to ``build/k3_bwd_time/k3_bwd_time.json``.
+((forward + backward) - forward, a yardstick only) and the plain version.
+``--f32`` does the same for the float32 path: each source's float32 output
+is first checked at a few shapes (tile edges, q x 4 and v x 8 inputs
+included) against the plain backward, max |kernel - plain| / max |plain|
+<= 1e-4 on dq, dk and dv, and two launches bit-equal; then every source
+is timed in turns at both shapes in float32 beside SDPA's float32
+backward.  ``--profile`` splits one launch's device time by kernel under
+``torch.profiler``.  Every source gets a (BH, S rounded up to 128, 2)
+float32 scratch, the largest any version has taken.  Prints one JSON
+line per record and writes them to ``build/k3_bwd_time/k3_bwd_time.json``.
 """
 
 import argparse
@@ -45,6 +49,12 @@ OUT = ROOT / "build" / "k3_bwd_time"
 SHAPES = [(60, 4096, 64), (32, 4096, 128)]
 CHECKS = [(1, 1, 64, True), (2, 127, 64, True), (2, 129, 64, False), (3, 1000, 16, True),
           (3, 1000, 32, False), (2, 33, 128, True), (3, 1025, 128, False), (4, 4096, 64, True)]
+# float32: (BH, S, D, causal, q scale, v scale); a peaky softmax (q x 4) and
+# large values (v x 8), as phase 2c gives K3's float32 forward
+CHECKS_F32 = [(1, 1, 64, True, 1, 1), (2, 127, 64, True, 1, 1), (2, 129, 64, False, 4, 1),
+              (3, 1000, 16, True, 1, 8), (3, 1000, 32, False, 4, 1), (2, 33, 128, True, 1, 8),
+              (3, 1025, 128, False, 4, 1), (4, 4096, 64, True, 4, 1)]
+F32_TOL = 1e-4
 RECORDS = []
 
 
@@ -84,9 +94,10 @@ def build(i: int, source: Path):
     return run
 
 
-def inputs(gen, BH, S, D, dtype, causal=True):
+def inputs(gen, BH, S, D, dtype, causal=True, q_scale=1, v_scale=1):
     q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
+    q, v = q * q_scale, v * v_scale
     out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5, with_lse=True)
     return q, k, v, out, do, lse
 
@@ -137,12 +148,12 @@ def main() -> int:
     _build.build_all(("flash_attention.cu",))  # K3's forward gives lse
     kernels = [build(i, s) for i, s in enumerate(sources)]
     gen = torch.Generator(device="cuda")
+    f = lambda t: t.float()
     for source, run in zip(sources, kernels):
         gen.manual_seed(0)  # every source sees the same inputs
         for BH, S, D, causal in CHECKS:
             q, k, v, o, do, lse = inputs(gen, BH, S, D, torch.bfloat16, causal)
             got = run(q, k, v, o, do, lse, causal)
-            f = lambda t: t.float()
             want = ref.flash_attention_bwd_ref(f(q), f(k), f(v), f(o), f(do), lse, causal=causal,
                                                scale=D ** -0.5)
             agree = max(ref.bf16_agreement(a, w) for a, w in zip(got, want))
@@ -152,8 +163,26 @@ def main() -> int:
             if not (agree <= 1.0 and same) and "diag" not in source.name:
                 raise AssertionError(f"{source} at {(BH, S, D, causal)}: agreement {agree}, "
                                      f"deterministic {same}")
+        for BH, S, D, causal, qs, vs in CHECKS_F32 if args.f32 else ():
+            q, k, v, o, do, lse = inputs(gen, BH, S, D, torch.float32, causal, qs, vs)
+            got = run(q, k, v, o, do, lse, causal)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                               scale=D ** -0.5)
+            # with one key dq and dk are zero: both sides hold rounding
+            # noise, held at the limit against dv's scale instead
+            scales = [float(w.abs().max()) for w in want]
+            if S == 1:
+                scales[:2] = scales[2:] * 2
+            rel = max(float((a - w).abs().max()) / max(sc, 1e-30)
+                      for a, w, sc in zip(got, want, scales))
+            same = all(torch.equal(a, b) for a, b in zip(got, run(q, k, v, o, do, lse, causal)))
+            emit({"source": str(source), "check_f32": [BH, S, D, causal, qs, vs],
+                  "rel_err": rel, "deterministic": same})
+            if not (rel <= F32_TOL and same) and "diag" not in source.name:
+                raise AssertionError(f"{source} at {(BH, S, D, causal, qs, vs)} float32: "
+                                     f"rel. err {rel}, deterministic {same}")
     order = list(range(len(sources)))
-    shapes = [(s, torch.bfloat16) for s in SHAPES] + ([(SHAPES[0], torch.float32)]
+    shapes = [(s, torch.bfloat16) for s in SHAPES] + ([(s, torch.float32) for s in SHAPES]
                                                       if args.f32 else [])
     for (BH, S, D), dtype in shapes:
         gen.manual_seed(1)
@@ -164,13 +193,10 @@ def main() -> int:
             rec.setdefault("ms", []).append(
                 [str(sources[idx]), cuda_ms(lambda: kernels[idx](q, k, v, o, do, lse),
                                             iters=10, warmup=2)])
-            if dtype == torch.float32:
-                break  # the float32 path: one reading of the first source
         rec["library_ms_after"] = sdpa_bwd_ms(q, k, v, do)
-        if dtype == torch.bfloat16:
-            plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=True,
-                                                        scale=D ** -0.5)
-            rec["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+        plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=True,
+                                                    scale=D ** -0.5)
+        rec["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
         if args.profile:
             rec["by_kernel"] = {str(s): profile(kern, (q, k, v, o, do, lse))
                                 for s, kern in zip(sources, kernels)}
