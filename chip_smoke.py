@@ -128,6 +128,28 @@ Phases, each printed as JSON records; any failure exits non-zero:
    resident scan bytes (codes + scales + bias + keys), the exact store's
    device bytes, host encode seconds; one batch with the exact store on the
    host, checked against the device store.
+3g. recsys and retrieval_cand, run after 4b while the card's memory is
+   free: AutoInt, DIN, SASRec and xDeepFM at full published width, params
+   from a seeded ``torch.Generator`` on the card.  For each arch: (b) in
+   float32, the forward of the first 64 examples of a seeded batch on the
+   card against the same tables copied to the CPU, within 1e-4 of the
+   largest |output|; (a) serve_p99: the forward at B = 512 with the cell's
+   bf16 params, p50 / p99 ms over 50 calls (CUDA events); (d)
+   retrieval_cand: one step (``serve.recsys.retrieval_step``: user tower,
+   bf16 projection, K1 at metric ip) over 1,000,000 seeded bf16 candidates
+   padded to 1,000,448 rows at the arch's retrieval width (one K1 launch),
+   held against ``ref.distance_topk_blocked`` on the same card tensors by
+   phase 2's rule; (c) ``make_train_step(recsys_loss_fn(...),
+   AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=30))`` on one seeded
+   batch of 8,192 (the train_batch cell's 65,536 cut), bf16 params and
+   float32 moments: a warm-up step, then 3 timed steps (step p50, peak
+   device bytes), losses finite and falling.  For SASRec also (e) 200
+   single-user requests through the whole step: p50 / p99 by CUDA events
+   and by the host clock (to the ids on the host), one K1 launch each; the
+   user tower and projection alone (p50 over 50 calls); and K1 alone at
+   (1 x 1,000,448 x 50, k 100 -> 128, ip) against its plain version, its
+   bound and ``torch.topk(q @ x.T)``.  Then (f)
+   ``examples/recsys_retrieval_torch.py`` on the card: its R@50.
 5. LM prefill at the reference's prefill_32k shape: smollm-360m at full
    width and depth, ``serving_config(..., "prefill")`` (bf16, q_chunk 1024),
    bf16 cache, S = 32,768, B = 1 (cut from 32): seconds, tokens/s, K3
@@ -158,7 +180,8 @@ Phases, each printed as JSON records; any failure exits non-zero:
    within 1e-4 relative.  Then the grads of one step of the first 2 layers
    at full width in float32 (S 1100, q_chunk 256) on the card and on the
    CPU: loss within 1e-5 relative, each grad within 1e-3 of the CPU's
-   largest entry, grad norm within 1e-4 relative.  Then ``python -m
+   largest entry, grad norm within 1e-4 relative, and K3-bwd's float32
+   path timed at the check's layer shape (15, 1100, 64).  Then ``python -m
    repro_torch.launch.train`` (reduced config, on the card) for 4 steps
    with a checkpoint every 2, and ``--resume``: equal final losses.  Then
    K3 / plain / SDPA milliseconds at the step's layer shape.
@@ -167,12 +190,14 @@ Phases, each printed as JSON records; any failure exits non-zero:
    3d, each on an index carrying 3c's graphs again — kernel launches,
    device busy time and idle share, the top kernels by device time.
 8. the kernels line: launches on the main path (K1: phases 3, 3c's ground
-   truth, 3e, 3f and 4; K2: 3b and 4b; K3: 5, 6 and 6b's forward launches;
-   K3-bwd: 6b; the HNSW beam is torch ops and
-   launches none of them), max error, kernel / plain / library times at a
-   main-path shape, and each bound; K3 also by shape (``instances``: the
-   bf16 32k prefill's, each float32 bucket's and the bf16 training
-   step's launches, times and bound).
+   truth, 3e, 3f, 4 and 3g; K2: 3b and 4b; K3: 5, 6 and 6b's forward
+   launches; K3-bwd: 6b's steps and its card-vs-CPU check; the HNSW beam
+   is torch ops and launches none of them), max error, kernel / plain /
+   library times at a main-path shape, and each bound; K1, K3 and K3-bwd
+   also by shape (``instances``: K1's scan phases at the paper partition
+   and 3g at the retrieval_cand shape; K3's bf16 32k prefill, each float32
+   bucket and the bf16 training step; K3-bwd's bf16 training step and its
+   float32 check; each with its launches, times and bound).
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
@@ -356,35 +381,44 @@ def phase_kernel_vs_plain() -> float:
     return max_err
 
 
-def time_kernel(q: torch.Tensor, x: torch.Tensor, k: int, label: str) -> dict:
+def time_kernel(q: torch.Tensor, x: torch.Tensor, k: int, label: str, metric: str = "l2",
+                n_valid: int | None = None) -> dict:
     """K1 at one main-path shape: agreement with the plain version, K1 /
-    plain / library milliseconds, and K1's bound."""
+    plain / library milliseconds, and K1's bound.  Rows at or past
+    ``n_valid`` are padding: neither read nor counted."""
     from repro_torch.common.utils import next_pow2
     from repro_torch.kernels import ref
     from repro_torch.kernels.distance_topk import distance_topk_cuda
 
     B, D = q.shape
-    N = x.shape[0]
+    N = x.shape[0] if n_valid is None else n_valid
     k_pad = max(next_pow2(k), 128)
-    kern = lambda: distance_topk_cuda(q, x, k_pad=k_pad, n_valid=N, metric="l2")
-    plain = lambda: ref.distance_topk_blocked(q, x, k, "l2")
+    kern = lambda: distance_topk_cuda(q, x, k_pad=k_pad, n_valid=N, metric=metric)
+    plain = lambda: ref.distance_topk_blocked(q, x, k, metric, n_valid=N)
+    xv = x[:N]
 
     def library():
-        xn = (x * x).sum(-1)
-        return torch.topk(torch.addmm(xn, q, x.T, alpha=-2.0), k, dim=1, largest=False)
+        if metric == "ip":
+            return torch.topk(q @ xv.T, k, dim=1)
+        xn = (xv * xv).sum(-1)
+        return torch.topk(torch.addmm(xn, q, xv.T, alpha=-2.0), k, dim=1, largest=False)
 
     d_k, i_k = kern()
-    qn = (q * q).sum(-1, keepdim=True)
-    d_k = torch.where(torch.isinf(d_k[:, :k]), d_k[:, :k], d_k[:, :k] + qn)
+    d_k = d_k[:, :k]
+    if metric == "l2":
+        qn = (q * q).sum(-1, keepdim=True)
+        d_k = torch.where(torch.isinf(d_k), d_k, d_k + qn)
     d_p, i_p = plain()
     err, _ = compare_topk(d_k, i_k[:, :k], d_p, i_p, f"main-path shape {label}")
     ms = cuda_ms(kern)
     plain_ms = cuda_ms(plain, iters=5)
     library_ms = cuda_ms(library)
-    flops = 2.0 * B * N * D + 2.0 * N * D  # q.x for every pair, ||x||^2 per row
+    flops = 2.0 * B * N * D  # q.x for every pair
+    if metric == "l2":
+        flops += 2.0 * N * D  # ||x||^2 per row
     nbytes = 4.0 * (B * D + N * D) + 8.0 * B * k_pad
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    rec = {"shape": label, "B": B, "N": N, "D": D, "k": k, "k_pad": k_pad,
+    rec = {"shape": label, "B": B, "N": N, "D": D, "k": k, "k_pad": k_pad, "metric": metric,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": 1e3 * max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1700,6 +1734,220 @@ def phase_deployment_q8(corpus, queries, gt_i, fp32_ids, n_full: int, batch: int
         raise AssertionError(f"deployment q8 recall@100 {r100} is implausibly low")
     return {"launches": launches, "timing": timing}
 
+# ------------------------------------------------------------ recsys family
+
+
+def recsys_batch(arch: str, cfg, B: int, seed: int, for_loss: bool) -> dict:
+    """A seeded numpy batch of the reference's keys for ``arch``: a
+    ``criteo_like_batch`` (DIN's context fields as its sparse ids, with
+    history and target), or SASRec's item sequences with next items (and
+    one sampled negative a position)."""
+    from repro_torch.data.synthetic import criteo_like_batch
+
+    if arch in ("autoint", "xdeepfm"):
+        data = criteo_like_batch(B, n_sparse=cfg.n_sparse, vocab_sizes=list(cfg.vocab_sizes),
+                                 seed=seed)
+        b = {"sparse_ids": data["sparse_ids"], "label": data["label"]}
+    elif arch == "din":
+        data = criteo_like_batch(B, n_sparse=cfg.n_context,
+                                 vocab_sizes=[cfg.context_vocab] * cfg.n_context,
+                                 hist_len=cfg.seq_len, n_items=cfg.n_items, seed=seed)
+        b = {"history": data["history"], "hist_len": data["hist_len"],
+             "target_item": data["target_item"], "context_ids": data["sparse_ids"],
+             "label": data["label"]}
+    else:
+        rng = np.random.default_rng(seed)
+        seq = rng.integers(0, cfg.n_items, (B, cfg.seq_len + 1)).astype(np.int32)
+        b = {"item_seq": seq[:, :-1], "next_items": seq[:, 1:],
+             "neg_items": rng.integers(0, cfg.n_items, (B, cfg.seq_len)).astype(np.int32)}
+    if not for_loss:
+        b = {k: v for k, v in b.items() if k not in ("label", "next_items", "neg_items")}
+    return b
+
+
+def to_card(batch: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in batch.items()}
+
+
+def event_ms(fn, n: int) -> np.ndarray:
+    """Milliseconds of each of ``n`` calls of ``fn`` (CUDA events, each call
+    waited for)."""
+    out = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return np.asarray(out)
+
+
+def phase_recsys(n_cand: int = 1_000_000, serve_batch: int = 512, train_batch: int = 8192,
+                 cpu_rows: int = 64, requests: int = 200) -> dict:
+    """3g: the recsys family at full published width, and its retrieval_cand
+    cell through K1 (see the module docstring)."""
+    import dataclasses
+    import runpy
+
+    from repro_torch.common.tree import flatten, unflatten
+    from repro_torch.configs import EMBED_DIM_RETRIEVAL, RECSYS_ARCH_IDS, RECSYS_CELLS, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys as rs
+    from repro_torch.serve.recsys import padded_candidates, retrieval_step, user_vector
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step, recsys_loss_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_pad = padded_candidates(n_cand)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    launches, archs, k1_shape = 0, {}, None
+    for a_i, arch in enumerate(RECSYS_ARCH_IDS):
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
+        params = rs.init(cfg, seed=a_i, device="cuda")
+        n_params = sum(t.numel() for _, t in flatten(params))
+        serve = to_card(recsys_batch(arch, cfg, serve_batch, seed=1, for_loss=False))
+
+        # (b) float32 on the card against the same tables copied to the CPU
+        head = {k: v[:cpu_rows] for k, v in serve.items()}
+        with torch.no_grad():
+            got = rs.forward(params, cfg, head).cpu()
+            cpu_params = unflatten(params, [t.cpu() for _, t in flatten(params)])
+            want = rs.forward(cpu_params, cfg, {k: v.cpu() for k, v in head.items()})
+        del cpu_params
+        card_cpu = float((got - want).abs().max()) / float(want.abs().max())
+        if not (torch.isfinite(got).all() and card_cpu <= 1e-4):
+            raise AssertionError(f"3g {arch}: card vs CPU rel. err {card_cpu}")
+
+        # (a) serve_p99: the cell's bf16 params, B = serve_batch
+        p16 = unflatten(params, [t.to(torch.bfloat16) for _, t in flatten(params)])
+        del params
+        with torch.no_grad():
+            for _ in range(5):
+                out = rs.forward(p16, cfg16, serve)
+            fwd_ms = event_ms(lambda: rs.forward(p16, cfg16, serve), 50)
+        want_shape = (serve_batch, cfg.embed_dim) if arch == "sasrec" else (serve_batch,)
+        if tuple(out.shape) != want_shape or not torch.isfinite(out).all():
+            raise AssertionError(f"3g {arch}: serve output {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+
+        # (d) retrieval_cand over n_cand seeded candidates padded to n_pad rows
+        d_emb = EMBED_DIM_RETRIEVAL[arch]
+        ud = cfg.embed_dim if arch == "sasrec" else 1
+        cand = torch.randn(n_pad, d_emb, generator=gen, device="cuda").to(torch.bfloat16)
+        cand32 = cand.float()
+        proj = (torch.randn(ud, d_emb, generator=gen, device="cuda") / ud ** 0.5).to(torch.bfloat16)
+        user = {k: v[:1] for k, v in serve.items()}
+        ops.reset_launches()
+        scores, ids = retrieval_step(p16, cfg16, user, cand32, proj, n_cand)
+        torch.cuda.synchronize()
+        step_launches = ops.KERNEL_LAUNCHES["distance_topk"]
+        if step_launches != 1:
+            raise AssertionError(f"3g {arch}: {step_launches} K1 launches in a retrieval step")
+        launches += step_launches
+        u = user_vector(p16, cfg16, user, proj)
+        d_p, i_p = ref.distance_topk_blocked(u, cand32, 100, "ip", n_valid=n_cand)
+        err, swaps = compare_topk(-scores, ids, d_p, i_p, f"3g {arch} retrieval_cand")
+        if not (ids.dtype == torch.int32 and bool((ids < n_cand).all())
+                and bool((scores[:, 1:] <= scores[:, :-1]).all())):
+            raise AssertionError(f"3g {arch}: retrieval output contract")
+        rec = {"params": n_params, "serve_batch": serve_batch, "serve_dtype": "bfloat16",
+               "serve_p50_ms": float(np.percentile(fwd_ms, 50)),
+               "serve_p99_ms": float(np.percentile(fwd_ms, 99)), "serve_calls": len(fwd_ms),
+               "card_vs_cpu_rows": cpu_rows, "card_vs_cpu_rel_err": card_cpu,
+               "retrieval": {"n_cand": n_cand, "n_pad": n_pad, "d_emb": d_emb,
+                             "k1_launches": step_launches, "max_abs_err_vs_plain": err,
+                             "tie_swaps": swaps, "top1_score": float(scores[0, 0])}}
+
+        # (e) SASRec's cell timed: single-user requests, then K1 alone
+        if arch == "sasrec":
+            seqs = to_card(recsys_batch(arch, cfg, requests, seed=2, for_loss=False))
+            for r in range(3):  # warm-up
+                retrieval_step(p16, cfg16, {"item_seq": seqs["item_seq"][r:r + 1]}, cand32,
+                               proj, n_cand)
+            ops.reset_launches()
+            dev_ms, host_ms = [], []
+            for r in range(requests):
+                one = {"item_seq": seqs["item_seq"][r:r + 1]}
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                _, ids_r = retrieval_step(p16, cfg16, one, cand32, proj, n_cand)
+                end.record()
+                ids_r.cpu()  # the user's answer on the host
+                host_ms.append(1e3 * (time.perf_counter() - t0))
+                end.synchronize()
+                dev_ms.append(start.elapsed_time(end))
+            req_launches = ops.KERNEL_LAUNCHES["distance_topk"]
+            if req_launches != requests:
+                raise AssertionError(f"3g sasrec: {req_launches} K1 launches in {requests} "
+                                     "requests")
+            launches += req_launches
+            one = {"item_seq": seqs["item_seq"][:1]}
+            tower_ms = event_ms(lambda: user_vector(p16, cfg16, one, proj), 50)
+            k1_shape = time_kernel(u.contiguous(), cand32, 100,
+                                   f"retrieval_cand: sasrec, 1 x {n_pad:,} x {d_emb}, ip",
+                                   metric="ip", n_valid=n_cand)
+            rec["requests"] = {"n": requests, "k1_launches": req_launches,
+                               "p50_ms": float(np.percentile(dev_ms, 50)),
+                               "p99_ms": float(np.percentile(dev_ms, 99)),
+                               "host_p50_ms": float(np.percentile(host_ms, 50)),
+                               "host_p99_ms": float(np.percentile(host_ms, 99)),
+                               "tower_p50_ms": float(np.percentile(tower_ms, 50)),
+                               "k1_ms": k1_shape["ms"], "k1_bound_ms": k1_shape["bound_ms"],
+                               "topk_mm_ms": k1_shape["library_ms"]}
+        del cand, cand32, proj
+
+        # (c) training: the cell's bf16 params, one seeded batch repeated
+        train = to_card(recsys_batch(arch, cfg, train_batch, seed=3, for_loss=True))
+        opt_state = init_state(p16)
+        step_fn = make_train_step(recsys_loss_fn(arch, cfg16),
+                                  AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=30))
+        losses = []
+
+        def step():
+            nonlocal p16, opt_state
+            p16, opt_state, m = step_fn(p16, opt_state, train)
+            losses.append(float(m["loss"]))  # waits for the step
+
+        step()  # warm-up: step 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = event_ms(step, 3)
+        peak = torch.cuda.max_memory_allocated()
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"3g {arch}: training losses {losses}")
+        rec["train"] = {"batch": train_batch, "dtype": "bfloat16 params, float32 moments",
+                        "losses": losses, "step_ms": step_ms.tolist(),
+                        "step_p50_ms": float(np.percentile(step_ms, 50)),
+                        "peak_device_bytes": peak}
+        rec["seconds"] = time.perf_counter() - t_arch
+        emit({"phase": "recsys", "arch": arch, **rec})
+        archs[arch] = rec
+        del p16, opt_state, train, serve, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (f) the example twin, on the card
+    ops.reset_launches()
+    example = runpy.run_path(str(ROOT / "examples" / "recsys_retrieval_torch.py"),
+                             run_name="example")
+    r50 = example["main"]("cuda")
+    ex_launches = ops.KERNEL_LAUNCHES["distance_topk"]
+    if ex_launches <= 0 or not 0.5 <= r50 <= 1.0:
+        raise AssertionError(f"3g example: R@50 {r50}, K1 launches {ex_launches}")
+    launches += ex_launches
+    emit({"phase": "recsys_summary", "n_cand": n_cand,
+          "reduced": {"train_batch": f"{RECSYS_CELLS['train_batch']['global_batch']} -> "
+                                     f"{train_batch}"},
+          "example_r_at_50": r50, "example_k1_launches": ex_launches, "k1_launches": launches})
+    return {"launches": launches, "timing": k1_shape, "archs": archs}
+
+
 def k3_case(q, k, v, causal: bool, label: str, v_scale: float = 1.0) -> dict:
     """K3 against its plain version on the same tensors: the max abs error,
     ``bf16_agreement`` with the plain version in float32 (0 for float32)
@@ -2372,6 +2620,13 @@ def phase_train_step(S: int = 4096, global_batch: int = 16, num_micro: int = 4,
         gc.collect()
         torch.cuda.empty_cache()
         card_cpu = train_card_vs_cpu()
+        # K3-bwd's float32 path at the check's layer shape (15 heads, S 1100), seeded
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        q, k, v, do = (torch.randn(cfg.n_heads, 1100, cfg.head_dim, generator=gen, device="cuda")
+                       for _ in range(4))
+        check_timing = time_flash_bwd_kernel(
+            q, k, v, do, "6b card-vs-CPU check: smollm-360m layer in float32, 1 x 1100 tokens")
+        del q, k, v, do
         entry = train_entry_point(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2400,7 +2655,8 @@ def phase_train_step(S: int = 4096, global_batch: int = 16, num_micro: int = 4,
     timing = time_flash_kernel(q, k, v, f"train_4k layer: smollm-360m, {B_micro} x {S} tokens")
     return {"launches": launches["flash_attention"],
             "bwd_launches": launches["flash_attention_bwd"],
-            "instances": [{**timing, "launches": launches["flash_attention"]}]}
+            "instances": [{**timing, "launches": launches["flash_attention"]}],
+            "check_bwd": {**check_timing, "launches": card_cpu["k3_bwd_launches"]}}
 
 
 def main() -> int:
@@ -2442,16 +2698,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     deploy = timed("4", phase_deployment)
     deploy_q8 = timed("4b", phase_deployment_q8, *deploy.pop("data"))
+    recsys = timed("3g", phase_recsys)
     prefill = timed("5", phase_prefill_32k)
     serve = timed("6", phase_serve_engine)
     train = timed("6b", phase_train_step)
     timed("7", phase_beam_profile, hnsw_state, profile_batch)
     del hnsw_state
-    k1_launches = (paper["launches"] + paper_hnsw["launches"] + persist["launches"]
-                   + serve_step["launches"] + deploy["launches"])
+    k1_scan_launches = (paper["launches"] + paper_hnsw["launches"] + persist["launches"]
+                        + serve_step["launches"] + deploy["launches"])
+    k1_launches = k1_scan_launches + recsys["launches"]
     k2_launches = paper_q8["launches"] + deploy_q8["launches"]
     k3_launches = prefill["launches"] + serve["launches"] + train["launches"]
-    k3_bwd_launches = train["bwd_launches"]
+    k3_bwd_launches = train["bwd_launches"] + train["check_bwd"]["launches"]
     if min(k1_launches, k2_launches, k3_launches, k3_bwd_launches) <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
                              f"K2 {k2_launches}, K3 {k3_launches}, K3-bwd {k3_bwd_launches}")
@@ -2462,13 +2720,27 @@ def main() -> int:
         for rec in prefill["instances"] + serve["instances"] + train["instances"]]
     t3 = k3_instances[0]  # the 32k prefill's bf16 shape
     t4 = k3_bwd["timing"]  # the training step's layer shape
+    k1_keys = ("shape", "B", "N", "D", "k", "k_pad", "metric", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the scan phases' launches (3, 3c, 3e, 3f, 4) timed at the paper partition; 3g's at
+    # the retrieval_cand cell's shape
+    k1_instances = [{key: rec[key] for key in k1_keys}
+                    for rec in ({**t1, "launches": k1_scan_launches},
+                                {**recsys["timing"], "launches": recsys["launches"]})]
+    bwd_keys = ("shape", "dtype", "BH", "S", "D", "causal", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # 6b's timed steps (bf16, timed in 2d), then 6b's card-vs-CPU check (float32)
+    k3_bwd_instances = [{key: rec[key] for key in bwd_keys}
+                        for rec in ({**t4, "launches": train["bwd_launches"]}, train["check_bwd"])]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
     emit({"kernels": [
         {"name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": k1_launches,
-         "max_abs_err": max(max_err, t1["max_abs_err"], deploy["timing"]["max_abs_err"]),
+         "max_abs_err": max(max_err, t1["max_abs_err"], deploy["timing"]["max_abs_err"],
+                            recsys["timing"]["max_abs_err"]),
          "ms": t1["ms"], "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
-         "bound_by": t1["bound_by"], "library_ms": t1["library_ms"]},
+         "bound_by": t1["bound_by"], "library_ms": t1["library_ms"],
+         "instances": k1_instances},
         {"name": "distance_topk_q8", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": k2_launches,
          "max_abs_err": max(max_err_q8, t2["max_abs_err"], deploy_q8["timing"]["max_abs_err"]),
@@ -2483,8 +2755,10 @@ def main() -> int:
          "instances": k3_instances},
         {"name": "flash_attention_bwd", "route": "cuda", "source": K3_BWD_SOURCE,
          "replaces": K3_BWD_REPLACES, "launches": k3_bwd_launches,
-         "max_abs_err": k3_bwd["max_abs_err"], "ms": t4["ms"], "plain_ms": t4["plain_ms"],
-         "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"], "library_ms": t4["library_ms"]},
+         "max_abs_err": max(k3_bwd["max_abs_err"], train["check_bwd"]["max_abs_err"]),
+         "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
+         "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
+         "instances": k3_bwd_instances},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,14 @@ kernel (``flash_attention.cu``) for long prefill; the distributed serve
 step over a ``torch.distributed`` mesh (``serve.retrieval.make_serve_fn``
 over ``launch.mesh``'s named meshes, the broker an all-gather in
 ``distributed``, K1 in every float32 segment scan) and the searcher
-fleet's elastic plans (``train.elastic``).
+fleet's elastic plans (``train.elastic``); the LM training step
+(``train``: AdamW, microbatching, remat, checkpoints, ``launch/train.py``)
+with K3 and its backward kernel K3-bwd (``flash_attention_bwd.cu``) in
+every layer; and the recsys family (``models/recsys.py``: AutoInt, DIN,
+SASRec, xDeepFM, their configs, loss and training step) with the
+retrieval_cand cell (``serve/recsys.py``: user tower, projection, K1 over
+the candidate corpus).
 
-Not ported: the training slice, the sharded LM cells, the models beyond
-the dense LMs, and the static analyzers (ROADMAP "Modules to port").
+Not ported: the sharded LM cells, the MoE / MLA LMs, the GNN family, and
+the static analyzers (ROADMAP "Modules to port").
 """

@@ -1,22 +1,35 @@
-"""The LM architectures the port runs, with their published configs.
+"""The architectures the port runs, with their published configs.
 
-A copy of the dense GQA entries of ``repro.configs.registry`` (sources as
-there):
+A copy of the dense GQA and recsys entries of ``repro.configs.registry``
+(sources as there):
 
   codeqwen1.5-7b  [hf:Qwen/CodeQwen1.5-7B]
   qwen2-72b       [arXiv:2407.10671]
   smollm-360m     [hf:HuggingFaceTB/SmolLM-360M]
+  autoint         [arXiv:1810.11921]
+  din             [arXiv:1706.06978]
+  sasrec          [arXiv:1808.09781]
+  xdeepfm         [arXiv:1803.05170]
 
-The reference's MoE / MLA LMs (deepseek-moe-16b, deepseek-v2-lite-16b)
-raise ``NotImplementedError``; its GNN and recsys archs are not LMs and are
-not part of the port.
+with the reference's cell overrides (``serving_config``,
+``training_config``), its reduced configs (``reduced_config``,
+``reduced_recsys_config``), and the recsys cells' batch sizes
+(``RECSYS_CELLS``) and candidate widths (``EMBED_DIM_RETRIEVAL``).  The
+reference's MoE / MLA LMs (deepseek-moe-16b, deepseek-v2-lite-16b) raise
+``NotImplementedError``; its GNN arch (dimenet) and ``configs/families.py``
+are not ported yet (ROADMAP item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.models.recsys import AutoIntConfig, DINConfig, SASRecConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
+
+# Criteo-style vocab mix for the 39-field archs: 13 integer-bucket fields
+# (small vocab) + 26 categorical fields (large, hash-bucketed), ~26M rows.
+CRITEO39_VOCABS = tuple([1000] * 13 + [1_000_000] * 26)
 
 _CONFIGS = {
     # 32L d=4096 32H (GQA kv=32 => MHA-style kv) d_ff=13440 vocab=92416,
@@ -37,24 +50,50 @@ _CONFIGS = {
         head_dim=64, d_ff=2560, vocab=49152, tie_embeddings=True, rope_theta=10_000.0,
     ),
 }
+_RECSYS = {
+    "autoint": AutoIntConfig(name="autoint", n_sparse=39, embed_dim=16, n_attn_layers=3,
+                             n_heads=2, d_attn=32, vocab_sizes=CRITEO39_VOCABS),
+    "din": DINConfig(name="din", embed_dim=18, seq_len=100, attn_mlp=(80, 40), mlp=(200, 80),
+                     n_items=10_000_000, n_context=8, context_vocab=100_000),
+    "sasrec": SASRecConfig(name="sasrec", embed_dim=50, n_blocks=2, n_heads=1, seq_len=50,
+                           n_items=10_000_000),
+    "xdeepfm": XDeepFMConfig(name="xdeepfm", n_sparse=39, embed_dim=10,
+                             cin_layers=(200, 200, 200), mlp=(400, 400),
+                             vocab_sizes=CRITEO39_VOCABS),
+}
 _UNPORTED = {
     "deepseek-moe-16b": "MoE blocks",
     "deepseek-v2-lite-16b": "MLA attention and MoE blocks",
 }
 ARCH_IDS = tuple(_CONFIGS)
+RECSYS_ARCH_IDS = tuple(_RECSYS)
+#: the retrieval_cand cell's candidate width a recsys arch (the reference's
+#: ``embed_dim_retrieval or 64``)
+EMBED_DIM_RETRIEVAL = {"autoint": 64, "din": 18, "sasrec": 50, "xdeepfm": 64}
+#: the reference's recsys cells (``families.py`` ``RECSYS_CELLS``): kind,
+#: global batch, and the retrieval cell's candidate count
+RECSYS_CELLS = {
+    "train_batch": {"kind": "train", "global_batch": 65_536},
+    "serve_p99": {"kind": "forward", "global_batch": 512},
+    "serve_bulk": {"kind": "forward", "global_batch": 262_144},
+    "retrieval_cand": {"kind": "retrieval", "global_batch": 1, "n_candidates": 1_000_000},
+}
 #: microbatches of a training step, and the two-level remat group
 #: (``LMArch(num_micro=..., remat_group=...)`` in the reference's registry)
 NUM_MICRO = {"codeqwen1.5-7b": 4, "qwen2-72b": 16, "smollm-360m": 1}
 REMAT_GROUP = {"codeqwen1.5-7b": 0, "qwen2-72b": 5, "smollm-360m": 0}
 
 
-def get_config(arch_id: str) -> TransformerConfig:
-    """The published config of a dense GQA LM."""
+def get_config(arch_id: str):
+    """The published config of a dense GQA LM (a ``TransformerConfig``) or a
+    recsys arch (its ``models.recsys`` config)."""
     if arch_id in _UNPORTED:
         raise NotImplementedError(f"{arch_id}: {_UNPORTED[arch_id]} are not ported "
                                   "(ROADMAP item 10)")
+    if arch_id in _RECSYS:
+        return _RECSYS[arch_id]
     if arch_id not in _CONFIGS:
-        raise ValueError(f"unknown LM arch {arch_id!r}; the port has {ARCH_IDS}")
+        raise ValueError(f"unknown arch {arch_id!r}; the port has {ARCH_IDS + RECSYS_ARCH_IDS}")
     return _CONFIGS[arch_id]
 
 
@@ -93,3 +132,21 @@ def reduced_config(cfg: TransformerConfig) -> TransformerConfig:
         mla_qk_rope_head_dim=8, mla_v_head_dim=16, q_chunk=0, remat=False,
         param_dtype="float32", compute_dtype="float32",
     )
+
+
+def reduced_recsys_config(cfg):
+    """The reference's reduced recsys config (``RecsysArch.model_config(
+    reduced=True)``): float32, vocabs of 64 a field (AutoInt, xDeepFM; xDeepFM
+    also CIN 16-16 and MLP 32-32), 256 items and sequences of 16 (DIN with
+    context vocabs of 64, SASRec)."""
+    small = {"param_dtype": "float32", "compute_dtype": "float32"}
+    if isinstance(cfg, AutoIntConfig):
+        return dataclasses.replace(cfg, vocab_sizes=(64,) * cfg.n_sparse, **small)
+    if isinstance(cfg, DINConfig):
+        return dataclasses.replace(cfg, n_items=256, context_vocab=64, seq_len=16, **small)
+    if isinstance(cfg, SASRecConfig):
+        return dataclasses.replace(cfg, n_items=256, seq_len=16, **small)
+    if isinstance(cfg, XDeepFMConfig):
+        return dataclasses.replace(cfg, vocab_sizes=(64,) * cfg.n_sparse, cin_layers=(16, 16),
+                                   mlp=(32, 32), **small)
+    raise TypeError(type(cfg))

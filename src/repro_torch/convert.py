@@ -4,8 +4,9 @@ LANNS's counterpart of loading weights: the JAX index's config, fitted
 segmenter tree and per-partition corpora (and, for the HNSW engine, its
 frozen graphs) become a port ``LannsIndex`` without refitting,
 re-partitioning or rebuilding, so both packages query the same partitions;
-and the JAX LM's params (and AdamW state) become the port's
-``Transformer`` (and optimizer state), and back.
+the JAX LM's params (and AdamW state) become the port's ``Transformer``
+(and optimizer state), and back; and a recsys model's params (and AdamW
+state), plain trees in both packages, are carried leaf for leaf.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.common.tree import leaves, unflatten
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.lanns import (
     LannsConfig,
@@ -148,3 +150,27 @@ def adamw_state_from_jax(cfg: TransformerConfig, state_np: dict, device=None) ->
 
     step = torch.tensor(int(np.asarray(state_np["step"])), dtype=torch.int32, device=dev)
     return {"step": step, "m": moments(state_np["m"]), "v": moments(state_np["v"])}
+
+
+def recsys_params_from_jax(params_np, dtype=torch.float32, device=None):
+    """The port's recsys params from the reference's ``*_init`` pytree as
+    numpy arrays: the same tree, each leaf a ``dtype`` tensor on the
+    device."""
+    dev = resolve_device(device)
+    return unflatten(params_np, [torch.from_numpy(np.array(a, dtype=np.float32))
+                                 .to(device=dev, dtype=dtype) for a in leaves(params_np)])
+
+
+def recsys_params_to_numpy(params) -> dict:
+    """The inverse of :func:`recsys_params_from_jax`: the tree as float32
+    numpy arrays (AdamW's ``m`` / ``v`` trees too)."""
+    return unflatten(params, [t.detach().to(torch.float32).cpu().numpy() for t in leaves(params)])
+
+
+def recsys_adamw_state_from_jax(state_np: dict, device=None) -> dict:
+    """The port's AdamW state from the reference's for a recsys model:
+    ``step`` int32, ``m`` / ``v`` float32 trees of the params' structure."""
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(state_np["step"])), dtype=torch.int32, device=dev)
+    return {"step": step, "m": recsys_params_from_jax(state_np["m"], device=dev),
+            "v": recsys_params_from_jax(state_np["v"], device=dev)}

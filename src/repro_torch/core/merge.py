@@ -2,9 +2,10 @@
 
 ``per_shard_topk`` implements Eq. (5)-(6) in pure Python, as
 ``repro.core.merge`` does.  The merges run as tensor ops on the device that
-holds the candidates; ``merge_topk_np`` is the loop reference.  All merges
-take (..., C) candidate lists with LOWER-IS-BETTER distances, invalid
-entries being (+inf, -1).
+holds the candidates; ``merge_topk_np`` is the loop reference, and the
+offline numpy merges (``merge_topk_disjoint_np``, ``two_level_merge_np``)
+are copies of the reference's.  All merges take (..., C) candidate lists
+with LOWER-IS-BETTER distances, invalid entries being (+inf, -1).
 """
 
 from __future__ import annotations
@@ -139,3 +140,75 @@ def merge_topk_np(dists: np.ndarray, ids: np.ndarray, k: int):
             out_d[r, c] = d
             out_i[r, c] = i
     return out_d.reshape(*lead, k), out_i.reshape(*lead, k)
+
+
+def _merge_topk_vec_np(dists: np.ndarray, ids: np.ndarray, k: int):
+    """The reference's numpy ``merge_topk_vec``: the semantics of
+    ``merge_topk_np`` in two row-wise lexsorts (group by id with distance as
+    the tie-break, mask the rest of each id-run, order the survivors by
+    (distance, id))."""
+    *lead, C = dists.shape
+    d2 = dists.reshape(-1, C)
+    i2 = ids.reshape(-1, C)
+    R = d2.shape[0]
+    sentinel = np.iinfo(i2.dtype).max if np.issubdtype(i2.dtype, np.integer) else np.inf
+    invalid = (i2 < 0) | np.isinf(d2)
+    dk = np.where(invalid, np.inf, d2)
+    ik = np.where(invalid, sentinel, i2)
+    order = np.lexsort((dk, ik), axis=-1)  # by id, then distance
+    sid = np.take_along_axis(ik, order, axis=-1)
+    sd = np.take_along_axis(dk, order, axis=-1)
+    sinv = np.take_along_axis(invalid, order, axis=-1)
+    dup = np.concatenate([np.zeros((R, 1), bool), sid[:, 1:] == sid[:, :-1]], axis=1)
+    sd = np.where(dup | sinv, np.inf, sd)
+    order = np.lexsort((sid, sd), axis=-1)  # by distance, then id
+    kk = min(k, C)
+    take = order[:, :kk]
+    out_d = np.full((R, k), np.inf, dtype=dists.dtype)
+    out_i = np.full((R, k), -1, dtype=ids.dtype)
+    out_d[:, :kk] = np.take_along_axis(sd, take, axis=-1)
+    out_i[:, :kk] = np.where(np.isinf(out_d[:, :kk]), -1, np.take_along_axis(sid, take, axis=-1))
+    return out_d.reshape(*lead, k), out_i.reshape(*lead, k)
+
+
+def merge_topk_disjoint_np(dists: np.ndarray, ids: np.ndarray, k: int):
+    """Dedup-FREE top-k merge in numpy: one introselect + one partial sort
+    per row.  Valid only when candidate ids are disjoint across the merged
+    lists (virtual spill).  Ascending by distance, (+inf, -1) padding; tie
+    order among equal distances may differ from the dedup merge's."""
+    *lead, C = dists.shape
+    d2 = dists.reshape(-1, C)
+    i2 = np.where(np.isinf(d2), -1, ids.reshape(-1, C))
+    kk = min(k, C)
+    if kk < C:
+        sel = np.argpartition(d2, kk - 1, axis=1)[:, :kk]
+        d2 = np.take_along_axis(d2, sel, axis=1)
+        i2 = np.take_along_axis(i2, sel, axis=1)
+    order = np.argsort(d2, axis=1, kind="stable")
+    out_d = np.full((d2.shape[0], k), np.inf, dtype=dists.dtype)
+    out_i = np.full((d2.shape[0], k), -1, dtype=ids.dtype)
+    out_d[:, :kk] = np.take_along_axis(d2, order, axis=1)
+    out_i[:, :kk] = np.take_along_axis(i2, order, axis=1)
+    return out_d.reshape(*lead, k), out_i.reshape(*lead, k)
+
+
+def two_level_merge_np(seg_dists: np.ndarray, seg_ids: np.ndarray, topk: int,
+                       confidence: float = 0.95):
+    """The full two-level merge of the offline path (paper §5.3.2).
+
+    seg_dists / seg_ids: (S, m, B, c) per (shard, segment) candidates.
+    Level 1 (inside a shard) merges over segments to (S, B, perShardTopK);
+    level 2 (the broker) merges over shards to (B, topk).  The shard-level
+    perShardTopK trims level 1, as the paper propagates it.
+    """
+    S, m, B, c = seg_dists.shape
+    pstk = per_shard_topk(topk, S, confidence)
+    shard_d = np.empty((S, B, pstk), dtype=seg_dists.dtype)
+    shard_i = np.empty((S, B, pstk), dtype=seg_ids.dtype)
+    for s in range(S):
+        d = np.moveaxis(seg_dists[s], 0, -1).reshape(B, m * c)
+        i = np.moveaxis(seg_ids[s], 0, -1).reshape(B, m * c)
+        shard_d[s], shard_i[s] = _merge_topk_vec_np(d, i, pstk)
+    d = np.moveaxis(shard_d, 0, -1).reshape(B, S * pstk)
+    i = np.moveaxis(shard_i, 0, -1).reshape(B, S * pstk)
+    return _merge_topk_vec_np(d, i, topk)

@@ -224,3 +224,23 @@ def make_segmenter(config: SegmenterConfig, device: torch.device):
     if config.kind == "rs":
         return RandomSegmenter(config)
     return TreeSegmenter(config, device)
+
+
+def expected_spill_fraction(alpha: float, depth: int) -> float:
+    """Expected fraction of queries routed to >1 segment after `depth` levels.
+
+    Per level a query falls in the band with probability ~2*alpha; the paper
+    quotes "~30% queries to both partitions at any level" for alpha=0.15.
+    """
+    return 1.0 - (1.0 - 2.0 * alpha) ** depth
+
+
+def failure_probability(levels: np.ndarray, alpha: float, n: int) -> np.ndarray:
+    """Paper Figure 4: P(L) ≈ sum_{l=1..L} 1 / (2 (0.5+alpha)^l n), the
+    curve the paper plots for n = 10_000."""
+    levels = np.asarray(levels)
+    out = np.zeros(levels.shape, dtype=np.float64)
+    for i, L in np.ndenumerate(levels):
+        ls = np.arange(1, int(L) + 1, dtype=np.float64)
+        out[i] = np.sum(1.0 / (2.0 * (0.5 + alpha) ** ls * n))
+    return out

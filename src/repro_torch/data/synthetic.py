@@ -1,5 +1,6 @@
-"""Deterministic synthetic ANN datasets and LM token batches, bit-identical to
-``repro.data.synthetic`` for a fixed seed (numpy generators)."""
+"""Deterministic synthetic ANN datasets, LM token batches and click-log
+batches, bit-identical to ``repro.data.synthetic`` for a fixed seed (numpy
+generators)."""
 
 from __future__ import annotations
 
@@ -53,3 +54,37 @@ def token_batch(batch: int, seq_len: int, vocab: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, size=(batch, seq_len + 1), dtype=np.int64)
     return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+
+def criteo_like_batch(
+    batch: int,
+    *,
+    n_sparse: int = 39,
+    n_dense: int = 0,
+    vocab_sizes=None,
+    hist_len: int = 0,
+    n_items: int = 0,
+    seed: int = 0,
+):
+    """Click-log style batch: per-field categorical ids (+ optional dense
+    features, behaviour history, candidate item) with a clicked label whose
+    logit depends on a hidden linear model, so training losses decrease."""
+    rng = np.random.default_rng(seed)
+    if vocab_sizes is None:
+        vocab_sizes = [100_000] * n_sparse
+    sparse = np.stack(
+        [rng.integers(0, v, size=batch, dtype=np.int64) for v in vocab_sizes], axis=1
+    ).astype(np.int32)
+    out = {"sparse_ids": sparse}
+    if n_dense:
+        out["dense"] = rng.standard_normal((batch, n_dense)).astype(np.float32)
+    if hist_len:
+        out["history"] = rng.integers(0, max(n_items, 2), size=(batch, hist_len), dtype=np.int32)
+        out["hist_len"] = rng.integers(1, hist_len + 1, size=batch, dtype=np.int32)
+        out["target_item"] = rng.integers(0, max(n_items, 2), size=batch, dtype=np.int32)
+    # hidden ground truth: logit from hashed field ids
+    h = (sparse * (np.arange(sparse.shape[1]) + 1)[None, :]).sum(axis=1)
+    logit = ((h % 97) / 97.0 - 0.5) * 4.0
+    p = 1.0 / (1.0 + np.exp(-logit))
+    out["label"] = (rng.random(batch) < p).astype(np.float32)
+    return out

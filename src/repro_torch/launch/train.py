@@ -45,7 +45,7 @@ def train(args) -> dict:
     "start_step", "step_ms"}."""
     from repro_torch.common.tree import leaves
     from repro_torch.common.utils import resolve_device
-    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs import ARCH_IDS, get_config, reduced_config
     from repro_torch.data.pipeline import ShardedBatchIterator
     from repro_torch.data.synthetic import token_batch
     from repro_torch.models import transformer as tf
@@ -53,6 +53,8 @@ def train(args) -> dict:
     from repro_torch.train.optimizer import AdamWConfig, init_state
     from repro_torch.train.train_step import lm_loss_fn, make_train_step
 
+    if args.arch not in ARCH_IDS:
+        raise ValueError(f"--arch {args.arch!r}: this loop trains the LMs {ARCH_IDS}")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:

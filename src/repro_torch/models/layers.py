@@ -22,6 +22,15 @@ from repro_torch.kernels import ops
 _ROADMAP_MLA = "MLA attention is not ported (ROADMAP item 10: MoE and MLA)"
 
 
+def _init_dense(gen: torch.Generator, shape, dtype, scale: float | None = None) -> torch.Tensor:
+    """normal x ``scale`` (default 1/sqrt(fan_in), fan_in = shape[0]), drawn
+    in float32 from ``gen`` on its device and cast to ``dtype``, as the
+    reference's ``_init_dense`` draws and casts."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32) * scale
+    return w.to(dtype)
+
+
 def rms_norm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm with float32 statistics; the result stays in x's dtype."""
     d = x.shape[-1]

@@ -2,7 +2,8 @@
 slots), the ANN micro-batching front ends (sync + threaded async), the SLO
 controller, arrival-process load generation for p99-vs-load sweeps, and
 the distributed serve step over a ``torch.distributed`` mesh
-(``retrieval``)."""
+(``retrieval``), and the recsys retrieval_cand step through K1
+(``recsys``)."""
 
 from repro_torch.serve.controller import SLOController
 from repro_torch.serve.engine import (
@@ -23,6 +24,7 @@ from repro_torch.serve.loadgen import (
     run_load_point,
     sweep_load,
 )
+from repro_torch.serve.recsys import retrieval_step, scan_candidates, user_vector
 from repro_torch.serve.retrieval import (
     DeviceIndex,
     build_device_index,
@@ -47,9 +49,12 @@ __all__ = [
     "make_prefill_fn",
     "make_serve_fn",
     "measure_saturation_qps",
+    "retrieval_step",
     "run_controller_ab",
     "route_queries_tree",
     "run_load_point",
+    "scan_candidates",
     "shard_arrays",
     "sweep_load",
+    "user_vector",
 ]

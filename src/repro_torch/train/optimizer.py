@@ -76,10 +76,19 @@ def reference_ndim(name: str, leaf) -> int:
 
 
 def default_decay_mask(name: str, leaf) -> bool:
-    """The reference's default, ``leaf.ndim >= 2`` on its own shapes: every
-    block leaf decays (norm scales and biases included, being (L, d) there),
-    ``embed`` and ``lm_head`` decay, ``final_norm`` does not."""
+    """The reference's default on a ``Transformer``, ``leaf.ndim >= 2`` on
+    its own shapes: every block leaf decays (norm scales and biases
+    included, being (L, d) there), ``embed`` and ``lm_head`` decay,
+    ``final_norm`` does not."""
     return reference_ndim(name, leaf) >= 2
+
+
+def unstacked_decay_mask(name: str, leaf) -> bool:
+    """The reference's default on a tree that it does not stack either (the
+    recsys models, whose ``blocks`` is a plain list there too):
+    ``leaf.ndim >= 2``, so SASRec's ``blocks/i/ln1`` and ``ln2`` do not
+    decay."""
+    return leaf.ndim >= 2
 
 
 @torch.no_grad()
@@ -89,9 +98,14 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: dict,
 
     params: a ``Transformer`` or a param tree; grads: a tree of the same
     structure (any float dtype).  decay_mask(name, leaf) -> bool, name the
-    leaf's path (``blocks/3/attn/wq``); default :func:`default_decay_mask`.
+    leaf's path (``blocks/3/attn/wq``); by default the reference's rule on
+    its own layout: :func:`default_decay_mask` for a ``Transformer`` (whose
+    blocks the reference stacks), :func:`unstacked_decay_mask` for a tree.
     metrics: ``grad_norm`` and ``lr``, 0-d float32 tensors.
     """
+    if decay_mask is None:
+        decay_mask = (default_decay_mask if isinstance(params, torch.nn.Module)
+                      else unstacked_decay_mask)
     tree = tree_of(params)
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
@@ -102,7 +116,6 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: dict,
     stepf = step.to(torch.float32)
     bc1 = 1.0 - b1 ** stepf
     bc2 = 1.0 - b2 ** stepf
-    decay_mask = decay_mask or default_decay_mask
     named = flatten(tree)
     g_l, m_l, v_l = leaves(grads), leaves(state["m"]), leaves(state["v"])
     if not len(named) == len(g_l) == len(m_l) == len(v_l):

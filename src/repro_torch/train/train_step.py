@@ -1,12 +1,12 @@
-"""The LM train step: loss, grads, microbatch accumulation, AdamW update.
+"""The train step: loss, grads, microbatch accumulation, AdamW update.
 
 The port of ``repro.train.train_step``.  ``make_train_step`` returns
     (params, opt_state, batch) -> (params, opt_state, metrics)
-with the reference's arithmetic: the loss's grads by autograd (K3 and
-K3-bwd in every layer's attention on the card, under ``torch.utils.
+with the reference's arithmetic: the loss's grads by autograd (for the LMs
+K3 and K3-bwd in every layer's attention on the card, under ``torch.utils.
 checkpoint`` where the config asks for remat), float32 accumulation over
-microbatches, and the AdamW update in place (``train.optimizer``).
-Only the LM family is ported: the DimeNet and recsys losses raise.
+microbatches, and the AdamW update in place (``train.optimizer``).  The LM
+and recsys losses are ported; the DimeNet loss raises.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from repro_torch.common.tree import leaves, unflatten
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, tree_of
 
 _ROADMAP_MODELS = ("the {} model is not ported (ROADMAP §1 item 10: the port runs the dense "
-                   "GQA LMs only)")
+                   "GQA LMs and the recsys archs)")
 
 
 def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0, mask=None):
@@ -46,6 +46,11 @@ def bce_with_logits(logits, labels):
     logits = logits.to(torch.float32)
     return torch.mean(torch.clamp(logits, min=0) - logits * labels
                       + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def _softplus(x):
+    """log(1 + e^x) = max(x, 0) + log1p(e^-|x|), as ``jax.nn.softplus``."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def _grads(loss_fn, params, batch, leaf_list):
@@ -132,4 +137,39 @@ def dimenet_loss_fn(cfg):
 
 
 def recsys_loss_fn(arch: str, cfg):
-    raise NotImplementedError(_ROADMAP_MODELS.format(f"recsys ({arch})"))
+    """loss_fn(params, batch) for a recsys arch (``models.recsys``): BCE on
+    ``label`` for AutoInt, DIN and xDeepFM; for SASRec, with ``neg_items``
+    the paper's BCE on the positive next item and one sampled negative per
+    position, else (small vocab) cross-entropy over every item.  SASRec's
+    ``next_items`` are -1 where padded: masked out, and clipped to 0 before
+    the lookup as the reference clips them.  The batch moves to the params'
+    device."""
+    from repro_torch.models import recsys as rs
+
+    def loss_fn(params, batch):
+        dev = leaves(params)[0].device
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        if arch == "autoint":
+            loss = bce_with_logits(rs.autoint_apply(params, cfg, b["sparse_ids"]), b["label"])
+        elif arch == "xdeepfm":
+            loss = bce_with_logits(rs.xdeepfm_apply(params, cfg, b["sparse_ids"]), b["label"])
+        elif arch == "din":
+            logits = rs.din_apply(params, cfg, history=b["history"], hist_len=b["hist_len"],
+                                  target_item=b["target_item"], context_ids=b["context_ids"])
+            loss = bce_with_logits(logits, b["label"])
+        elif arch == "sasrec":
+            labels = b["next_items"]
+            mask = (labels >= 0).to(torch.float32)
+            if "neg_items" in b:
+                pos, neg = rs.sasrec_sampled_logits(params, cfg, b["item_seq"],
+                                                    labels.clamp(min=0), b["neg_items"])
+                ls = _softplus(-pos.to(torch.float32)) + _softplus(neg.to(torch.float32))
+                loss = (ls * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+            else:  # small-vocab evaluation path
+                logits = rs.sasrec_apply(params, cfg, b["item_seq"])
+                loss = cross_entropy_loss(logits, labels.clamp(min=0), mask=mask)
+        else:
+            raise ValueError(f"recsys_loss_fn: unknown arch {arch!r}")
+        return loss, torch.zeros((), dtype=torch.float32, device=dev)
+
+    return loss_fn

@@ -2,7 +2,9 @@
 
 Hashing, synthetic data and the fitted segmenter trees must be bit-identical
 for a fixed seed; partition assignments and routing masks equal; merges
-equal to the reference's numpy merges."""
+equal to the reference's numpy merges; the numpy copies of ``core``'s
+remaining public functions (the spill and failure formulas, the offline
+merges, ``DEFAULT_BUILD_CHUNK``) equal to the reference's."""
 
 import dataclasses
 
@@ -12,7 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.common import utils as jutils
+from repro.core import hnsw as jhnsw
 from repro.core import merge as jmerge
+from repro.core import segmenter as jsegmenter
 from repro.core import plan as jplan
 from repro.core import recall as jrecall
 from repro.core.lanns import LannsConfig as JConfig
@@ -21,6 +25,7 @@ from repro.core.segmenter import make_segmenter as jmake_segmenter
 from repro.core.sharding import TwoLevelPartitioner as JPartitioner
 from repro.core.sharding import hash_shard as jhash_shard
 from repro.data import synthetic as jsynth
+from repro_torch import core as pcore
 from repro_torch.common import utils
 from repro_torch.core import merge, plan, recall
 from repro_torch.core.lanns import LannsConfig
@@ -175,3 +180,62 @@ def test_knob_groups_and_merge_path_match_reference():
             assert plan.choose_merge_path(port_cfg) == jplan.choose_merge_path(cfg)
     sv = np.array([1, 2, 2, 4])
     assert plan.query_stats(9, sv, "disjoint").keys() == jplan.query_stats(9, sv, "disjoint").keys()
+
+
+# --------------------------------------------------------------------------
+# core's remaining public functions: numpy copies of the reference's
+
+
+@pytest.mark.parametrize("alpha,depth", [(0.15, 1), (0.15, 3), (0.05, 6), (0.3, 10)])
+def test_expected_spill_fraction_matches_reference(alpha, depth):
+    assert pcore.expected_spill_fraction(alpha, depth) == jsegmenter.expected_spill_fraction(
+        alpha, depth)
+    assert pcore.expected_spill_fraction(0.15, 1) == pytest.approx(0.3)
+
+
+@pytest.mark.parametrize("alpha,n", [(0.15, 10_000), (0.05, 1_000)])
+def test_failure_probability_matches_reference(alpha, n):
+    levels = np.arange(1, 9)
+    p = pcore.failure_probability(levels, alpha=alpha, n=n)
+    np.testing.assert_array_equal(p, jsegmenter.failure_probability(levels, alpha=alpha, n=n))
+    assert np.all(np.diff(p) > 0)
+    grid = np.array([[1, 4], [8, 2]])
+    np.testing.assert_array_equal(pcore.failure_probability(grid, alpha, n),
+                                  jsegmenter.failure_probability(grid, alpha, n))
+
+
+@pytest.mark.parametrize("R,C,k,seed", [(9, 64, 10, 4), (4, 20, 30, 5), (1, 200, 200, 6)])
+def test_merge_topk_disjoint_np_matches_reference(R, C, k, seed):
+    d, ids = _candidates(R, C, seed, dup=False)
+    d_r, i_r = jmerge.merge_topk_disjoint_np(d, ids, k)
+    d_p, i_p = pcore.merge_topk_disjoint_np(d, ids, k)
+    np.testing.assert_array_equal(d_p, d_r)
+    np.testing.assert_array_equal(i_p, i_r)
+    d3, i3 = d.reshape(R, 1, C), ids.reshape(R, 1, C)
+    np.testing.assert_array_equal(pcore.merge_topk_disjoint_np(d3, i3, k)[1],
+                                  jmerge.merge_topk_disjoint_np(d3, i3, k)[1])
+
+
+@pytest.mark.parametrize("S,m,B,c,k,dup", [(4, 2, 5, 30, 10, False), (3, 4, 7, 20, 50, True),
+                                           (1, 2, 3, 16, 8, True)])
+def test_two_level_merge_np_matches_reference(S, m, B, c, k, dup):
+    """The reference's case (``tests/test_merge.py``: 4 x 2 x 5 x 30, k 10,
+    distinct ids) and cases with duplicate ids across segments, invalid
+    entries and one shard."""
+    rng = np.random.default_rng(S * 100 + k)
+    dists = rng.standard_normal((S, m, B, c)).astype(np.float32)
+    if dup:
+        ids = rng.integers(0, S * B * c, (S, m, B, c)).astype(np.int64)
+        dists[rng.random(dists.shape) < 0.1] = np.inf
+        ids[rng.random(ids.shape) < 0.05] = -1
+    else:
+        ids = rng.permutation(S * m * B * c).reshape(S, m, B, c).astype(np.int64)
+    d_r, i_r = jmerge.two_level_merge_np(dists, ids, k, confidence=0.95)
+    d_p, i_p = pcore.two_level_merge_np(dists, ids, k, confidence=0.95)
+    assert d_p.shape == (B, k)
+    np.testing.assert_array_equal(d_p, d_r)
+    np.testing.assert_array_equal(i_p, i_r)
+
+
+def test_default_build_chunk_matches_reference():
+    assert pcore.DEFAULT_BUILD_CHUNK == jhnsw.DEFAULT_BUILD_CHUNK == 256

@@ -306,8 +306,10 @@ def test_microbatch_grads_accumulate_in_float32():
 def test_losses_of_unported_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pts.dimenet_loss_fn(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pts.recsys_loss_fn("din", None)
+    # the recsys family is ported (tests/test_torch_recsys.py); an arch it
+    # does not have raises when its loss is taken
+    with pytest.raises(ValueError, match="unknown arch"):
+        pts.recsys_loss_fn("dimenet", None)({"w": torch.zeros(2)}, {})
 
 
 def test_cross_entropy_and_bce_match_reference():
