@@ -26,8 +26,11 @@ with K3 and its backward kernel K3-bwd (``flash_attention_bwd.cu``) in
 every layer; and the recsys family (``models/recsys.py``: AutoInt, DIN,
 SASRec, xDeepFM, their configs, loss and training step) with the
 retrieval_cand cell (``serve/recsys.py``: user tower, projection, K1 over
-the candidate corpus).
+the candidate corpus); and the MoE and MLA LMs, deepseek-moe-16b and
+deepseek-v2-lite-16b (``models/moe.py``, ``layers.mla_apply``), served
+through ``ServeEngine`` with K3 in every prefill layer (MLA's q . k head
+dim 192 with v's 128 included).
 
-Not ported: the sharded LM cells, the MoE / MLA LMs, the GNN family, and
-the static analyzers (ROADMAP "Modules to port").
+Not ported: training the MoE / MLA LMs, the sharded LM cells, the GNN
+family, and the static analyzers (ROADMAP "Modules to port").
 """

@@ -1,29 +1,31 @@
 """The architectures the port runs, with their published configs.
 
-A copy of the dense GQA and recsys entries of ``repro.configs.registry``
-(sources as there):
+A copy of the LM and recsys entries of ``repro.configs.registry`` (sources
+as there):
 
-  codeqwen1.5-7b  [hf:Qwen/CodeQwen1.5-7B]
-  qwen2-72b       [arXiv:2407.10671]
-  smollm-360m     [hf:HuggingFaceTB/SmolLM-360M]
-  autoint         [arXiv:1810.11921]
-  din             [arXiv:1706.06978]
-  sasrec          [arXiv:1808.09781]
-  xdeepfm         [arXiv:1803.05170]
+  codeqwen1.5-7b        [hf:Qwen/CodeQwen1.5-7B]
+  qwen2-72b             [arXiv:2407.10671]
+  smollm-360m           [hf:HuggingFaceTB/SmolLM-360M]
+  deepseek-moe-16b      [arXiv:2401.06066]
+  deepseek-v2-lite-16b  [arXiv:2405.04434]
+  autoint               [arXiv:1810.11921]
+  din                   [arXiv:1706.06978]
+  sasrec                [arXiv:1808.09781]
+  xdeepfm               [arXiv:1803.05170]
 
 with the reference's cell overrides (``serving_config``,
 ``training_config``), its reduced configs (``reduced_config``,
 ``reduced_recsys_config``), and the recsys cells' batch sizes
 (``RECSYS_CELLS``) and candidate widths (``EMBED_DIM_RETRIEVAL``).  The
-reference's MoE / MLA LMs (deepseek-moe-16b, deepseek-v2-lite-16b) raise
-``NotImplementedError``; its GNN arch (dimenet) and ``configs/families.py``
-are not ported yet (ROADMAP item 10).
+reference's GNN arch (dimenet) and ``configs/families.py`` are not ported
+yet (ROADMAP §1 items 10.4, 10.5).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.recsys import AutoIntConfig, DINConfig, SASRecConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
 
@@ -49,6 +51,25 @@ _CONFIGS = {
         name="smollm-360m", n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
         head_dim=64, d_ff=2560, vocab=49152, tie_embeddings=True, rope_theta=10_000.0,
     ),
+    # 28L d=2048 16H (kv=16) expert d_ff=1408 vocab=102400, 2 shared + 64
+    # routed top-6, first layer dense (dense d_ff=10944)
+    "deepseek-moe-16b": TransformerConfig(
+        name="deepseek-moe-16b", n_layers=28, d_model=2048, n_heads=16, n_kv_heads=16,
+        head_dim=128, d_ff=10944, vocab=102400, rope_theta=10_000.0,
+        moe=MoEConfig(num_experts=64, top_k=6, d_ff_expert=1408, n_shared=2, first_k_dense=1,
+                      capacity_factor=1.25),
+    ),
+    # 27L d=2048 16H MLA kv_lora=512 rope_dim=64, expert d_ff=1408
+    # vocab=102400, 2 shared + 64 routed top-6, first layer dense (the HF /
+    # paper V2-Lite config, as the reference follows it)
+    "deepseek-v2-lite-16b": TransformerConfig(
+        name="deepseek-v2-lite-16b", n_layers=27, d_model=2048, n_heads=16, n_kv_heads=16,
+        head_dim=128, d_ff=10944, vocab=102400, attention="mla", mla_kv_lora_rank=512,
+        mla_qk_nope_head_dim=128, mla_qk_rope_head_dim=64, mla_v_head_dim=128,
+        rope_theta=10_000.0,
+        moe=MoEConfig(num_experts=64, top_k=6, d_ff_expert=1408, n_shared=2, first_k_dense=1,
+                      capacity_factor=1.25),
+    ),
 }
 _RECSYS = {
     "autoint": AutoIntConfig(name="autoint", n_sparse=39, embed_dim=16, n_attn_layers=3,
@@ -60,10 +81,6 @@ _RECSYS = {
     "xdeepfm": XDeepFMConfig(name="xdeepfm", n_sparse=39, embed_dim=10,
                              cin_layers=(200, 200, 200), mlp=(400, 400),
                              vocab_sizes=CRITEO39_VOCABS),
-}
-_UNPORTED = {
-    "deepseek-moe-16b": "MoE blocks",
-    "deepseek-v2-lite-16b": "MLA attention and MoE blocks",
 }
 ARCH_IDS = tuple(_CONFIGS)
 RECSYS_ARCH_IDS = tuple(_RECSYS)
@@ -80,16 +97,15 @@ RECSYS_CELLS = {
 }
 #: microbatches of a training step, and the two-level remat group
 #: (``LMArch(num_micro=..., remat_group=...)`` in the reference's registry)
-NUM_MICRO = {"codeqwen1.5-7b": 4, "qwen2-72b": 16, "smollm-360m": 1}
-REMAT_GROUP = {"codeqwen1.5-7b": 0, "qwen2-72b": 5, "smollm-360m": 0}
+NUM_MICRO = {"codeqwen1.5-7b": 4, "qwen2-72b": 16, "smollm-360m": 1, "deepseek-moe-16b": 4,
+             "deepseek-v2-lite-16b": 4}
+REMAT_GROUP = {"codeqwen1.5-7b": 0, "qwen2-72b": 5, "smollm-360m": 0, "deepseek-moe-16b": 0,
+               "deepseek-v2-lite-16b": 0}
 
 
 def get_config(arch_id: str):
-    """The published config of a dense GQA LM (a ``TransformerConfig``) or a
-    recsys arch (its ``models.recsys`` config)."""
-    if arch_id in _UNPORTED:
-        raise NotImplementedError(f"{arch_id}: {_UNPORTED[arch_id]} are not ported "
-                                  "(ROADMAP item 10)")
+    """The published config of an LM (a ``TransformerConfig``) or a recsys
+    arch (its ``models.recsys`` config)."""
     if arch_id in _RECSYS:
         return _RECSYS[arch_id]
     if arch_id not in _CONFIGS:
@@ -122,11 +138,18 @@ def training_config(cfg: TransformerConfig) -> TransformerConfig:
 
 
 def reduced_config(cfg: TransformerConfig) -> TransformerConfig:
-    """The reference's reduced config (``LMArch.model_config(reduced=True)``
-    of a dense arch): 2 layers, d_model 64, 4 heads of 16, d_ff 128,
-    vocab 512, float32, unchunked attention, no remat."""
+    """The reference's reduced config (``LMArch.model_config(reduced=True)``):
+    2 layers (plus the dense head layers of a MoE model), d_model 64, 4
+    heads of 16, d_ff 128, vocab 512, MLA dims 32 / 16 / 8 / 16, float32,
+    unchunked attention, no remat; a MoE model keeps 8 experts, top-2,
+    d_ff_expert 64, 1 shared expert and capacity factor 8.0 (generous, so
+    decode and prefill agree)."""
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(moe, num_experts=8, top_k=2, d_ff_expert=64, n_shared=1,
+                                  capacity_factor=8.0)
     return dataclasses.replace(
-        cfg, n_layers=2, d_model=64, n_heads=4,
+        cfg, n_layers=2 + (moe.first_k_dense if moe else 0), d_model=64, n_heads=4, moe=moe,
         n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads else 4,
         head_dim=16, d_ff=128, vocab=512, mla_kv_lora_rank=32, mla_qk_nope_head_dim=16,
         mla_qk_rope_head_dim=8, mla_v_head_dim=16, q_chunk=0, remat=False,

@@ -25,12 +25,7 @@ from repro_torch.core.lanns import (
     _Partition,
     _scan_metric,
 )
-from repro_torch.models.transformer import (
-    Transformer,
-    TransformerConfig,
-    check_supported,
-    param_tree,
-)
+from repro_torch.models.transformer import Transformer, TransformerConfig, param_tree
 from repro_torch.quant.codec import Q8Corpus
 
 
@@ -93,24 +88,40 @@ def index_numpy_state(index: LannsIndex):
             getattr(index, "_mips_M2", None))
 
 
+def _layer(stacked: dict, l: int, t) -> dict:
+    """Layer ``l`` of a stacked (L, ...) subtree, nested dicts kept, each
+    leaf through ``t(name, array)``."""
+    return {name: _layer(a, l, t) if isinstance(a, dict) else t(name, a[l])
+            for name, a in stacked.items()}
+
+
+def _stack(layers: list, f) -> dict:
+    """Per-layer trees stacked into (L, ...) leaves, each through ``f``."""
+    return {name: _stack([b[name] for b in layers], f) if isinstance(v, dict)
+            else np.stack([f(b[name]) for b in layers]) for name, v in layers[0].items()}
+
+
 def transformer_from_jax(cfg: TransformerConfig, params_np: dict, device=None) -> Transformer:
     """The port's params from the reference's ``transformer.init`` pytree
-    as numpy arrays: the stacked (L, ...) ``blocks`` become one block per
-    layer, each weight in ``cfg.param_dtype`` on the device."""
-    check_supported(cfg)
-    if "dense_blocks" in params_np:
-        raise NotImplementedError("dense_blocks belong to a MoE model (ROADMAP item 10)")
+    as numpy arrays: the stacked (L, ...) ``dense_blocks`` (a MoE model's
+    head layers) and ``blocks`` become one block per layer, nested groups
+    (MLA's ``kv_norm``, MoE's ``shared``) kept, each weight in
+    ``cfg.param_dtype`` on the device but the MoE ``router``, float32 as
+    in the reference."""
     dev = resolve_device(device)
     dtype = cfg.dtype()
-    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
-    stacked = params_np["blocks"]
-    blocks = [
-        {group: {name: t(a[l]) for name, a in leaves.items()} for group, leaves in stacked.items()}
-        for l in range(cfg.n_layers)
-    ]
-    lm_head = None if cfg.tie_embeddings else t(params_np["lm_head"])
-    return Transformer(t(params_np["embed"]), t(params_np["final_norm"]["scale"]), blocks,
-                       lm_head)
+
+    def t(name, a):
+        leaf_dtype = torch.float32 if name == "router" else dtype
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=leaf_dtype)
+
+    dense_blocks = [_layer(params_np["dense_blocks"], l, t)
+                    for l in range(cfg.n_dense_layers)] if "dense_blocks" in params_np else []
+    blocks = [_layer(params_np["blocks"], l, t) for l in range(cfg.n_scan_layers)]
+    lm_head = None if cfg.tie_embeddings else t("lm_head", params_np["lm_head"])
+    return Transformer(t("embed", params_np["embed"]),
+                       t("scale", params_np["final_norm"]["scale"]), blocks, lm_head,
+                       dense_blocks)
 
 
 def transformer_to_numpy(params: Transformer) -> dict:
@@ -119,13 +130,13 @@ def transformer_to_numpy(params: Transformer) -> dict:
     into (L, ...) leaves."""
     f = lambda t: t.detach().to(torch.float32).cpu().numpy()
     tree = param_tree(params)
-    blocks = tree["blocks"]
     out = {
         "embed": f(tree["embed"]),
         "final_norm": {"scale": f(tree["final_norm"]["scale"])},
-        "blocks": {group: {name: np.stack([f(b[group][name]) for b in blocks])
-                           for name in leaves_} for group, leaves_ in blocks[0].items()},
+        "blocks": _stack(tree["blocks"], f),
     }
+    if "dense_blocks" in tree:
+        out["dense_blocks"] = _stack(tree["dense_blocks"], f)
     if "lm_head" in tree:
         out["lm_head"] = f(tree["lm_head"])
     return out
@@ -134,8 +145,11 @@ def transformer_to_numpy(params: Transformer) -> dict:
 def adamw_state_from_jax(cfg: TransformerConfig, state_np: dict, device=None) -> dict:
     """The port's AdamW state (``train.optimizer.init_state``'s layout) from
     the reference's as numpy arrays: ``step``, and ``m`` / ``v`` whose
-    stacked (L, ...) ``blocks`` become one float32 dict per layer."""
-    check_supported(cfg)
+    stacked (L, ...) ``blocks`` become one float32 dict per layer.  A MoE
+    model's state (``dense_blocks``) is training's, not ported yet."""
+    if "dense_blocks" in state_np["m"]:
+        raise NotImplementedError("AdamW state of a MoE model: MoE / MLA training is not "
+                                  "ported (ROADMAP §1 item 10.3b)")
     dev = resolve_device(device)
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 

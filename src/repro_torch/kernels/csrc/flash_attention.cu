@@ -1,16 +1,19 @@
 // K3: attention forward with an online softmax for Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/flash_attention.py::_flash_fwd_kernel, the
-// Pallas TPU kernel of the LM substrate's chunked attention.  For q, k, v of
-// shape (BH, S, D), row-major, float32 or bfloat16, it writes
+// Pallas TPU kernel of the LM substrate's chunked attention.  For q, k of
+// shape (BH, S, DQK) and v of shape (BH, S, DV), row-major, float32 or
+// bfloat16, it writes o (BH, S, DV):
 //   o[b, i] = sum_j softmax_j(scale * q[b, i] . k[b, j]) v[b, j]
-// over j <= i (causal) or all j < S, in the input dtype.  The TPU kernel
+// over j <= i (causal) or all j < S, in the input dtype.  The instances are
+// DQK = DV in {16, 32, 64, 128} and (DQK, DV) = (192, 128), MLA's
+// (DeepSeek-V2: 128 nope + 64 rope dims of q . k, 128 of v).  The TPU kernel
 // widens q and k to float32 before the dot, keeps p in float32 for p @ v and
 // carries (m, l, acc) in float32; both instantiations here compute that
 // function to float32 grade.
 //
 // What bounds it: operations.  A (64-row q tile, 64-row kv tile) pair does
-// 4 * 64 * 64 * D flops against 2 * 64 * D loaded values, so the card's
+// 2 * 64 * 64 * (DQK + DV) flops against 64 * (DQK + DV) loaded values, so the card's
 // arithmetic rate is the limit: 989 TFLOP/s of dense bf16 on the tensor
 // cores for bf16 inputs; for float32 inputs, 165 TFLOP/s of float32-grade
 // products as a 3xTF32 split on the tensor cores (495 / 3).
@@ -44,6 +47,9 @@
 //    tile's 16-byte copies are in flight while the current tile is
 //    computed.  Shared rows are padded by 16 bytes, so every ldmatrix phase
 //    hits 8 distinct bank groups.
+//  * At DQK = 192 q's fragments take 48 registers a thread beside the 64 of
+//    the accumulator, so the instance spills more than D = 128's does; it is
+//    simple and right first (PERF.md has its time).
 //  * Left for later: wgmma with p from registers, a TMA ring with mbarriers,
 //    warp specialisation (a producer warp and two consumer warpgroups).
 //
@@ -52,7 +58,7 @@
 // 30-150x; the split (a = hi + lo, products lo.hi + hi.lo + hi.hi, lo.lo
 // dropped, rounded with two integer operations) meets it.
 //  * Both products are mma.sync m16n8k8 tf32.  A score tile is one chain of
-//    D / 8 k-steps of three MMAs (at D = 128 the small terms of all k-steps
+//    DQK / 8 k-steps of three MMAs (past DQK = 64 the small terms of all k-steps
 //    come first); a tile's p @ v one chain of BK / 8.
 //  * p in registers: the m16n8 accumulator holds columns 2t, 2t + 1 in lane
 //    (g, t), where an m16n8k8 A fragment wants columns t, t + 4.  p @ v sums
@@ -70,10 +76,11 @@
 //    (15, 4096, 64) on an H100 SXM (700 W) they took 0.655 ms where 4
 //    warps took 0.707, and a per-warp split in registers 0.73
 //    (tools/k3_time.py, PERF.md).  One block an SM (245 registers a
-//    thread and 102 KB of shared memory at D = 64).  At D = 128 the kv
-//    tile is 32 rows.
+//    thread and 102 KB of shared memory at D = 64).  Past D = 64 the kv
+//    tile is 32 rows; at (192, 128) the planes take 224 KB of the 227 KB a
+//    block may hold (F32Tile's static_assert).
 //  * q's hi + lo fragments are split once and stay in registers up to
-//    D = 64; at D = 128 q is read from shared memory and split per k-step.
+//    DQK = 64; past it q is read from shared memory and split per k-step.
 //  * float32 inputs must be 16-byte aligned (the copies are 16 bytes).
 //
 // Both: blocks take q tiles in reverse order, so that the longest causal
@@ -114,12 +121,13 @@ constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int STAGES = 2;                 // depth of the k / v ring
 static_assert(MMA_BQ % BK == 0 && BK % 16 == 0, "whole kv tiles per q tile");
 
-template <int D>
+template <int DQK, int DV>
 struct MmaSmem {
-  static constexpr int LD = D + 8;  // bf16 per row: 16 bytes of padding
-  bf16 q[MMA_BQ * LD];
-  bf16 k[STAGES][BK * LD];  // the ring: tile i in stage i % STAGES
-  bf16 v[STAGES][BK * LD];
+  static constexpr int LDQ = DQK + 8;  // bf16 per q / k row: 16 bytes of padding
+  static constexpr int LDV = DV + 8;   // per v row
+  bf16 q[MMA_BQ * LDQ];
+  bf16 k[STAGES][BK * LDQ];  // the ring: tile i in stage i % STAGES
+  bf16 v[STAGES][BK * LDV];
 };
 
 // a row's log-sum-exp in natural-log units of the scaled scores,
@@ -129,11 +137,11 @@ __device__ __forceinline__ float row_lse(float m, float den) {
   return ((isfinite(m) ? m : 0.f) + log2f(den)) * 0.6931471805599453f;
 }
 
-// rows [row0, row0 + ROWS) of a (S, D) matrix into a padded shared tile
-template <int D, int ROWS>
+// rows [row0, row0 + ROWS) of a (S, D) matrix into a shared tile of row
+// stride LD
+template <int D, int LD, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int S, int tid) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
-  constexpr int LD = MmaSmem<D>::LD;
   static_assert(ROWS * CH % MMA_THREADS == 0, "whole chunks per thread");
 #pragma unroll
   for (int j = 0; j < ROWS * CH / MMA_THREADS; ++j) {
@@ -145,39 +153,40 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-template <int D, bool LSE>
+template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
                          float* __restrict__ lse, int S, int causal, float scale_log2) {
-  static_assert(D % 16 == 0, "k-steps of 16 and pairs of n8 tiles");
-  constexpr int LD = MmaSmem<D>::LD;
-  constexpr int KD = D / 16;   // k-steps of q k^T
-  constexpr int ND = D / 8;    // n8 tiles of the output
-  constexpr int NS = BK / 8;   // n8 tiles of a score tile
-  constexpr int KC = BK / 16;  // k-steps of p v
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "k-steps of 16 and pairs of n8 tiles");
+  using Smem = MmaSmem<DQK, DV>;
+  constexpr int LDQ = Smem::LDQ, LDV = Smem::LDV;
+  constexpr int KD = DQK / 16;  // k-steps of q k^T
+  constexpr int ND = DV / 8;    // n8 tiles of the output
+  constexpr int NS = BK / 8;    // n8 tiles of a score tile
+  constexpr int KC = BK / 16;   // k-steps of p v
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  MmaSmem<D>& sm = *reinterpret_cast<MmaSmem<D>*>(smem_raw);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int nq = (S + MMA_BQ - 1) / MMA_BQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * MMA_BQ;
-  const size_t base = (size_t)blockIdx.y * (size_t)S * D;
-  const bf16* qb = q + base;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
+  const size_t rows = (size_t)blockIdx.y * (size_t)S;  // this (batch, head)'s first row
+  const bf16* qb = q + rows * DQK;
+  const bf16* kb = k + rows * DQK;
+  const bf16* vb = v + rows * DV;
   const int kv_end = causal ? min(S, q0 + MMA_BQ) : S;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   // one copy group for q, then one per kv tile, the first STAGES - 1 now
-  load_tile<D, MMA_BQ>(sm.q, qb, q0, S, tid);
+  load_tile<DQK, LDQ, MMA_BQ>(sm.q, qb, q0, S, tid);
   cp_async_commit();
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_tiles) {
-      load_tile<D, BK>(sm.k[i], kb, i * BK, S, tid);
-      load_tile<D, BK>(sm.v[i], vb, i * BK, S, tid);
+      load_tile<DQK, LDQ, BK>(sm.k[i], kb, i * BK, S, tid);
+      load_tile<DV, LDV, BK>(sm.v[i], vb, i * BK, S, tid);
     }
     cp_async_commit();
   }
@@ -188,7 +197,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   uint32_t qf[KD][4];
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk)
-    ldmatrix_x4(qf[kk], smem_addr(&sm.q[(warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8]));
+    ldmatrix_x4(qf[kk], smem_addr(&sm.q[(warp * 16 + (lane & 15)) * LDQ + kk * 16 + (lane >> 4) * 8]));
 
   // a thread's rows in the m16n8 layout: g and g + 8 of the warp's 16
   const int row_a = q0 + warp * 16 + (lane >> 2);
@@ -206,8 +215,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
     const int k0 = it * BK;
     const int ahead = it + STAGES - 1;  // into the stage read at iteration it - 1
     if (ahead < n_tiles) {
-      load_tile<D, BK>(sm.k[ahead % STAGES], kb, ahead * BK, S, tid);
-      load_tile<D, BK>(sm.v[ahead % STAGES], vb, ahead * BK, S, tid);
+      load_tile<DQK, LDQ, BK>(sm.k[ahead % STAGES], kb, ahead * BK, S, tid);
+      load_tile<DV, LDV, BK>(sm.v[ahead % STAGES], vb, ahead * BK, S, tid);
     }
     cp_async_commit();
     cp_async_wait<STAGES - 1>();  // tile it has landed; later tiles stay in flight
@@ -225,7 +234,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 #pragma unroll
       for (int jp = 0; jp < NS / 2; ++jp) {
         uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(&kt[(jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+        ldmatrix_x4(b, smem_addr(&kt[(jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDQ +
                                      kk * 16 + ((lane >> 3) & 1) * 8]));
         mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
         mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
@@ -286,7 +295,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
         uint32_t b[4];
-        ldmatrix_x4_trans(b, smem_addr(&vt[(c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+        ldmatrix_x4_trans(b, smem_addr(&vt[(c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                                            dp * 16 + (lane >> 4) * 8]));
         mma_bf16(t[0], ph[c], b[0], b[1]);
         mma_bf16(t[0], pl[c], b[0], b[1]);
@@ -302,17 +311,17 @@ __global__ void __launch_bounds__(MMA_THREADS)
     __syncthreads();  // stage st is refilled by the next iteration's copies
   }
 
-  bf16* ob = o + base;
+  bf16* ob = o + rows * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float den = fmaxf(quad_sum(l[r]), 1e-30f);  // all lanes shuffle
     const int row = row_a + 8 * r;
     if (row >= S) continue;
     if constexpr (LSE)
-      if ((lane & 3) == 0) lse[blockIdx.y * (size_t)S + row] = row_lse(m[r], den);
+      if ((lane & 3) == 0) lse[rows + row] = row_lse(m[r], den);
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(&ob[(size_t)row * D + j * 8 + col_t]) =
+      *reinterpret_cast<__nv_bfloat162*>(&ob[(size_t)row * DV + j * 8 + col_t]) =
           __floats2bfloat162_rn(acc[j][2 * r] / den, acc[j][2 * r + 1] / den);
   }
 }
@@ -326,36 +335,41 @@ constexpr int F32_WARPS = 8;  // 16 q rows each
 constexpr int F32_BQ = 16 * F32_WARPS;
 constexpr int F32_THREADS = 32 * F32_WARPS;
 
-// The float32 kernel's tiles.  kv tiles of 64 rows, or 32 at D = 128, where
-// 64 rows of raw and split planes beside q's own plane would pass the
+// The float32 kernel's tiles.  kv tiles of 64 rows, or 32 past DQK = 64,
+// where 64 rows of raw and split planes beside q's own plane would pass the
 // 227 KB a block may hold.  q's hi + lo fragments stay in registers up to
-// D = 64 (64 registers there) and are read from shared memory and split
-// per k-step at D = 128.  Word offsets into shared memory:
-//   raw k, raw v  (BK, LD)  the cp.async targets, float32 as loaded
-//   k hi, k lo    (BK, LD)  the split of k, in k's layout
-//   vT hi, vT lo  (D, LDT)  the split of v, transposed, kv in k-step order
-//   q         (F32_BQ, LD)  staged once; in the k planes when it is split
-//                           into registers, else a plane of its own
-// LD and LDT are 4 mod 32 words, so each ldmatrix phase (8 rows of 16
+// DQK = 64 (64 registers there) and are read from shared memory and split
+// per k-step past it.  Word offsets into shared memory:
+//   raw k         (BK, LD)   the cp.async targets, float32 as loaded
+//   raw v         (BK, LDV)
+//   k hi, k lo    (BK, LD)   the split of k, in k's layout
+//   vT hi, vT lo  (DV, LDT)  the split of v, transposed, kv in k-step order
+//   q         (F32_BQ, LD)   staged once; in the k planes when it is split
+//                            into registers, else a plane of its own
+// LD, LDV and LDT are 4 mod 32 words, so each ldmatrix phase (8 rows of 16
 // bytes) hits 8 distinct bank groups, and so do the split pass's
 // transposed stores (32 lanes on 32 consecutive kv rows).
-template <int D>
+template <int DQK, int DV>
 struct F32Tile {
-  static constexpr int BK = D <= 64 ? 64 : 32;
-  static constexpr bool QREG = D <= 64;
-  static constexpr int LD = D + 4;
+  static constexpr int BK = DQK <= 64 ? 64 : 32;
+  static constexpr bool QREG = DQK <= 64;
+  static constexpr int LD = DQK + 4;
+  static constexpr int LDV = DV + 4;
   static constexpr int LDT = BK + 4;
   static constexpr int RAW_K = 0;
   static constexpr int RAW_V = RAW_K + BK * LD;
-  static constexpr int K_HI = RAW_V + BK * LD;
+  static constexpr int K_HI = RAW_V + BK * LDV;
   static constexpr int K_LO = K_HI + BK * LD;
   static constexpr int VT_HI = K_LO + BK * LD;
-  static constexpr int VT_LO = VT_HI + D * LDT;
-  static constexpr int SPLIT_END = VT_LO + D * LDT;
+  static constexpr int VT_LO = VT_HI + DV * LDT;
+  static constexpr int SPLIT_END = VT_LO + DV * LDT;
   static constexpr int Q = QREG ? K_HI : SPLIT_END;
   static constexpr int WORDS = QREG ? SPLIT_END : SPLIT_END + F32_BQ * LD;
   static_assert(!QREG || F32_BQ * LD <= SPLIT_END - K_HI, "q is staged in the split planes");
-  static_assert(BK % 32 == 0 && BK * D / 4 % F32_THREADS == 0, "whole 16-byte pieces a thread");
+  static_assert(BK % 32 == 0 && BK * DQK / 4 % F32_THREADS == 0 && BK * DV / 4 % F32_THREADS == 0,
+                "whole 16-byte pieces a thread");
+  // (192, 128): 57,344 words, 229,376 bytes
+  static_assert(WORDS * 4 <= 232448, "the planes fit the 227 KB a block may hold");
 };
 
 // position of kv row r in the vT planes: in each k-step of 8 rows, row 2t
@@ -381,10 +395,10 @@ __device__ __forceinline__ void load_rows_f32(uint32_t* dst, const float* src, i
 }
 
 // the landed raw k and v tile into its hi and lo planes, once for the block
-template <int D>
+template <int DQK, int DV>
 __device__ __forceinline__ void split_tile(uint32_t* sm, int tid) {
-  using T = F32Tile<D>;
-  constexpr int CH = D / 4;
+  using T = F32Tile<DQK, DV>;
+  constexpr int CH = DQK / 4;
   constexpr int PER = T::BK * CH / F32_THREADS;
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
@@ -400,12 +414,13 @@ __device__ __forceinline__ void split_tile(uint32_t* sm, int tid) {
     *reinterpret_cast<uint4*>(sm + T::K_LO + off) = lo;
   }
   // v: a warp takes 32 consecutive kv rows of one 4-column piece
+  constexpr int PER_V = T::BK * (DV / 4) / F32_THREADS;
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
+  for (int j = 0; j < PER_V; ++j) {
     const int i = tid + j * F32_THREADS;
     const int w = i >> 5;
     const int r = (w % (T::BK / 32)) * 32 + (i & 31), ch = w / (T::BK / 32);
-    const uint4 a = *reinterpret_cast<const uint4*>(sm + T::RAW_V + r * T::LD + ch * 4);
+    const uint4 a = *reinterpret_cast<const uint4*>(sm + T::RAW_V + r * T::LDV + ch * 4);
     const uint32_t x[4] = {a.x, a.y, a.z, a.w};
     const int col = (ch * 4) * T::LDT + kv_pos(r);
 #pragma unroll
@@ -418,17 +433,17 @@ __device__ __forceinline__ void split_tile(uint32_t* sm, int tid) {
   }
 }
 
-template <int D, bool LSE>
+template <int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(F32_THREADS)
     flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
                           float* __restrict__ lse, int S, int causal, float scale_log2) {
-  using T = F32Tile<D>;
-  constexpr int BKT = T::BK, LD = T::LD, LDT = T::LDT;
-  constexpr int KD = D / 8;    // k-steps of q k^T
-  constexpr int ND = D / 8;    // n8 tiles of the output
+  using T = F32Tile<DQK, DV>;
+  constexpr int BKT = T::BK, LD = T::LD, LDV = T::LDV, LDT = T::LDT;
+  constexpr int KD = DQK / 8;  // k-steps of q k^T
+  constexpr int ND = DV / 8;   // n8 tiles of the output
   constexpr int NS = BKT / 8;  // n8 tiles of a score tile, and k-steps of p v
-  static_assert(D % 16 == 0, "pairs of n8 tiles");
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "pairs of n8 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(smem_raw);
 
@@ -436,16 +451,16 @@ __global__ void __launch_bounds__(F32_THREADS)
   const int warp = tid >> 5, lane = tid & 31;
   const int nq = (S + F32_BQ - 1) / F32_BQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * F32_BQ;
-  const size_t base = (size_t)blockIdx.y * (size_t)S * D;
-  const float* kb = k + base;
-  const float* vb = v + base;
+  const size_t rows = (size_t)blockIdx.y * (size_t)S;  // this (batch, head)'s first row
+  const float* kb = k + rows * DQK;
+  const float* vb = v + rows * DV;
   const int kv_end = causal ? min(S, q0 + F32_BQ) : S;
   const int n_tiles = (kv_end + BKT - 1) / BKT;
 
   // one copy group: q and kv tile 0
-  load_rows_f32<D, LD, F32_BQ>(sm + T::Q, q + base, q0, S, tid);
-  load_rows_f32<D, LD, BKT>(sm + T::RAW_K, kb, 0, S, tid);
-  load_rows_f32<D, LD, BKT>(sm + T::RAW_V, vb, 0, S, tid);
+  load_rows_f32<DQK, LD, F32_BQ>(sm + T::Q, q + rows * DQK, q0, S, tid);
+  load_rows_f32<DQK, LD, BKT>(sm + T::RAW_K, kb, 0, S, tid);
+  load_rows_f32<DV, LDV, BKT>(sm + T::RAW_V, vb, 0, S, tid);
   cp_async_commit();
 
   // ldmatrix lane addresses (bytes): q rows as A fragments (rows g, g + 8;
@@ -486,18 +501,18 @@ __global__ void __launch_bounds__(F32_THREADS)
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<0>();
     __syncthreads();  // tile it is in the raw planes; no warp reads the split planes (or q) now
-    split_tile<D>(sm, tid);
+    split_tile<DQK, DV>(sm, tid);
     __syncthreads();  // the split planes hold tile it; the raw planes are free
     if (it + 1 < n_tiles) {
-      load_rows_f32<D, LD, BKT>(sm + T::RAW_K, kb, (it + 1) * BKT, S, tid);
-      load_rows_f32<D, LD, BKT>(sm + T::RAW_V, vb, (it + 1) * BKT, S, tid);
+      load_rows_f32<DQK, LD, BKT>(sm + T::RAW_K, kb, (it + 1) * BKT, S, tid);
+      load_rows_f32<DV, LDV, BKT>(sm + T::RAW_V, vb, (it + 1) * BKT, S, tid);
       cp_async_commit();
     }
     const int k0 = it * BKT;
 
     // s = q k^T for this warp's 16 rows: one chain of KD k-steps of three
     // MMAs per n8 tile.  Each MMA truncates the running sum, so the longer
-    // chains of D = 128 take every small term (lo.hi, hi.lo) in a first pass
+    // chains past DQK = 64 take every small term (lo.hi, hi.lo) in a first pass
     // and the hi.hi terms in a second: 16 truncations at the score's full
     // magnitude, not 48 (the worst f32 error at q x 4 fell from 2.2e-5 to
     // 1.5e-5 on an H100).  At D <= 64 the second pass would cost 6% of the
@@ -610,84 +625,88 @@ __global__ void __launch_bounds__(F32_THREADS)
       for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], corr[e >> 1], t[j][e]);
   }
 
-  float* ob = o + base;
+  float* ob = o + rows * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float den = fmaxf(quad_sum(l[r]), 1e-30f);  // all lanes shuffle
     const int row = row_a + 8 * r;
     if (row >= S) continue;
     if constexpr (LSE)
-      if ((lane & 3) == 0) lse[blockIdx.y * (size_t)S + row] = row_lse(m[r], den);
+      if ((lane & 3) == 0) lse[rows + row] = row_lse(m[r], den);
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<float2*>(&ob[(size_t)row * D + j * 8 + col_t]) =
+      *reinterpret_cast<float2*>(&ob[(size_t)row * DV + j * 8 + col_t]) =
           make_float2(acc[j][2 * r] / den, acc[j][2 * r + 1] / den);
   }
 }
 
 // ------------------------------------------------------------- launchers
 
-template <int D, bool LSE>
+template <int DQK, int DV, bool LSE>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                        int S, int causal, float scale, cudaStream_t stream) {
-  const int smem = (int)(F32Tile<D>::WORDS * sizeof(uint32_t));
+  const int smem = (int)(F32Tile<DQK, DV>::WORDS * sizeof(uint32_t));
   static bool attr_set = false;
-  cudaError_t e = allow_smem(flash_fwd_tf32_kernel<D, LSE>, smem, attr_set);
+  cudaError_t e = allow_smem(flash_fwd_tf32_kernel<DQK, DV, LSE>, smem, attr_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + F32_BQ - 1) / F32_BQ, BH);
-  flash_fwd_tf32_kernel<D, LSE><<<grid, F32_THREADS, smem, stream>>>(
+  flash_fwd_tf32_kernel<DQK, DV, LSE><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, S, causal, (float)(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
 
-template <int D, bool LSE>
+template <int DQK, int DV, bool LSE>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                         int S, int causal, float scale, cudaStream_t stream) {
-  const int smem = (int)sizeof(MmaSmem<D>);
+  const int smem = (int)sizeof(MmaSmem<DQK, DV>);
   static bool attr_set = false;
-  cudaError_t e = allow_smem(flash_fwd_mma_kernel<D, LSE>, smem, attr_set);
+  cudaError_t e = allow_smem(flash_fwd_mma_kernel<DQK, DV, LSE>, smem, attr_set);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, BH);
-  flash_fwd_mma_kernel<D, LSE><<<grid, MMA_THREADS, smem, stream>>>(
+  flash_fwd_mma_kernel<DQK, DV, LSE><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, S, causal, (float)(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                    int S, int dtype, int causal, float scale, cudaStream_t st) {
   // the row log-sum-exp is a separate instance, so inference runs the code
   // it ran before the backward existed
   if (dtype == 0)
-    return lse ? launch_f32<D, true>(q, k, v, o, lse, BH, S, causal, scale, st)
-               : launch_f32<D, false>(q, k, v, o, lse, BH, S, causal, scale, st);
+    return lse ? launch_f32<DQK, DV, true>(q, k, v, o, lse, BH, S, causal, scale, st)
+               : launch_f32<DQK, DV, false>(q, k, v, o, lse, BH, S, causal, scale, st);
   if (dtype == 1)
-    return lse ? launch_bf16<D, true>(q, k, v, o, lse, BH, S, causal, scale, st)
-               : launch_bf16<D, false>(q, k, v, o, lse, BH, S, causal, scale, st);
+    return lse ? launch_bf16<DQK, DV, true>(q, k, v, o, lse, BH, S, causal, scale, st)
+               : launch_bf16<DQK, DV, false>(q, k, v, o, lse, BH, S, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v, o (BH, S, D) row-major on the device, all of one dtype:
-// 0 = float32, 1 = bfloat16, 16-byte aligned.  D: 16, 32, 64 or 128.
+// q, k (BH, S, D) and v, o (BH, S, Dv) row-major on the device, all of one
+// dtype: 0 = float32, 1 = bfloat16, 16-byte aligned.  (D, Dv): (16, 16),
+// (32, 32), (64, 64), (128, 128) or (192, 128).
 // lse: null, or (BH, S) float32 that receives each row's log-sum-exp of the
 // scaled scores in natural-log units (what the backward kernel reads).
 // causal: 0 or 1.  Returns a cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     void* lse, int BH, int S, int D, int dtype, int causal,
-                                     float scale, void* stream) {
+                                     void* lse, int BH, int S, int D, int Dv, int dtype,
+                                     int causal, float scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (BH <= 0 || BH > 65535 || S <= 0 || (causal != 0 && causal != 1))
     return (int)cudaErrorInvalidValue;
+  if (D == 192 && Dv == 128)
+    return (int)launch<192, 128>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return (int)launch<16>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
-    case 32: return (int)launch<32>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
-    case 64: return (int)launch<64>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
-    case 128: return (int)launch<128>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
+    case 16: return (int)launch<16, 16>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
+    case 32: return (int)launch<32, 32>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
+    case 64: return (int)launch<64, 64>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
+    case 128: return (int)launch<128, 128>(q, k, v, o, l, BH, S, dtype, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

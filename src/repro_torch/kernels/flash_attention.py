@@ -18,8 +18,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims the kernel is instantiated for
+#: head dims with q . k and v of one width (the backward kernel's too)
 HEAD_DIMS = (16, 32, 64, 128)
+#: the (q . k, v) head dims the kernel is instantiated for: equal pairs, and
+#: MLA's (192, 128) (DeepSeek-V2: 128 nope + 64 rope dims, v 128)
+INSTANCES = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535  # the grid's second dimension
 
@@ -30,7 +33,7 @@ def _kernel():
     fn = _FN.get("flash_attention")
     if fn is None:
         fn = _build.load("flash_attention.cu").repro_flash_attention
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float,
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                    ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN["flash_attention"] = fn
@@ -39,22 +42,25 @@ def _kernel():
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                          scale: float, with_lse: bool = False):
-    """Launch K3: attention forward over q, k, v (BH, S, D), contiguous and
-    16-byte aligned, of one dtype (float32 or bfloat16), on one CUDA device.
-    Returns the output (BH, S, D) in that dtype; with ``with_lse``, also
-    each row's log-sum-exp of the scaled scores, (BH, S) float32 in
-    natural-log units, which the backward kernel reads."""
+    """Launch K3: attention forward over q, k (BH, S, D) and v (BH, S, Dv),
+    contiguous and 16-byte aligned, of one dtype (float32 or bfloat16), on
+    one CUDA device, (D, Dv) one of ``INSTANCES``.  Returns the output
+    (BH, S, Dv) in that dtype; with ``with_lse``, also each row's
+    log-sum-exp of the scaled scores, (BH, S) float32 in natural-log units,
+    which the backward kernel reads."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda: q, k and v must be on one CUDA device")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+    if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 or v.shape[:2] != q.shape[:2]:
         raise ValueError(f"flash_attention_cuda: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}; expected three equal (BH, S, D)")
+                         f"{tuple(v.shape)}; expected q, k (BH, S, D) and v (BH, S, Dv)")
     if q.dtype not in _DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(f"flash_attention_cuda: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                                   "the kernel takes float32 or bfloat16, all three alike")
     BH, S, D = q.shape
-    if D not in HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
+    Dv = v.shape[-1]
+    if (D, Dv) not in INSTANCES:
+        raise NotImplementedError(f"flash_attention_cuda: head dims (q . k, v) = {(D, Dv)} not "
+                                  f"in {INSTANCES}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: q, k and v must be contiguous")
     if not (0 < BH <= _MAX_BH and 0 < S < 2**31):
@@ -62,14 +68,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: q, k and v must be 16-byte aligned "
                          "(the kernel copies rows in 16-byte pieces)")
-    out = torch.empty_like(q)
+    out = q.new_empty((BH, S, Dv))
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            BH, S, D, _DTYPE[q.dtype], int(bool(causal)), float(scale), stream,
+            BH, S, D, Dv, _DTYPE[q.dtype], int(bool(causal)), float(scale), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")

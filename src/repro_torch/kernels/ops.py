@@ -264,32 +264,39 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
-    """Attention forward over q, k, v (BH, S, D), one device, one dtype:
-    ``softmax(scale * q k^T) v`` per row, causal or bidirectional, with all
-    math in float32 and the output in q's dtype.  ``scale`` defaults to
-    1/sqrt(D).  CPU tensors run ``ref.flash_attention_ref``; CUDA tensors
-    launch K3 (float32 or bfloat16, D in 16/32/64/128; anything else
-    raises).  Inputs that are not contiguous, or do not start on a
-    16-byte boundary (the kernel copies rows in 16-byte pieces), are
-    copied first.  Where autograd records (an input requires grad), the
-    call is differentiable: its backward is :func:`flash_attention_bwd`."""
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+    """Attention forward over q, k (BH, S, D) and v (BH, S, Dv), one device,
+    one dtype: ``softmax(scale * q k^T) v`` per row, causal or
+    bidirectional, with all math in float32 and the output (BH, S, Dv) in
+    q's dtype.  ``scale`` defaults to 1/sqrt(D).  CPU tensors run
+    ``ref.flash_attention_ref``; CUDA tensors launch K3 (float32 or
+    bfloat16, (D, Dv) in ``flash_attention.INSTANCES``: D = Dv in
+    16/32/64/128, or MLA's (192, 128); anything else raises).  Inputs that
+    are not contiguous, or do not start on a 16-byte boundary (the kernel
+    copies rows in 16-byte pieces), are copied first.  Where autograd
+    records (an input requires grad), the call is differentiable: its
+    backward is :func:`flash_attention_bwd`, for Dv = D only."""
+    if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 or v.shape[:2] != q.shape[:2]:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}; expected three equal (BH, S, D)")
+                         f"{tuple(v.shape)}; expected q, k (BH, S, D) and v (BH, S, Dv)")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda" and q.numel() == 0:
-        return torch.empty_like(q)
+        return q.new_empty(v.shape)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(
+                f"flash_attention: the gradient with a v head dim ({v.shape[-1]}) other than "
+                f"q's ({q.shape[-1]}) is not ported (MLA training, ROADMAP §1 item 10.3b)")
         return _FlashAttention.apply(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale, with_lse=False)
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, scale: float | None = None):
-    """:func:`flash_attention` over (B, S, H, D) tensors, the layout of
-    ``models/layers``: batch and heads fold into the first dimension."""
-    B, S, H, D = q.shape
-    fold = lambda x: x.permute(0, 2, 1, 3).reshape(B * H, S, D)
+    """:func:`flash_attention` over (B, S, H, D) tensors (v (B, S, H, Dv)),
+    the layout of ``models/layers``: batch and heads fold into the first
+    dimension."""
+    B, S, H, _ = q.shape
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(B * H, S, x.shape[-1])
     out = flash_attention(fold(q), fold(k), fold(v), causal=causal, scale=scale)
-    return out.reshape(B, H, S, D).permute(0, 2, 1, 3)
+    return out.reshape(B, H, S, v.shape[-1]).permute(0, 2, 1, 3)

@@ -153,12 +153,12 @@ def flash_attention_ref(
     block_k: int = 1024,
     with_lse: bool = False,
 ):
-    """Attention forward over (BH, S, D) as a blocked online softmax: the
-    plain version of K3 (``repro/kernels/flash_attention.py::
+    """Attention forward over q, k (BH, S, D) and v (BH, S, Dv) as a blocked
+    online softmax: the plain version of K3 (``repro/kernels/flash_attention.py::
     _flash_fwd_kernel``), with its masking and guards.
 
     All math is float32 (q, k, v, p and the (m, l, acc) carry); the output
-    takes q's dtype.  Future kv gets -inf (causal); the ragged last block is
+    (BH, S, Dv) takes q's dtype.  Future kv gets -inf (causal); the ragged last block is
     simply shorter, so no kv past S exists to mask.  ``m_safe`` guards
     fully masked rows and ``l`` is floored at 1e-30, as in the kernel.  kv
     blocks wholly above the diagonal are skipped.  Memory is
@@ -169,9 +169,10 @@ def flash_attention_ref(
     same guards, in natural-log units, as K3 writes it for the backward.
     """
     BH, S, D = q.shape
+    Dv = v.shape[-1]
     scale = scale or 1.0 / math.sqrt(D)
     _no_tf32(q)
-    out = torch.empty_like(q)
+    out = q.new_empty((BH, S, Dv))
     dev = q.device
     lse = torch.empty((BH, S), dtype=torch.float32, device=dev) if with_lse else None
     for q0 in range(0, S, block_q):
@@ -180,7 +181,7 @@ def flash_attention_ref(
         q_pos = torch.arange(q0, q1, device=dev)[:, None]
         m = torch.full((BH, q1 - q0, 1), float("-inf"), dtype=torch.float32, device=dev)
         l = torch.zeros((BH, q1 - q0, 1), dtype=torch.float32, device=dev)
-        acc = torch.zeros((BH, q1 - q0, D), dtype=torch.float32, device=dev)
+        acc = torch.zeros((BH, q1 - q0, Dv), dtype=torch.float32, device=dev)
         for k0 in range(0, q1 if causal else S, block_k):
             k1 = min(k0 + block_k, S)
             kb = k[:, k0:k1].to(torch.float32)

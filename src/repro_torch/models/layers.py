@@ -1,13 +1,14 @@
-"""Transformer building blocks for dense GQA: the port of ``repro.models.layers``.
+"""Transformer building blocks: the port of ``repro.models.layers``.
 
-RMSNorm, RoPE, GQA attention (with optional QKV bias, Qwen style) and the
-SwiGLU MLP, functional as in the reference: a layer's params are a mapping
-(``nn.ParameterDict``) with the reference's names and (d_in, d_out) weight
-layout, so ``x @ params["wq"]`` reads as it does there.  Norms and softmax
-run in float32.  Long sequences take ``chunked_attention``, which is K3 on
-the card (``ops.flash_attention_bhsd``) and its plain version on the CPU.
-
-MLA (``mla_apply``) is not ported: it raises, naming ROADMAP item 10.
+RMSNorm, RoPE, GQA attention (with optional QKV bias, Qwen style), MLA
+(DeepSeek-V2's multi-head latent attention) and the SwiGLU MLP,
+functional as in the reference: a layer's params are a mapping
+(``nn.ParameterDict``, or a plain dict) with the reference's names and
+(d_in, d_out) weight layout, so ``x @ params["wq"]`` reads as it does
+there.  Norms and softmax run in float32.  Long sequences take
+``chunked_attention``, which is K3 on the card (``ops.flash_attention_bhsd``,
+MLA's q . k head dim 192 with v's 128 included) and its plain version on
+the CPU.
 """
 
 from __future__ import annotations
@@ -18,8 +19,6 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-
-_ROADMAP_MLA = "MLA attention is not ported (ROADMAP item 10: MoE and MLA)"
 
 
 def _init_dense(gen: torch.Generator, shape, dtype, scale: float | None = None) -> torch.Tensor:
@@ -103,15 +102,36 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int, sca
     plain blocked version on CPU tensors.
 
     Keeps the reference's signature; ``q_chunk`` / ``kv_chunk`` only decide,
-    in ``attention_apply``, that this path is taken (the kernel tiles on its
-    own).  q and k/v must have one length (self-attention over fresh
-    tokens, as every caller passes them) and one head dim: a v head dim
-    other than q's is MLA's case, which K3 does not take either.
+    in ``attention_apply`` and ``mla_apply``, that this path is taken (the
+    kernel tiles on its own).  q and k/v must have one length
+    (self-attention over fresh tokens, as every caller passes them); v's
+    head dim may differ from q's (MLA: 192 for q . k, 128 for v).
     """
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(f"chunked_attention: v head dim {v.shape[-1]} != q head dim "
-                                  f"{q.shape[-1]}; {_ROADMAP_MLA}")
     return ops.flash_attention_bhsd(q, k, v, causal=causal, scale=scale)
+
+
+def _write_cache(cache: dict, new: dict, off, B: int, S: int, device) -> torch.Tensor:
+    """Write each ``new[name]`` (B, S, ...) into ``cache[name]`` IN PLACE at
+    ``off``: an int, a 0-d tensor, or a (B,) tensor of per-row offsets
+    (slots).  Returns the new tokens' positions (B, S)."""
+    ar = torch.arange(S, device=device)
+    if isinstance(off, torch.Tensor) and off.ndim == 1:
+        rows = torch.arange(B, device=device)[:, None]
+        cols = off.to(device=device, dtype=torch.long)[:, None] + ar[None, :]
+        for name, t in new.items():
+            cache[name][rows, cols] = t.to(cache[name].dtype)
+        return cols
+    o = int(off)
+    for name, t in new.items():
+        cache[name][:, o: o + S] = t.to(cache[name].dtype)
+    return (o + ar)[None, :].expand(B, S)
+
+
+def _cache_mask(q_pos: torch.Tensor, S_kv: int, causal: bool) -> torch.Tensor:
+    """(B, S, S_kv): the valid cache extent and causality per row, kv <= q
+    position (bidirectional: kv <= the row's last position)."""
+    kv_pos = torch.arange(S_kv, device=q_pos.device)
+    return kv_pos[None, None, :] <= (q_pos[:, :, None] if causal else q_pos[:, -1:, None])
 
 
 def _self_attention(cfg: AttentionConfig, q, k, v, causal: bool):
@@ -152,31 +172,15 @@ def attention_apply(params, cfg: AttentionConfig, x, *, positions, causal: bool 
         out = _self_attention(cfg, q, k, v, causal)
         return out.reshape(B, S, H * hd) @ params["wo"], None
 
-    ck, cv = kv_cache["k"], kv_cache["v"]
     off = cache_offset if cache_offset is not None else 0
-    ar = torch.arange(S, device=x.device)
-    if isinstance(off, torch.Tensor) and off.ndim == 1:  # per-row offsets (slots)
-        rows = torch.arange(B, device=x.device)[:, None]
-        cols = off.to(device=x.device, dtype=torch.long)[:, None] + ar[None, :]
-        ck[rows, cols] = k.to(ck.dtype)
-        cv[rows, cols] = v.to(cv.dtype)
-        q_pos = cols  # (B, S)
-    else:
-        o = int(off)
-        ck[:, o: o + S] = k.to(ck.dtype)
-        cv[:, o: o + S] = v.to(cv.dtype)
-        q_pos = (o + ar)[None, :].expand(B, S)
-        # whole-sequence prefill: nothing precedes these tokens, so
-        # attention over the fresh k/v is exact and never scores the cache
-        if isinstance(off, int) and off == 0 and S > 1:
-            out = _self_attention(cfg, q, k, v, causal)
-            return out.reshape(B, S, H * hd) @ params["wo"], kv_cache
-    S_kv = ck.shape[1]
-    kv_pos = torch.arange(S_kv, device=x.device)
-    # valid cache extent + causality, per row: kv <= q position
-    ok = kv_pos[None, None, :] <= q_pos[:, :, None]  # (B, S, S_kv)
-    if not causal:
-        ok = kv_pos[None, None, :] <= q_pos[:, -1:, None]
+    q_pos = _write_cache(kv_cache, {"k": k, "v": v}, off, B, S, x.device)
+    # whole-sequence prefill: nothing precedes these tokens, so attention
+    # over the fresh k/v is exact and never scores the cache
+    if isinstance(off, int) and off == 0 and S > 1:
+        out = _self_attention(cfg, q, k, v, causal)
+        return out.reshape(B, S, H * hd) @ params["wo"], kv_cache
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    ok = _cache_mask(q_pos, ck.shape[1], causal)
     # grouped einsum: the repeated KV is never materialized
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd)
@@ -188,8 +192,112 @@ def attention_apply(params, cfg: AttentionConfig, x, *, positions, causal: bool 
     return out @ params["wo"], kv_cache
 
 
-def mla_apply(*args, **kwargs):
-    raise NotImplementedError(_ROADMAP_MLA)
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10_000.0
+    q_chunk: int = 0
+    kv_chunk: int = 1024
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+def mla_init(gen: torch.Generator, cfg: MLAConfig, dtype) -> dict:
+    """The reference's leaves, drawn from ``gen``: ``wq`` (full rank: V2-Lite
+    has no q compression), the latent path ``w_dkv`` / ``w_krope`` /
+    ``kv_norm``, the up-projections ``w_uk`` / ``w_uv`` and ``wo``."""
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    return {
+        "wq": _init_dense(gen, (d, H * cfg.qk_head_dim), dtype),
+        "w_dkv": _init_dense(gen, (d, r), dtype),
+        "w_krope": _init_dense(gen, (d, cfg.qk_rope_head_dim), dtype),
+        "kv_norm": {"scale": torch.ones(r, dtype=dtype, device=gen.device)},
+        "w_uk": _init_dense(gen, (r, H * cfg.qk_nope_head_dim), dtype),
+        "w_uv": _init_dense(gen, (r, H * cfg.v_head_dim), dtype),
+        "wo": _init_dense(gen, (H * cfg.v_head_dim, d), dtype),
+    }
+
+
+def _mla_fresh(params, cfg: MLAConfig, q_nope, q_rope, latent, k_rope, causal: bool, scale):
+    """Attention of fresh q over per-head k / v materialised from the fresh
+    latent: (B, S, H * dv) before ``wo``."""
+    B, S, H, _ = q_nope.shape
+    k_nope = (latent @ params["w_uk"]).reshape(B, S, H, cfg.qk_nope_head_dim)
+    v = (latent @ params["w_uv"]).reshape(B, S, H, cfg.v_head_dim)
+    k_rope_b = k_rope.expand(B, S, H, cfg.qk_rope_head_dim)
+    qh = torch.cat([q_nope, q_rope], dim=-1)
+    kh = torch.cat([k_nope, k_rope_b], dim=-1)
+    if cfg.q_chunk and S > cfg.q_chunk:
+        out = chunked_attention(qh, kh, v, causal=causal, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk, scale=scale)
+    else:
+        out = dot_attention(qh, kh, v, causal=causal, scale=scale)
+    return out.reshape(B, S, H * cfg.v_head_dim)
+
+
+def mla_apply(params, cfg: MLAConfig, x, *, positions, causal: bool = True,
+              latent_cache: dict | None = None, cache_offset=None):
+    """MLA attention.  x (B, S, d).  The cache holds only ``latent`` (B,
+    Smax, r) and ``k_rope`` (B, Smax, dr): 576 values a token for V2-Lite
+    against 2 x 16 x 128 for the GQA equivalent.
+
+    latent_cache: when given, the new latent and rope key are written into
+    it IN PLACE at ``cache_offset`` (an int, a 0-d tensor, or a (B,) tensor
+    of per-row offsets).  A whole-sequence prefill (offset the int 0,
+    S > 1) attends over per-head k / v materialised from the fresh latent
+    (K3 past ``q_chunk``); any other call takes the absorbed form: q_nope
+    folded through W_uk scores the cached latent directly, and the latent
+    output goes through W_uv, so per-head k / v of the cache never exist.
+    Returns (out, cache)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    q = (x @ params["wq"]).reshape(B, S, H, cfg.qk_head_dim)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    latent = rms_norm(params["kv_norm"], x @ params["w_dkv"])  # (B, S, r)
+    k_rope = apply_rope((x @ params["w_krope"]).reshape(B, S, 1, dr), positions,
+                        cfg.rope_theta)  # (B, S, 1, dr), shared by the heads
+    scale = 1.0 / math.sqrt(cfg.qk_head_dim)
+
+    if latent_cache is None:
+        out = _mla_fresh(params, cfg, q_nope, q_rope, latent, k_rope, causal, scale)
+        return out @ params["wo"], None
+
+    off = cache_offset if cache_offset is not None else 0
+    q_pos = _write_cache(latent_cache, {"latent": latent, "k_rope": k_rope[:, :, 0]}, off, B, S,
+                         x.device)
+    # whole-sequence prefill: exact over the fresh latent; the cache is only
+    # persisted
+    if isinstance(off, int) and off == 0 and S > 1:
+        out = _mla_fresh(params, cfg, q_nope, q_rope, latent, k_rope, causal, scale)
+        return out @ params["wo"], latent_cache
+    cl, cr = latent_cache["latent"], latent_cache["k_rope"]
+    # absorbed scores: q_nope through W_uk (per head dn x r) against the latent
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, params["w_uk"].reshape(r, H, dn))
+    lat = cl.to(x.dtype)
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat, lat)
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope, cr.to(x.dtype))
+    logits = (s_lat + s_rope).to(torch.float32) * scale
+    ok = _cache_mask(q_pos, cl.shape[1], causal)
+    logits = torch.where(ok[:, None], logits, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    # absorbed values: the latent output through W_uv
+    out_lat = torch.einsum("bhst,btr->bshr", probs, lat)
+    out = torch.einsum("bshr,rhd->bshd", out_lat, params["w_uv"].reshape(r, H, dv))
+    return out.reshape(B, S, H * dv) @ params["wo"], latent_cache
 
 
 def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,146 @@
+"""DeepSeek-style Mixture-of-Experts FFN: the port of ``repro.models.moe``.
+
+DeepSeekMoE (arXiv:2401.06066): many small routed experts (top-6 of 64 at
+expert d_ff 1408) plus always-on shared experts; the first
+``first_k_dense`` layers stay dense.  Routing runs in float32 whatever the
+params' dtype (the router itself is float32): softmax -> top-k (optionally
+renormalised), with the Switch load-balance auxiliary loss.
+
+Dispatch is the reference's sort-based capacity scheme: a token's rank
+within its expert comes from a stable argsort of the flattened (token, k)
+assignments and a run-start max-scan, so the same copies drop as there.
+Kept assignments go to slot ``e * C + rank`` of an (E, C, d) buffer, dropped
+ones to a dump slot ``E * C`` that is sliced away, and empty slots gather a
+zero row.  The expert FFNs are three batched products (``torch.bmm``: the
+reference leaves them to XLA, outside any Pallas kernel).  The combine is
+a gather of each (token, k)'s slot row summed over k, in ``ye``'s dtype:
+the reference scatter-adds, and ``index_add_`` on the card is atomic, in an
+order that changes from run to run; the gather sums in a fixed order.
+
+Only the reference's local path (``_moe_apply_local``) is ported: on one
+device ``moe_apply`` is that path.  The expert-parallel ``shard_map`` path
+comes with the sharding rules (ROADMAP §1 item 10.4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models.layers import _init_dense, mlp_apply
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 64
+    top_k: int = 6
+    d_ff_expert: int = 1408
+    n_shared: int = 2
+    first_k_dense: int = 1
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.001
+    normalize_topk: bool = False
+    routed_scaling: float = 1.0
+
+
+def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, dtype) -> dict:
+    """The reference's leaves and scales, drawn from ``gen`` on its device:
+    ``router`` (d, E) float32 at 0.02 whatever ``dtype`` is, the experts'
+    ``w_gate`` / ``w_up`` (E, d, f) and ``w_down`` (E, f, d), and ``shared``,
+    one SwiGLU MLP of width ``n_shared * f``."""
+    E, f = cfg.num_experts, cfg.d_ff_expert
+    p = {
+        "router": _init_dense(gen, (d_model, E), torch.float32, scale=0.02),
+        "w_gate": _init_dense(gen, (E, d_model, f), dtype),
+        "w_up": _init_dense(gen, (E, d_model, f), dtype),
+        "w_down": _init_dense(gen, (E, f, d_model), dtype),
+    }
+    if cfg.n_shared:
+        fs = cfg.n_shared * f
+        p["shared"] = {"w_gate": _init_dense(gen, (d_model, fs), dtype),
+                       "w_up": _init_dense(gen, (d_model, fs), dtype),
+                       "w_down": _init_dense(gen, (fs, d_model), dtype)}
+    return p
+
+
+def capacity(cfg: MoEConfig, T: int, capacity_factor: float = 0.0) -> int:
+    """Slots per expert for T tokens: ``ceil(T * K / E * cf)`` capped at T;
+    ``cf < 0`` is dropless (C = T); 0 takes the config's factor."""
+    cf = capacity_factor or cfg.capacity_factor
+    C = T if cf < 0 else int(math.ceil(T * cfg.top_k / cfg.num_experts * cf))
+    return min(C, T)
+
+
+def _ranks_within_expert(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """rank[i] = the number of earlier assignments with the same expert id,
+    from a stable argsort and the start of each run of equal ids (a
+    running max), as the reference computes it: no (T*k, E) one-hot."""
+    tk = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    idx = torch.arange(tk, device=flat_e.device)
+    change = torch.ones(tk, dtype=torch.bool, device=flat_e.device)
+    change[1:] = sorted_e[1:] != sorted_e[:-1]
+    run_start = torch.cummax(torch.where(change, idx, 0), dim=0).values
+    rank = torch.empty_like(idx)
+    rank[order] = idx - run_start
+    return rank
+
+
+def route(params, cfg: MoEConfig, xf: torch.Tensor):
+    """Float32 routing of the tokens ``xf`` (T, d): (probs (T, E), top_p
+    (T, K) scaled, top_e (T, K) long) — softmax over ``xf @ router``, top-k
+    in order of probability."""
+    logits = xf.to(torch.float32) @ params["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.normalize_topk:
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, top_p * cfg.routed_scaling, top_e
+
+
+def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, *, capacity_factor: float = 0.0):
+    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar).
+
+    ``capacity_factor`` overrides the config's (0 = the config's; < 0 =
+    dropless, as decode runs).  An assignment past its expert's capacity
+    is dropped: its token keeps its other top-k routes and the shared
+    experts."""
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    T = B * S
+    C = capacity(cfg, T, capacity_factor)
+    xf = x.reshape(T, d)
+    dev = x.device
+
+    probs, top_p, top_e = route(params, cfg, xf)
+    # the Switch load-balance loss: mean router prob x top-1 fraction per expert
+    ce = torch.bincount(top_e[:, 0], minlength=E).to(torch.float32) / T
+    aux = cfg.aux_loss_weight * E * torch.sum(probs.mean(dim=0) * ce)
+
+    # dispatch: slot e * C + rank, or the dump slot E * C past capacity
+    flat_e = top_e.reshape(T * K)
+    flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
+    rank = _ranks_within_expert(flat_e, E)
+    slot = torch.where(rank < C, flat_e * C + rank, E * C)
+    tok_buf = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    tok_buf[slot] = flat_tok
+    prob_buf = torch.zeros(E * C + 1, dtype=torch.float32, device=dev)
+    prob_buf[slot] = top_p.reshape(T * K)
+    x_pad = torch.cat([xf, xf.new_zeros(1, d)])  # an empty slot gathers row T: zeros
+    xe = x_pad[tok_buf[:E * C]].reshape(E, C, d)
+
+    g = torch.bmm(xe, params["w_gate"])
+    u = torch.bmm(xe, params["w_up"])
+    ye = torch.bmm(torch.nn.functional.silu(g) * u, params["w_down"])
+    ye = ye * prob_buf[:E * C].reshape(E, C, 1).to(ye.dtype)
+
+    # combine: each assignment's slot row (the dump slot reads zeros), summed over k
+    ye_pad = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
+    y = ye_pad[slot].reshape(T, K, d).sum(dim=1)
+
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], xf)
+    return y.reshape(B, S, d), aux

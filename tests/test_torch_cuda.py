@@ -336,10 +336,36 @@ def test_k3_matches_plain(cuda, dtype, tol, BH, S, D, causal, v_scale, q_scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("BH,S,causal,q_scale", [
+    (BH, S, causal, 1.0) for S in (1, 65, 1000, 4097) for BH in (1, 16)
+    for causal in (True, False)] + [(7, 1000, True, 4.0), (7, 4097, False, 4.0)])
+def test_k3_mla_head_dims_match_plain(cuda, dtype, tol, BH, S, causal, q_scale):
+    """K3's (192, 128) instance (MLA: q . k over 128 nope + 64 rope dims, v
+    of 128) against its plain version, one launch, with K3's limits."""
+    g = torch.Generator(device=cuda).manual_seed(BH * S + 192)
+    q, k = (torch.randn(BH, S, 192, generator=g, device=cuda) for _ in range(2))
+    v = torch.randn(BH, S, 128, generator=g, device=cuda)
+    q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.KERNEL_LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (BH, S, 128)
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    if dtype == torch.bfloat16:
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        assert ref.bf16_agreement(out, want32) <= 1.0
+
+
+@pytest.mark.cuda
 def test_k3_rejects_unsupported_inputs(cuda):
     x = torch.zeros(2, 8, 48, device=cuda)
     with pytest.raises(NotImplementedError, match="head dim"):
         ops.flash_attention(x, x, x)
+    with pytest.raises(NotImplementedError, match="head dim"):  # (192, 64): no instance
+        ops.flash_attention(*(torch.zeros(2, 8, 192, device=cuda),) * 2, x[..., :64])
     h = torch.zeros(2, 8, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         ops.flash_attention(h, h, h)

@@ -129,15 +129,6 @@ def test_cpu_runs_plain_version_without_launch():
         ops.flash_attention(q, k[:, :10], v)
 
 
-def test_chunked_attention_rejects_mla_head_dims():
-    q = torch.zeros(1, 8, 2, 24)
-    v = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.chunked_attention(q, q, v, causal=True, q_chunk=4, kv_chunk=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.mla_apply()
-
-
 def test_kernel_launcher_needs_cuda_tensors():
     q = torch.zeros(2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):

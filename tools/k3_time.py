@@ -68,14 +68,15 @@ def build(i: int, source: Path):
         hmma = sum("HMMA" in ln and "TF32" in ln for ln in sass.stdout.splitlines())
     emit({"source": str(source), "build_s": seconds, "ptxas": ptxas, "sass_tf32_hmma": hmma})
     fn = ctypes.CDLL(str(out)).repro_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def run(q, k, v, causal=True):
         BH, S, D = q.shape
-        o = torch.empty_like(q)
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, S, D, 0,
-                int(causal), 1.0 / D ** 0.5, torch.cuda.current_stream().cuda_stream)
+        o = q.new_empty((BH, S, v.shape[-1]))
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, BH, S, D,
+                v.shape[-1], 0, int(causal), 1.0 / D ** 0.5,
+                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{source}: cudaError {rc}")
         return o
