@@ -6,8 +6,8 @@
 Phases, each printed as JSON records; any failure exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, and the kernel build (one
-   nvcc per source, all started together, from the sources in this
-   checkout).
+   nvcc per translation unit, all started together, from the sources in
+   this checkout; K1's and K2's k_pad instances are units of their own).
 2. K1 vs plain: ``ops.distance_topk`` on CUDA tensors against
    ``ref.distance_topk_blocked`` on the same tensors, for l2/ip/cos,
    k in {10, 100, 200, 400} (k_pad 128/256/512), D in {50, 128, 960, 2048},
@@ -112,20 +112,24 @@ Phases, each printed as JSON records; any failure exits non-zero:
    with_lse=True)``) and ``ops.flash_attention_bwd`` on CUDA tensors
    against ``ref.flash_attention_ref`` / ``ref.flash_attention_bwd_ref`` run
    in float32 on the same tensors, float32 and bfloat16, D in {16, 32, 64,
-   128}, causal and bidirectional, S in {64, 1000 (ragged), 4096}; float32
-   also with q scaled by 4 (a peaky softmax) and with v scaled by 8 at S in
-   {64, 1000}, every D; one float32 case with a permuted (non-contiguous) dO
+   128} and MLA's (q . k 192, v 128), causal and bidirectional, S in {64,
+   1000 (ragged), 4096}; float32 also with q scaled by 4 (a peaky softmax)
+   and with v scaled by 8 at S in {64, 1000}, every instance; one float32
+   case with a permuted (non-contiguous) dO
    and one with q 4 bytes off the 16-byte grid (the launcher refuses it,
    the wrapper copies).
    Limits per tensor (dq, dk, dv): float32 max |kernel - plain| / max
    |plain| <= 1e-4, bfloat16 ``ref.bf16_agreement`` <= 1; lse within 1e-4
    of the plain version's; K3's output with lse requested bit-equal to the
    output without.  Then K3-bwd / plain / SDPA-backward milliseconds
-   (SDPA's forward + backward minus its forward, a yardstick) and the
-   bound (2.5x the forward's operations, causal half, on the bf16 tensor
-   cores, or at 165 TFLOP/s of float32-grade 3xTF32) at the slice's layer
-   shape (60, 4096, 64) and at (32, 4096, 128), causal, bf16 and float32,
-   seeded, each checked against the plain version before it is timed.
+   (SDPA's forward + backward minus its forward on the backend it picks,
+   named; a yardstick) and the
+   bound (2.5x the forward's operations BH S^2 (D + Dv), causal half, on
+   the bf16 tensor cores, or at 165 TFLOP/s of float32-grade 3xTF32) at
+   the training layer shapes of 6b (60, 4096, 64) and 6d (64, 4096, 128)
+   and (64, 4096, 192 -> 128), and at (32, 4096, 128), bf16, and (60,
+   4096, 64) and (32, 4096, 128) float32, causal, seeded, each checked
+   against the plain version before it is timed.
 4b. deployment scale, q8, on phase 4's corpus, queries and ground truth,
    after the fp32 index is freed: QPS, p50/p99, the stage split, recall@100,
    resident scan bytes (codes + scales + bias + keys), the exact store's
@@ -207,20 +211,45 @@ Phases, each printed as JSON records; any failure exits non-zero:
    float32, MLA's at (192, 128)) and on the CPU: equal first token, last
    logits within 1e-3, (token, expert) routes equal in >= 0.999 of the
    assignments.  Then K3 / plain / SDPA at each shape (b) and (c) ran.
+6d. MoE and MLA training: deepseek-moe-16b, then deepseek-v2-lite-16b,
+   each under ``training_config`` (the reference's train_4k cell: bf16,
+   remat, q_chunk 1024, kv_chunk 2048, capacity factor 1.25) at full
+   published width with the depth cut to 4 layers (1 dense + 3 MoE),
+   params from a seeded ``torch.Generator`` on the card:
+   ``make_train_step(lm_loss_fn(cfg), AdamWConfig(lr=1e-3, warmup_steps=2,
+   total_steps=10), num_micro=4)`` on 16 sequences of 4,096 tokens (the
+   global batch cut from 256) of one seeded ``token_batch``, repeated: one
+   warm-up step (its routes give the share of (token, k) assignments
+   dropped at capacity 1.25), then 4 timed steps (CUDA events): step p50 /
+   p99, tokens/s, 6 N_active T / step time as a share of the bf16 peak,
+   peak device memory, loss and aux at each step (finite; the last loss
+   below step 1's), K3 and K3-bwd launches a step against 2 x layers x
+   microbatches and layers x microbatches, K3's shape ((64, 4096, 128) /
+   (64, 4096, 192 -> 128)).  Then the grads of one step of the first 3
+   layers (1 dense + 2 MoE) at full width in float32, one sequence of
+   1,100 tokens, on the card and on the CPU: (token, expert) routes
+   compared first (>= 0.999 equal; the experts a flipped assignment
+   touches leave the grad check, named), loss within 1e-5 relative (aux
+   too unless a top-1 route flipped), each grad within 1e-3 of the CPU's
+   largest entry, grad norm within 1e-4 relative.  Then K3 / plain / SDPA
+   at the step's shape and the check's, and K3-bwd at the check's
+   (float32).  No checkpoint of the full-width state is written (~23 GB).
 7. the HNSW beam under ``torch.profiler``, last (a profiler session slows
    the rest of the process's kernel launches): one batch of 3c and one of
    3d, each on an index carrying 3c's graphs again — kernel launches,
    device busy time and idle share, the top kernels by device time.
 8. the kernels line: launches on the main path (K1: phases 3, 3c's ground
-   truth, 3e, 3f, 4 and 3g; K2: 3b and 4b; K3: 5, 6, 6b's forward
-   launches and 6c; K3-bwd: 6b's steps and its card-vs-CPU check; the HNSW beam
+   truth, 3e, 3f, 4 and 3g; K2: 3b and 4b; K3: 5, 6, 6b's and 6d's forward
+   launches and 6c; K3-bwd: 6b's and 6d's steps and their card-vs-CPU
+   checks; the HNSW beam
    is torch ops and launches none of them), max error, kernel / plain /
    library times at a main-path shape, and each bound; K1, K3 and K3-bwd
    also by shape (``instances``: K1's scan phases at the paper partition
    and 3g at the retrieval_cand shape; K3's bf16 32k prefill, each float32
    bucket, the bf16 training step, 6c's two 32k prefills, its engine
-   buckets and its float32 checks; K3-bwd's bf16 training step and its
-   float32 check; each with its launches, times and bound).
+   buckets and its float32 checks, 6d's steps and checks; K3-bwd's bf16
+   training steps (6b, and 6d's GQA 128 and MLA (192, 128)) and their
+   float32 checks; each with its launches, times and bound).
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
@@ -2373,8 +2402,8 @@ def k3_bwd_case(q, k, v, do, causal: bool, label: str) -> dict:
     res = {"lse_max_abs_err": float((lse - lse_plain).abs().max()),
            "out_bit_equal": bool(torch.equal(out, bare)), "max_abs_err": 0.0, "rel_err": 0.0,
            "bf16_agreement": 0.0}
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        if a.dtype != q.dtype or a.shape != q.shape:
+    for name, a, w, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        if a.dtype != q.dtype or a.shape != like.shape:
             raise AssertionError(f"K3-bwd {label}: {name} {a.dtype} {tuple(a.shape)}")
         err = float((a.float() - w).abs().max())
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -2418,16 +2447,18 @@ def k3_bwd_layout_cases(gen) -> dict:
 
 
 def time_flash_bwd_kernel(q, k, v, do, label: str) -> dict:
-    """K3-bwd at one shape (BH, S, D), causal: K3-bwd / plain /
-    SDPA-backward milliseconds and the bound, after a check against the
-    plain version in float32 (bf16 agreement <= 1; float32 relative error
-    <= K3_BWD_REL_TOL).  SDPA's backward is timed as (forward + backward) -
-    forward and is a yardstick only."""
+    """K3-bwd at one shape, q, k (BH, S, D) and v, dO (BH, S, Dv), causal:
+    K3-bwd / plain / SDPA-backward milliseconds and the bound, after a
+    check against the plain version in float32 (bf16 agreement <= 1;
+    float32 relative error <= K3_BWD_REL_TOL).  SDPA's backward is timed as
+    (forward + backward) - forward on the backend SDPA picks (recorded),
+    and is a yardstick only."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 
     BH, S, D = q.shape
+    Dv = v.shape[-1]
     scale = 1.0 / D ** 0.5
     out, lse = flash_attention_cuda(q, k, v, causal=True, scale=scale, with_lse=True)
     kern = lambda: flash_attention_bwd_cuda(q, k, v, out, do, lse, causal=True, scale=scale)
@@ -2450,13 +2481,17 @@ def time_flash_bwd_kernel(q, k, v, do, label: str) -> dict:
     sdpa_fwd_ms = cuda_ms(lambda: sdpa().detach(), iters=10, warmup=2)
     sdpa_both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do[None]),
                            iters=10, warmup=2)
-    flops = 2.5 * 4.0 * BH * S * S * D / 2  # the gradient: 2.5x the forward, causal half
-    nbytes = 8.0 * BH * S * D * q.element_size() + 4.0 * BH * S  # q k v o dO in, dq dk dv out
+    del qs, ks, vs
+    # the gradient: 2.5x the forward's BH S^2 (D + Dv) over the causal half
+    flops = 2.5 * BH * S * S * (D + Dv)
+    # q, k, v, o, dO in, dq, dk, dv out, and lse
+    nbytes = 4.0 * BH * S * (D + Dv) * q.element_size() + 4.0 * BH * S
     t_ops, t_bytes = flops / K3_PEAK[q.dtype], nbytes / PEAK_HBM_BYTES
-    rec = {"shape": label, "BH": BH, "S": S, "D": D, "dtype": str(q.dtype), "causal": True,
-           "max_abs_err": err, "rel_err": rel, "bf16_agreement": agree, "ms": ms,
+    rec = {"shape": label, "BH": BH, "S": S, "D": D, "Dv": Dv, "dtype": str(q.dtype),
+           "causal": True, "max_abs_err": err, "rel_err": rel, "bf16_agreement": agree, "ms": ms,
            "plain_ms": plain_ms,
-           "library_ms": sdpa_both_ms - sdpa_fwd_ms, "library_fwd_bwd_ms": sdpa_both_ms,
+           "library_ms": sdpa_both_ms - sdpa_fwd_ms,
+           "library_backend": sdpa_backend(q, k, v, scale), "library_fwd_bwd_ms": sdpa_both_ms,
            "library_fwd_ms": sdpa_fwd_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "achieved_tflops": flops / (ms * 1e-3) / 1e12}
@@ -2468,19 +2503,22 @@ def time_flash_bwd_kernel(q, k, v, do, label: str) -> dict:
 
 def phase_flash_bwd_vs_plain() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
-    # (dtype, D, S, causal, q scale, v scale): float32 also on a peaky
-    # softmax (q x 4) and large values (v x 8), as phase 2c gives K3
-    cases = [(dtype, D, S, causal, 1.0, 1.0) for dtype in (torch.float32, torch.bfloat16)
-             for D in (16, 32, 64, 128) for S in (64, 1000, 4096) for causal in (True, False)]
-    cases += [(torch.float32, D, S, causal, qs, vs) for D in (16, 32, 64, 128)
+    # (dtype, (D, Dv), S, causal, q scale, v scale): every K3 instance, MLA's
+    # (192, 128) included; float32 also on a peaky softmax (q x 4) and large
+    # values (v x 8), as phase 2c gives K3
+    dims = [(d, d) for d in (16, 32, 64, 128)] + [(192, 128)]
+    cases = [(dtype, dd, S, causal, 1.0, 1.0) for dtype in (torch.float32, torch.bfloat16)
+             for dd in dims for S in (64, 1000, 4096) for causal in (True, False)]
+    cases += [(torch.float32, dd, S, causal, qs, vs) for dd in dims
               for S in (64, 1000) for causal in (True, False) for qs, vs in ((4.0, 1.0), (1.0, 8.0))]
     worst = {"max_abs_err": 0.0, "rel_err": 0.0, "bf16_agreement": 0.0, "lse_max_abs_err": 0.0}
-    for dtype, D, S, causal, qs, vs in cases:
+    for dtype, (D, Dv), S, causal, qs, vs in cases:
         BH = 2 if S == 4096 else 3
-        q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda") for _ in range(4))
+        q, k = (torch.randn(BH, S, D, generator=gen, device="cuda") for _ in range(2))
+        v, do = (torch.randn(BH, S, Dv, generator=gen, device="cuda") for _ in range(2))
         q, k, v, do = (q * qs).to(dtype), k.to(dtype), (v * vs).to(dtype), do.to(dtype)
-        res = k3_bwd_case(q, k, v, do, causal,
-                          f"{dtype} D={D} S={S} causal={causal} BH={BH} q x{qs:g} v x{vs:g}")
+        res = k3_bwd_case(q, k, v, do, causal, f"{dtype} D={D} Dv={Dv} S={S} causal={causal} "
+                                               f"BH={BH} q x{qs:g} v x{vs:g}")
         for key in worst:
             worst[key] = max(worst[key], res[key])
     layout = k3_bwd_layout_cases(gen)
@@ -2491,21 +2529,30 @@ def phase_flash_bwd_vs_plain() -> dict:
           "bf16_agreement_limit": 1.0,
           "lse_max_abs_err": max(worst["lse_max_abs_err"], layout["lse_max_abs_err"]),
           "out_with_lse_bit_equal": True})
-    # the slice's layer shape (smollm-360m's 15 heads x 4 sequences a
-    # microbatch) and one sequence of codeqwen1.5-7b's 32 heads at train_4k
-    # (D = 128), in bf16 and in float32 (3xTF32)
-    timings = []
-    for (BH, S, D), dtype, label in (
-            ((60, 4096, 64), torch.bfloat16, "train_4k layer: smollm-360m, 4 x 4096 tokens"),
-            ((32, 4096, 128), torch.bfloat16, "train_4k layer: codeqwen1.5-7b, 1 x 4096 tokens"),
-            ((60, 4096, 64), torch.float32, "smollm-360m's layer in float32"),
-            ((32, 4096, 128), torch.float32, "codeqwen1.5-7b's layer in float32")):
-        q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
-                       for _ in range(4))
-        timings.append(time_flash_bwd_kernel(q, k, v, do, label))
+    # the layer shapes of 6b (smollm-360m's 15 heads x 4 sequences a
+    # microbatch) and 6d (the DeepSeek LMs' 16 heads x 4 sequences: GQA at
+    # 128, MLA at 192 -> 128), one sequence of codeqwen1.5-7b's 32 heads at
+    # train_4k (D = 128), in bf16, and float32 (3xTF32) at D = 64 and 128
+    timings = {}
+    for key, (BH, S, D, Dv), dtype, label in (
+            ("6b", (60, 4096, 64, 64), torch.bfloat16,
+             "train_4k layer: smollm-360m, 4 x 4096 tokens"),
+            ("6d deepseek-moe-16b", (64, 4096, 128, 128), torch.bfloat16,
+             "train_4k layer: deepseek-moe-16b, 4 x 4096 tokens"),
+            ("6d deepseek-v2-lite-16b", (64, 4096, 192, 128), torch.bfloat16,
+             "train_4k layer: deepseek-v2-lite-16b (MLA), 4 x 4096 tokens"),
+            ("codeqwen", (32, 4096, 128, 128), torch.bfloat16,
+             "train_4k layer: codeqwen1.5-7b, 1 x 4096 tokens"),
+            ("f32 64", (60, 4096, 64, 64), torch.float32, "smollm-360m's layer in float32"),
+            ("f32 128", (32, 4096, 128, 128), torch.float32,
+             "codeqwen1.5-7b's layer in float32")):
+        q, k = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        v, do = (torch.randn(BH, S, Dv, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        timings[key] = time_flash_bwd_kernel(q, k, v, do, label)
         del q, k, v, do
     return {"max_abs_err": max(worst["max_abs_err"], layout["max_abs_err"],
-                               *(t["max_abs_err"] for t in timings)), "timing": timings[0]}
+                               *(t["max_abs_err"] for t in timings.values())),
+            "timing": timings["6b"], "timings": timings}
 
 
 # ------------------------------------------------------------ training step
@@ -2743,8 +2790,9 @@ class RecordMoE:
         def recording(params, cfg, x, *, capacity_factor=0.0):
             T = x.shape[0] * x.shape[1]
             C = moe.capacity(cfg, T, capacity_factor)
-            _, _, top_e = moe.route(params, cfg, x.reshape(T, -1))
-            rank = moe._ranks_within_expert(top_e.reshape(-1), cfg.num_experts)
+            with torch.no_grad():
+                _, _, top_e = moe.route(params, cfg, x.reshape(T, -1))
+                rank = moe._ranks_within_expert(top_e.reshape(-1), cfg.num_experts)
             self.dropped.append(int((rank >= C).sum()))
             self.assignments.append(T * cfg.top_k)
             if self.keep_routes:
@@ -2997,6 +3045,241 @@ def phase_moe_mla_serving(archs=("deepseek-moe-16b", "deepseek-v2-lite-16b"), S:
     return {"launches": launches, "max_abs_err": max_err, "instances": instances}
 
 
+# ----------------------------------------------------- MoE and MLA training
+
+
+def moe_mla_train_steps(arch: str, cfg, S: int, global_batch: int, num_micro: int,
+                        steps: int) -> dict:
+    """6d (a): ``make_train_step(lm_loss_fn(cfg), AdamWConfig(lr=1e-3,
+    warmup_steps=2, total_steps=10), num_micro)`` on one seeded batch,
+    repeated: a warm-up step (its routes give the dropped share), then
+    ``steps`` timed steps (CUDA events) with K3's calls counted by shape."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import lm_loss_fn, make_train_step
+
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    opt_state = init_state(params)
+    step_fn = make_train_step(lm_loss_fn(cfg), AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                           total_steps=10), num_micro=num_micro)
+    toks, labels = token_batch(global_batch, S, cfg.vocab, seed=0)
+    batch = {"tokens": torch.from_numpy(toks).cuda(), "labels": torch.from_numpy(labels).cuda()}
+    losses, auxes = [], []
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        auxes.append(float(m["aux_loss"]))
+
+    with RecordMoE() as moe_rec:
+        step()  # warm-up: step 1, cuBLAS plans and the kernel libraries
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with RecordAttention() as rec:
+        ops.reset_launches()
+        for _ in range(steps):  # steps 2 .. steps + 1
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        launches = dict(ops.KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"6d {arch}: losses {losses}")
+    if not all(np.isfinite(a) and a > 0 for a in auxes):
+        raise AssertionError(f"6d {arch}: aux losses {auxes}")
+    per_step_fwd = launches["flash_attention"] / steps
+    per_step_bwd = launches["flash_attention_bwd"] / steps
+    want_fwd, want_bwd = 2 * L * num_micro, L * num_micro  # remat: each forward twice
+    if per_step_fwd != want_fwd or per_step_bwd != want_bwd:
+        raise AssertionError(f"6d {arch}: K3 {per_step_fwd} / K3-bwd {per_step_bwd} launches a "
+                             f"step, want {want_fwd} / {want_bwd}")
+    B_micro = global_batch // num_micro
+    D, Dv = ((cfg.mla_qk_nope_head_dim + cfg.mla_qk_rope_head_dim, cfg.mla_v_head_dim)
+             if cfg.attention == "mla" else (cfg.head_dim, cfg.head_dim))
+    shape = (torch.bfloat16, B_micro * cfg.n_heads, S, D, Dv)
+    if rec.shapes != {shape: launches["flash_attention"]}:
+        raise AssertionError(f"6d {arch}: K3 shapes {rec.shapes}")
+    p50_ms = float(np.percentile(times, 50))
+    tokens = global_batch * S
+    N_active = cfg.num_active_params()
+    record = {"losses": losses, "aux_losses": auxes, "step_ms": times, "step_p50_ms": p50_ms,
+              "step_p99_ms": float(np.percentile(times, 99)),
+              "tokens_per_s": tokens / (p50_ms * 1e-3), "T": tokens, "N": cfg.num_params(),
+              "N_active": N_active,
+              "model_flops_share_of_bf16_peak": 6.0 * N_active * tokens / (p50_ms * 1e-3)
+              / PEAK_BF16_FLOPS,
+              "param_bytes": param_bytes, "init_s": init_s, "peak_device_bytes": peak,
+              "capacity_factor": cfg.moe.capacity_factor,
+              "dropped_share_step1": sum(moe_rec.dropped) / sum(moe_rec.assignments),
+              "k3_launches_per_step": per_step_fwd, "k3_bwd_launches_per_step": per_step_bwd,
+              "launch_formula": "K3 2 x layers x num_micro (remat), K3-bwd layers x num_micro",
+              "k3_shapes": {f"{BH}x{s_}x{d}->{dv}": n for (_, BH, s_, d, dv), n
+                            in rec.shapes.items()}}
+    return {"record": record, "launches": launches["flash_attention"],
+            "bwd_launches": launches["flash_attention_bwd"], "shape": shape}
+
+
+def moe_mla_train_card_vs_cpu(arch: str, cfg, n_layers: int, S: int) -> dict:
+    """6d (b): the grads of one train step of ``arch``'s first ``n_layers``
+    layers (1 dense + the rest MoE) at full width in float32, one sequence
+    of S seeded tokens, on the card (K3 and K3-bwd float32, MLA's at (192,
+    128)) and on the CPU (the plain versions), from the same params.  The
+    (token, expert) routes are compared first, as 6c (c) does: where a
+    near tie in the float32 router flips one, the weights and router column
+    of every expert a flipped assignment touches are left out of the grad
+    check (and named).  Then loss within 1e-5 relative (aux too, unless a
+    top-1 route flipped), every grad tensor within 1e-3 of the CPU's
+    largest entry, the grad norm within 1e-4 relative."""
+    import copy
+    import dataclasses
+
+    from repro_torch.common.tree import flatten
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import _accumulate_grads, lm_loss_fn
+
+    cfg_c = dataclasses.replace(cfg, n_layers=n_layers, param_dtype="float32",
+                                compute_dtype="float32")
+    gpu_params = tf.init(cfg_c, seed=0)
+    cpu_params = copy.deepcopy(gpu_params).to("cpu")
+    names = [n for n, _ in flatten(tf.param_tree(cpu_params))]
+    toks, labels = token_batch(1, S, cfg.vocab, seed=7)
+    batch = {"tokens": toks, "labels": labels}
+    out, secs = {}, {}
+    for name, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+        t0 = time.perf_counter()
+        with RecordMoE(keep_routes=True) as moe_rec, RecordAttention() as rec:
+            ops.reset_launches()
+            loss, grads, aux = _accumulate_grads(lm_loss_fn(cfg_c), params, batch, 1)
+            gnorm = float(global_norm(grads))
+            launches = dict(ops.KERNEL_LAUNCHES)
+        secs[name] = time.perf_counter() - t0
+        out[name] = (float(loss), float(aux), [g.cpu() for g in grads], gnorm,
+                     moe_rec.routes[:cfg_c.n_scan_layers])  # the forward's calls, in order
+        if name == "cuda":
+            card_launches, shapes = launches, dict(rec.shapes)
+        del grads
+    del gpu_params, cpu_params
+    (lg, ag, gg, ng, rg), (lc, ac, gc_, nc, rc) = out["cuda"], out["cpu"]
+    # routes first: the experts a flipped (token, k) assignment touches, per MoE layer
+    flipped, agree, top1_flips = {}, [], 0
+    for layer, (a, b) in enumerate(zip(rg, rc)):
+        same = (a[:, :, None] == b[:, None, :]).any(-1)
+        agree.append(float(same.float().mean()))
+        top1_flips += int((a[:, 0] != b[:, 0]).sum())
+        experts = set(a[~same].tolist()) | set(b[~(b[:, :, None] == a[:, None, :]).any(-1)]
+                                               .tolist())
+        if experts:
+            flipped[layer] = sorted(experts)
+    share = float(np.mean(agree))
+    held, grad_err = [], 0.0
+    for n, g, c in zip(names, gg, gc_):
+        parts = n.split("/")
+        if parts[0] == "blocks" and int(parts[1]) in flipped and parts[2] == "moe" \
+                and parts[3] in ("w_gate", "w_up", "w_down", "router"):
+            ex = flipped[int(parts[1])]
+            keep = torch.ones(c.shape[-1] if parts[3] == "router" else c.shape[0],
+                              dtype=torch.bool)
+            keep[ex] = False
+            g, c = (g[:, keep], c[:, keep]) if parts[3] == "router" else (g[keep], c[keep])
+            held.append(n)
+        grad_err = max(grad_err, float((g - c).abs().max()) / float(c.abs().max()))
+    record = {"reduced": {"n_layers": f"{cfg.n_layers} -> {n_layers}",
+                          "dtype": "bfloat16 -> float32", "global_batch": "256 -> 1",
+                          "S": f"4096 -> {S}"},
+              "tokens": S, "num_micro": 1, "q_chunk": cfg_c.q_chunk, "remat": cfg_c.remat,
+              "route_agreement": share, "route_agreement_by_layer": agree,
+              "route_agreement_limit": 0.999, "top1_flips": top1_flips,
+              "flipped_experts_by_moe_layer": {str(k): v for k, v in flipped.items()},
+              "grads_held_without_flipped_experts": held,
+              "loss_cuda": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc) / abs(lc),
+              "aux_cuda": ag, "aux_cpu": ac, "aux_rel_err": abs(ag - ac) / abs(ac),
+              "grad_max_rel_err": grad_err, "grad_norm_cuda": ng, "grad_norm_cpu": nc,
+              "grad_norm_rel_err": abs(ng - nc) / nc, "seconds": secs,
+              "k3_launches": card_launches["flash_attention"],
+              "k3_bwd_launches": card_launches["flash_attention_bwd"],
+              "k3_shapes": {f"{BH}x{s_}x{d}->{dv}": n for (_, BH, s_, d, dv), n
+                            in shapes.items()}}
+    want_k3 = 2 * n_layers if cfg_c.remat else n_layers
+    if not (share >= 0.999 and record["loss_rel_err"] <= 1e-5 and grad_err <= 1e-3
+            and record["grad_norm_rel_err"] <= 1e-4
+            and (top1_flips > 0 or record["aux_rel_err"] <= 1e-5)
+            and record["k3_launches"] == want_k3 and record["k3_bwd_launches"] == n_layers):
+        raise AssertionError(f"6d {arch} card vs CPU: {record}")
+    return {"record": record, "shapes": shapes}
+
+
+def phase_moe_mla_training(archs=("deepseek-moe-16b", "deepseek-v2-lite-16b"), S: int = 4096,
+                           global_batch: int = 16, num_micro: int = 4, steps: int = 4,
+                           n_layers: int = 4, cpu_layers: int = 3, cpu_tokens: int = 1100) -> dict:
+    import dataclasses
+
+    from repro_torch.configs import get_config, training_config
+
+    out = {"launches": 0, "bwd_launches": 0, "instances": [], "bwd": {}, "bwd_max_abs_err": 0.0}
+    for arch in archs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_arch = time.perf_counter()
+        full = training_config(get_config(arch))
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        train = moe_mla_train_steps(arch, cfg, S, global_batch, num_micro, steps)
+        check = moe_mla_train_card_vs_cpu(arch, full, cpu_layers, cpu_tokens)
+        emit({"phase": "moe_mla_training", "arch": arch, "attention": cfg.attention,
+              "d_model": cfg.d_model, "n_layers": n_layers, "dtype": "bfloat16",
+              "remat": cfg.remat, "q_chunk": cfg.q_chunk, "S": S, "global_batch": global_batch,
+              "num_micro": num_micro, "timed_steps": steps,
+              "reduced": {"n_layers": f"{full.n_layers} -> {n_layers} (1 dense + "
+                                      f"{n_layers - full.moe.first_k_dense} MoE)",
+                          "global_batch": f"256 -> {global_batch}"},
+              "optimizer": {"lr": 1e-3, "warmup_steps": 2, "total_steps": 10},
+              **train["record"], "card_vs_cpu": check["record"],
+              "seconds": time.perf_counter() - t_arch})
+        n_check = sum(check["shapes"].values())
+        out["launches"] += train["launches"] + n_check
+        out["bwd_launches"] += train["bwd_launches"] + check["record"]["k3_bwd_launches"]
+        # K3 at the step's layer shape and at the check's, seeded (its time
+        # does not depend on the values); K3-bwd at the check's shape in
+        # float32 (the step's bf16 shape is timed in 2d)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        for (dtype, BH, Sb, D, Dv), n, what in ((train["shape"], train["launches"], "step"),
+                                                 *((k, v, "card-vs-CPU check")
+                                                   for k, v in check["shapes"].items())):
+            q, k = (torch.randn(BH, Sb, D, generator=gen, device="cuda", dtype=dtype)
+                    for _ in range(2))
+            v = torch.randn(BH, Sb, Dv, generator=gen, device="cuda", dtype=dtype)
+            timing = time_flash_kernel(q, k, v, f"6d {what}: {arch}, S={Sb}")
+            out["instances"].append({**timing, "launches": n})
+            if dtype == torch.float32:
+                do = torch.randn(BH, Sb, Dv, generator=gen, device="cuda", dtype=dtype)
+                bwd = time_flash_bwd_kernel(q, k, v, do, f"6d card-vs-CPU check: {arch} layer "
+                                                         f"in float32, 1 x {Sb} tokens")
+                out["bwd"][arch] = {"step": train["bwd_launches"],
+                                    "check": {**bwd, "launches": check["record"]["k3_bwd_launches"]}}
+                out["bwd_max_abs_err"] = max(out["bwd_max_abs_err"], bwd["max_abs_err"])
+                del do
+            del q, k, v
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3041,6 +3324,7 @@ def main() -> int:
     serve = timed("6", phase_serve_engine)
     train = timed("6b", phase_train_step)
     moe_mla = timed("6c", phase_moe_mla_serving)
+    moe_train = timed("6d", phase_moe_mla_training)
     timed("7", phase_beam_profile, hnsw_state, profile_batch)
     del hnsw_state
     k1_scan_launches = (paper["launches"] + paper_hnsw["launches"] + persist["launches"]
@@ -3048,8 +3332,9 @@ def main() -> int:
     k1_launches = k1_scan_launches + recsys["launches"]
     k2_launches = paper_q8["launches"] + deploy_q8["launches"]
     k3_launches = (prefill["launches"] + serve["launches"] + train["launches"]
-                   + moe_mla["launches"])
-    k3_bwd_launches = train["bwd_launches"] + train["check_bwd"]["launches"]
+                   + moe_mla["launches"] + moe_train["launches"])
+    k3_bwd_launches = (train["bwd_launches"] + train["check_bwd"]["launches"]
+                       + moe_train["bwd_launches"])
     if min(k1_launches, k2_launches, k3_launches, k3_bwd_launches) <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
                              f"K2 {k2_launches}, K3 {k3_launches}, K3-bwd {k3_bwd_launches}")
@@ -3059,7 +3344,7 @@ def main() -> int:
                                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_backend")}
         for rec in (prefill["instances"] + serve["instances"] + train["instances"]
-                    + moe_mla["instances"])]
+                    + moe_mla["instances"] + moe_train["instances"])]
     t3 = k3_instances[0]  # the 32k prefill's bf16 shape
     t4 = k3_bwd["timing"]  # the training step's layer shape
     k1_keys = ("shape", "B", "N", "D", "k", "k_pad", "metric", "launches", "max_abs_err", "ms",
@@ -3069,11 +3354,15 @@ def main() -> int:
     k1_instances = [{key: rec[key] for key in k1_keys}
                     for rec in ({**t1, "launches": k1_scan_launches},
                                 {**recsys["timing"], "launches": recsys["launches"]})]
-    bwd_keys = ("shape", "dtype", "BH", "S", "D", "causal", "launches", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # 6b's timed steps (bf16, timed in 2d), then 6b's card-vs-CPU check (float32)
-    k3_bwd_instances = [{key: rec[key] for key in bwd_keys}
-                        for rec in ({**t4, "launches": train["bwd_launches"]}, train["check_bwd"])]
+    bwd_keys = ("shape", "dtype", "BH", "S", "D", "Dv", "causal", "launches", "max_abs_err",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend")
+    # 6b's timed steps (bf16, timed in 2d), then 6b's card-vs-CPU check
+    # (float32); then per 6d arch its timed steps (bf16, timed in 2d) and
+    # its card-vs-CPU check (float32)
+    bwd_recs = [{**t4, "launches": train["bwd_launches"]}, train["check_bwd"]]
+    for arch, b in moe_train["bwd"].items():
+        bwd_recs += [{**k3_bwd["timings"][f"6d {arch}"], "launches": b["step"]}, b["check"]]
+    k3_bwd_instances = [{key: rec[key] for key in bwd_keys} for rec in bwd_recs]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
     emit({"kernels": [
         {"name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
@@ -3097,7 +3386,8 @@ def main() -> int:
          "instances": k3_instances},
         {"name": "flash_attention_bwd", "route": "cuda", "source": K3_BWD_SOURCE,
          "replaces": K3_BWD_REPLACES, "launches": k3_bwd_launches,
-         "max_abs_err": max(k3_bwd["max_abs_err"], train["check_bwd"]["max_abs_err"]),
+         "max_abs_err": max(k3_bwd["max_abs_err"], train["check_bwd"]["max_abs_err"],
+                            moe_train["bwd_max_abs_err"]),
          "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
          "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
          "instances": k3_bwd_instances},

@@ -101,40 +101,31 @@ def _stack(layers: list, f) -> dict:
             else np.stack([f(b[name]) for b in layers]) for name, v in layers[0].items()}
 
 
-def transformer_from_jax(cfg: TransformerConfig, params_np: dict, device=None) -> Transformer:
-    """The port's params from the reference's ``transformer.init`` pytree
-    as numpy arrays: the stacked (L, ...) ``dense_blocks`` (a MoE model's
-    head layers) and ``blocks`` become one block per layer, nested groups
-    (MLA's ``kv_norm``, MoE's ``shared``) kept, each weight in
-    ``cfg.param_dtype`` on the device but the MoE ``router``, float32 as
-    in the reference."""
-    dev = resolve_device(device)
-    dtype = cfg.dtype()
-
-    def t(name, a):
-        leaf_dtype = torch.float32 if name == "router" else dtype
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=leaf_dtype)
-
-    dense_blocks = [_layer(params_np["dense_blocks"], l, t)
-                    for l in range(cfg.n_dense_layers)] if "dense_blocks" in params_np else []
-    blocks = [_layer(params_np["blocks"], l, t) for l in range(cfg.n_scan_layers)]
-    lm_head = None if cfg.tie_embeddings else t("lm_head", params_np["lm_head"])
-    return Transformer(t("embed", params_np["embed"]),
-                       t("scale", params_np["final_norm"]["scale"]), blocks, lm_head,
-                       dense_blocks)
+def _per_layer(cfg: TransformerConfig, tree_np: dict, t) -> dict:
+    """A tree in the reference's LM layout (params, or AdamW's ``m`` / ``v``)
+    in the port's (``param_tree``'s): the stacked (L, ...) ``dense_blocks``
+    (a MoE model's head layers) and ``blocks`` split into one dict per
+    layer, nested groups (MLA's ``kv_norm``, MoE's ``shared``) kept, each
+    leaf through ``t(name, array)``."""
+    out = {"embed": t("embed", tree_np["embed"]),
+           "final_norm": {"scale": t("scale", tree_np["final_norm"]["scale"])},
+           "blocks": [_layer(tree_np["blocks"], l, t) for l in range(cfg.n_scan_layers)]}
+    if "dense_blocks" in tree_np:
+        out["dense_blocks"] = [_layer(tree_np["dense_blocks"], l, t)
+                               for l in range(cfg.n_dense_layers)]
+    if "lm_head" in tree_np:
+        out["lm_head"] = t("lm_head", tree_np["lm_head"])
+    return out
 
 
-def transformer_to_numpy(params: Transformer) -> dict:
-    """The inverse of :func:`transformer_from_jax`: the port's params as the
-    reference's pytree of float32 numpy arrays, the per-layer blocks stacked
-    into (L, ...) leaves."""
+def tree_to_numpy(tree: dict) -> dict:
+    """The inverse of :func:`_per_layer`: a tree in the port's
+    ``param_tree`` layout (params, grads or AdamW moments) as the
+    reference's, float32 numpy arrays with the per-layer ``blocks`` (and
+    ``dense_blocks``) stacked into (L, ...) leaves."""
     f = lambda t: t.detach().to(torch.float32).cpu().numpy()
-    tree = param_tree(params)
-    out = {
-        "embed": f(tree["embed"]),
-        "final_norm": {"scale": f(tree["final_norm"]["scale"])},
-        "blocks": _stack(tree["blocks"], f),
-    }
+    out = {"embed": f(tree["embed"]), "final_norm": {"scale": f(tree["final_norm"]["scale"])},
+           "blocks": _stack(tree["blocks"], f)}
     if "dense_blocks" in tree:
         out["dense_blocks"] = _stack(tree["dense_blocks"], f)
     if "lm_head" in tree:
@@ -142,28 +133,41 @@ def transformer_to_numpy(params: Transformer) -> dict:
     return out
 
 
+def transformer_from_jax(cfg: TransformerConfig, params_np: dict, device=None) -> Transformer:
+    """The port's params from the reference's ``transformer.init`` pytree
+    as numpy arrays (:func:`_per_layer`'s walk), each weight in
+    ``cfg.param_dtype`` on the device but the MoE ``router``, float32 as in
+    the reference."""
+    dev = resolve_device(device)
+    dtype = cfg.dtype()
+
+    def t(name, a):
+        leaf_dtype = torch.float32 if name == "router" else dtype
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=leaf_dtype)
+
+    tree = _per_layer(cfg, params_np, t)
+    return Transformer(tree["embed"], tree["final_norm"]["scale"], tree["blocks"],
+                       tree.get("lm_head"), tree.get("dense_blocks", ()))
+
+
+def transformer_to_numpy(params: Transformer) -> dict:
+    """The inverse of :func:`transformer_from_jax`: the port's params as the
+    reference's pytree of float32 numpy arrays, the per-layer blocks stacked
+    into (L, ...) leaves."""
+    return tree_to_numpy(param_tree(params))
+
+
 def adamw_state_from_jax(cfg: TransformerConfig, state_np: dict, device=None) -> dict:
     """The port's AdamW state (``train.optimizer.init_state``'s layout) from
-    the reference's as numpy arrays: ``step``, and ``m`` / ``v`` whose
-    stacked (L, ...) ``blocks`` become one float32 dict per layer.  A MoE
-    model's state (``dense_blocks``) is training's, not ported yet."""
-    if "dense_blocks" in state_np["m"]:
-        raise NotImplementedError("AdamW state of a MoE model: MoE / MLA training is not "
-                                  "ported (ROADMAP §1 item 10.3b)")
+    the reference's as numpy arrays: ``step`` int32, and ``m`` / ``v``
+    through :func:`_per_layer`'s walk as float32 trees of the port's
+    ``param_tree`` structure (``dense_blocks`` and the nested groups
+    included)."""
     dev = resolve_device(device)
-    t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
-
-    def moments(tree):
-        out = {"embed": t(tree["embed"]), "final_norm": {"scale": t(tree["final_norm"]["scale"])},
-               "blocks": [{group: {name: t(a[l]) for name, a in leaves_.items()}
-                           for group, leaves_ in tree["blocks"].items()}
-                          for l in range(cfg.n_layers)]}
-        if "lm_head" in tree:
-            out["lm_head"] = t(tree["lm_head"])
-        return out
-
+    t = lambda name, a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
     step = torch.tensor(int(np.asarray(state_np["step"])), dtype=torch.int32, device=dev)
-    return {"step": step, "m": moments(state_np["m"]), "v": moments(state_np["v"])}
+    return {"step": step, "m": _per_layer(cfg, state_np["m"], t),
+            "v": _per_layer(cfg, state_np["v"], t)}
 
 
 def recsys_params_from_jax(params_np, dtype=torch.float32, device=None):

@@ -123,16 +123,30 @@ struct F32Op {
   }
 };
 
+}  // namespace
+
+// The k_pad instance K.  The library links four translation units of this
+// file (kernels/_build.py UNITS), so that the instances, the longest part of
+// the build, compile in parallel: built with -DREPRO_K=K a unit defines this
+// instance; built without REPRO_K, the C entry below, which calls them.
 template <int K>
-cudaError_t launch(const float* q, const float* x, float* part_d, int* part_i, float* out_d,
-                   int* out_i, int B, int D, int n_valid, int metric, int nsplit, int chunk,
-                   cudaStream_t stream) {
+cudaError_t k1_launch(const float* q, const float* x, float* part_d, int* part_i, float* out_d,
+                      int* out_i, int B, int D, int n_valid, int metric, int nsplit, int chunk,
+                      cudaStream_t stream);
+
+#ifdef REPRO_K
+template <int K>
+cudaError_t k1_launch(const float* q, const float* x, float* part_d, int* part_i, float* out_d,
+                      int* out_i, int B, int D, int n_valid, int metric, int nsplit, int chunk,
+                      cudaStream_t stream) {
   return scan::launch<F32Op, K>(reinterpret_cast<const uint32_t*>(q),
                                 reinterpret_cast<const uint32_t*>(x), F32Op::Args{metric}, part_d,
                                 part_i, out_d, out_i, B, D, n_valid, nsplit, chunk, stream);
 }
 
-}  // namespace
+template cudaError_t k1_launch<REPRO_K>(const float*, const float*, float*, int*, float*, int*,
+                                        int, int, int, int, int, int, cudaStream_t);
+#else
 
 // q (B, D) and x (N, D) float32 row-major on the device; out_d/out_i (B,
 // k_pad); part_d/part_i (B, nsplit, k_pad) scratch, unused when nsplit == 1.
@@ -147,12 +161,16 @@ extern "C" int repro_distance_topk(const float* q, const float* x, float* part_d
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (k_pad == 128)
-    e = launch<128>(q, x, part_d, part_i, out_d, out_i, B, D, n_valid, metric, nsplit, chunk, st);
+    e = k1_launch<128>(q, x, part_d, part_i, out_d, out_i, B, D, n_valid, metric, nsplit, chunk,
+                       st);
   else if (k_pad == 256)
-    e = launch<256>(q, x, part_d, part_i, out_d, out_i, B, D, n_valid, metric, nsplit, chunk, st);
+    e = k1_launch<256>(q, x, part_d, part_i, out_d, out_i, B, D, n_valid, metric, nsplit, chunk,
+                       st);
   else if (k_pad == 512)
-    e = launch<512>(q, x, part_d, part_i, out_d, out_i, B, D, n_valid, metric, nsplit, chunk, st);
+    e = k1_launch<512>(q, x, part_d, part_i, out_d, out_i, B, D, n_valid, metric, nsplit, chunk,
+                       st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;
 }
+#endif

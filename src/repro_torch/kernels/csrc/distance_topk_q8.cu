@@ -113,17 +113,30 @@ struct Q8Op {
   }
 };
 
+}  // namespace
+
+// The k_pad instance K, in its own translation unit as K1's
+// (distance_topk.cu, kernels/_build.py UNITS).
 template <int K>
-cudaError_t launch(const int* q, const int* x, const float* q_scale, const float* norms2,
-                   float* part_d, int* part_i, float* out_d, int* out_i, int B, int D4,
-                   int n_valid, int metric, int nsplit, int chunk, cudaStream_t stream) {
+cudaError_t k2_launch(const int* q, const int* x, const float* q_scale, const float* norms2,
+                      float* part_d, int* part_i, float* out_d, int* out_i, int B, int D4,
+                      int n_valid, int metric, int nsplit, int chunk, cudaStream_t stream);
+
+#ifdef REPRO_K
+template <int K>
+cudaError_t k2_launch(const int* q, const int* x, const float* q_scale, const float* norms2,
+                      float* part_d, int* part_i, float* out_d, int* out_i, int B, int D4,
+                      int n_valid, int metric, int nsplit, int chunk, cudaStream_t stream) {
   return scan::launch<Q8Op, K>(reinterpret_cast<const uint32_t*>(q),
                                reinterpret_cast<const uint32_t*>(x),
                                Q8Op::Args{q_scale, norms2, metric}, part_d, part_i, out_d, out_i,
                                B, D4, n_valid, nsplit, chunk, stream);
 }
 
-}  // namespace
+template cudaError_t k2_launch<REPRO_K>(const int*, const int*, const float*, const float*,
+                                        float*, int*, float*, int*, int, int, int, int, int, int,
+                                        cudaStream_t);
+#else
 
 // q (B, 4*D4) and x (N, 4*D4) int8 codes row-major on the device, read as
 // D4 int32 words per row (4-byte aligned rows); q_scale (B,) and norms2
@@ -146,15 +159,16 @@ extern "C" int repro_distance_topk_q8(const void* q, const void* x, const float*
   const int* xw = static_cast<const int*>(x);
   cudaError_t e;
   if (k_pad == 128)
-    e = launch<128>(qw, xw, q_scale, norms2, part_d, part_i, out_d, out_i, B, D4, n_valid, metric,
-                    nsplit, chunk, st);
+    e = k2_launch<128>(qw, xw, q_scale, norms2, part_d, part_i, out_d, out_i, B, D4, n_valid,
+                       metric, nsplit, chunk, st);
   else if (k_pad == 256)
-    e = launch<256>(qw, xw, q_scale, norms2, part_d, part_i, out_d, out_i, B, D4, n_valid, metric,
-                    nsplit, chunk, st);
+    e = k2_launch<256>(qw, xw, q_scale, norms2, part_d, part_i, out_d, out_i, B, D4, n_valid,
+                       metric, nsplit, chunk, st);
   else if (k_pad == 512)
-    e = launch<512>(qw, xw, q_scale, norms2, part_d, part_i, out_d, out_i, B, D4, n_valid, metric,
-                    nsplit, chunk, st);
+    e = k2_launch<512>(qw, xw, q_scale, norms2, part_d, part_i, out_d, out_i, B, D4, n_valid,
+                       metric, nsplit, chunk, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;
 }
+#endif

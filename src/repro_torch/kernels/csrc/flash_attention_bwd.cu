@@ -2,15 +2,19 @@
 //
 // Replaces what the JAX package gets from autodiff of
 // src/repro/models/layers.py::chunked_attention (the TPU kernel K3 has no
-// backward of its own).  For q, k, v, o, dO of shape (BH, S, D), row-major,
-// float32 or bfloat16, and lse (BH, S) float32 from K3's forward (each
-// row's log-sum-exp of the scaled scores, natural log), it writes dq, dk,
-// dv in the input dtype:
+// backward of its own).  For q, k of shape (BH, S, DQK) and v, o, dO of
+// shape (BH, S, DV), row-major, float32 or bfloat16, and lse (BH, S)
+// float32 from K3's forward (each row's log-sum-exp of the scaled scores,
+// natural log), it writes dq, dk (BH, S, DQK) and dv (BH, S, DV) in the
+// input dtype, at K3's instances: DQK = DV in {16, 32, 64, 128}, and MLA's
+// (DQK, DV) = (192, 128) (DeepSeek-V2: q . k over 128 + 64 rope dims):
 //   p_ij  = exp(scale q_i . k_j - lse_i), 0 where masked (j > i when
 //           causal, and every row or column at or past S)
 //   dp_ij = dO_i . v_j,   delta_i = dO_i . o_i,   ds_ij = p_ij (dp_ij - delta_i)
 //   dv_j = sum_i p_ij dO_i,  dk_j = scale sum_i ds_ij q_i,  dq_i = scale sum_j ds_ij k_j
 // with every product and sum to float32 grade.
+//
+// s and dq run over DQK, dp and dv over DV, delta over DV.
 //
 // What bounds it: operations.  The gradient needs 5 products of the
 // forward's size (s, dp, dv, dk, dq).  This design does 7 (both passes
@@ -35,9 +39,10 @@
 // fed by TMA (csrc/wgmma.cuh).  A block is three warpgroups: one producer
 // and two consumers, each consumer owning 64 rows (wgmma's M), 128 a block.
 //  * The producer's first thread loads the owned pair (k, v or q, dO) once,
-//    then streams the walked tiles (64 rows; 32 at D = 128, for registers)
-//    through a 4-stage ring under full / empty mbarriers: 3-D tensor maps
-//    over (BH, S, D), so rows past S zero-fill inside a head.  The dkdv
+//    then streams the walked tiles (64 rows; 32 at D = 128 and 16 at (192,
+//    128), for registers) through a 4-stage ring (8 at 16 rows) under full /
+//    empty mbarriers: 3-D tensor maps over (BH, S, D), so rows past S
+//    zero-fill inside a head.  The dkdv
 //    ring also carries each tile's (lse log2 e, delta) pairs, bulk-copied
 //    from the rows pass's padded array.  setmaxnreg moves the producer's
 //    registers to the consumers (24 / 240).
@@ -61,6 +66,11 @@
 //    rounded add, as K3's forward folds each kv tile.
 //  * Causal: a consumer skips a walked tile that its rows cannot see, and
 //    masks only the tiles that cross the diagonal or S.
+//  * (192, 128): a dk/dv consumer holds dk (64 x 192) and dv (64 x 128)
+//    in float32, 160 registers a thread, so the walked tile is 16 rows
+//    (scores of 8 registers each, an m64n16 wgmma) and the products into dk
+//    and dv keep their 64-column panels: no spills within the 240 of
+//    setmaxnreg.  Shared memory: 80 KB owned, 8 stages of 10 KB.
 //  * Left for later: one pass for dk, dv and dq (8 products instead of 10),
 //    and overlapping a tile's softmax with the next tile's MMAs inside a
 //    warpgroup (registers are the limit at D = 64).
@@ -97,6 +107,11 @@
 //    rows (16 at D = 128); the plane ring has 2 stages at D <= 32 and 1
 //    at D = 64 and 128, where the owned planes take 128 KB.  At D = 128 a
 //    block owns 64 rows (one consumer warpgroup), else 128 (two).
+//  * (192, 128), run only in training's float32 card-vs-CPU checks: one
+//    consumer warpgroup of 64 owned rows, whose hi and lo planes take 160
+//    KB; walked tiles of 8 rows (m64n8 scores, transposed planes of 32-byte
+//    rows under the 32-byte swizzle), one stage: 221 KB of the 227 KB.
+//    dk / dv and dq spill (PERF.md); right first, not fast.
 //  * s and dp run SS (the owned hi and lo planes as A), but for dq at
 //    D <= 64 the owned hi terms are A fragments in registers, read once:
 //    hi.lo and hi.hi run RS (dq 2.57 -> 2.01 ms).  The products into dk,
@@ -147,25 +162,34 @@ struct Panels {
   static constexpr int RB = 2 * CW;           // bytes of a panel row
 };
 
-// a block's tiles: owned BR rows, walked tiles of BT rows
-template <int D>
-struct Tiles : Panels<D> {
-  static constexpr int BT = D == 128 ? 32 : 64;  // rows of a walked tile (D = 128: registers)
-  static constexpr int STAGES = 4;               // depth of the ring
-  static constexpr int OWN = BR * D * 2;         // bytes of one owned matrix
-  static constexpr int TILE = BT * D * 2;        // bytes of one walked matrix
-  static constexpr int ROWS = BT * 8;            // bytes of a walked tile's (lse2, delta) pairs
+// a block's tiles: owned BR rows, walked tiles of BT rows.  A pair of
+// matrices is (a, b): a of DQK columns (k or q), b of DV columns (v or dO).
+template <int DQK, int DV>
+struct Tiles {
+  using A = Panels<DQK>;
+  using B = Panels<DV>;
+  // rows of a walked tile: fewer as the accumulators grow (registers)
+  static constexpr int BT = DQK + DV > 256 ? 16 : DQK == 128 ? 32 : 64;
+  static constexpr int STAGES = BT == 16 ? 8 : 4;  // depth of the ring
+  static constexpr int OWN_A = BR * DQK * 2;       // bytes of the owned a, b
+  static constexpr int OWN_B = BR * DV * 2;
+  static constexpr int TILE_A = BT * DQK * 2;      // bytes of a walked a, b
+  static constexpr int TILE_B = BT * DV * 2;
+  static constexpr int STAGE = TILE_A + TILE_B;    // bytes of a walked pair
+  static constexpr int ROWS = BT * 8;              // bytes of a walked tile's (lse2, delta) pairs
   // byte offsets from the 1024-aligned base: the owned pair, the ring of
   // walked pairs, the ring's (lse2, delta), then the barriers
-  static constexpr int STAGE0 = 2 * OWN;
-  static constexpr int ROWS0 = STAGE0 + STAGES * 2 * TILE;
+  static constexpr int STAGE0 = OWN_A + OWN_B;
+  static constexpr int ROWS0 = STAGE0 + STAGES * STAGE;
   static constexpr int BARS = ROWS0 + STAGES * ROWS;
   static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;  // + the alignment slack
+  static_assert(OWN_A % 1024 == 0 && TILE_A % 1024 == 0 && STAGE % 1024 == 0,
+                "every tile on a 1024-byte boundary (the 128-byte swizzle)");
 };
 
 // the rows pass: per (batch-head, row) the pair (lse * log2 e, delta =
-// rowsum(dO o) in float32) in a (BH, S_pad) array, zero past S; one warp a
-// row
+// rowsum(dO o) in float32, over o's D columns) in a (BH, S_pad) array,
+// zero past S; one warp a row
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     rows_kernel(const T* __restrict__ o, const T* __restrict__ dO,
@@ -295,9 +319,7 @@ struct Ring {
     empty = full + 8 * T::STAGES;
     own = empty + 8 * T::STAGES;
   }
-  __device__ __forceinline__ uint32_t stage(int s) const {
-    return base + T::STAGE0 + s * 2 * T::TILE;
-  }
+  __device__ __forceinline__ uint32_t stage(int s) const { return base + T::STAGE0 + s * T::STAGE; }
   __device__ __forceinline__ void init() const {
     for (int s = 0; s < T::STAGES; ++s) {
       wg::mbar_init(full + 8 * s, 1);
@@ -309,21 +331,22 @@ struct Ring {
 };
 
 // the producer's loads of one matrix's rows [row0, row0 + rows) at batch-head
-// bh into a tile of `rows` rows at dst, one box of BT rows and CW columns
-// at a time
-template <typename T>
+// bh into a tile of `rows` rows at dst (panels P), one box of BOX rows and
+// P::CW columns at a time
+template <typename P, int BOX>
 __device__ __forceinline__ void load_rows_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                               int row0, int rows, int bh) {
-  for (int p = 0; p < T::NP; ++p)
-    for (int r = 0; r < rows; r += T::BT)
-      wg::tma_load_3d(dst + (p * rows + r) * T::RB, map, bar, p * T::CW, row0 + r, bh);
+  for (int p = 0; p < P::NP; ++p)
+    for (int r = 0; r < rows; r += BOX)
+      wg::tma_load_3d(dst + (p * rows + r) * P::RB, map, bar, p * P::CW, row0 + r, bh);
 }
 
 // dk, dv: a block owns BR kv rows of one batch-head, each consumer
 // warpgroup 64 of them, and walks the q tiles that see them (causal: from
-// the block's diagonal on).  Per tile: s^T = k q^T and dp^T = v dO^T (SS),
-// p^T and ds^T in registers, dv += p^T dO and dk += ds^T q (RS, hi + lo).
-template <int D>
+// the block's diagonal on).  Per tile: s^T = k q^T (over DQK) and dp^T =
+// v dO^T (over DV) (SS), p^T and ds^T in registers, dv += p^T dO and dk +=
+// ds^T q (RS, hi + lo).
+template <int DQK, int DV>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
     bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -331,7 +354,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
                           const __grid_constant__ CUtensorMap tdo, const float2* __restrict__ rows,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int S_pad,
                           int causal, float scale, float scale_log2) {
-  using T = Tiles<D>;
+  using T = Tiles<DQK, DV>;
+  using PA = typename T::A;
+  using PB = typename T::B;
   constexpr int BT = T::BT;
   extern __shared__ __align__(1024) unsigned char ring_smem[];
   const Ring<T> ring(ring_smem);
@@ -345,16 +370,16 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
   if (wgi == 0) {  // producer: one thread issues every copy
     wg::regs_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      wg::mbar_expect_tx(ring.own, 2 * T::OWN);
-      load_rows_tma<T>(ring.base, &tk, ring.own, kv0, BR, bh);
-      load_rows_tma<T>(ring.base + T::OWN, &tv, ring.own, kv0, BR, bh);
+      wg::mbar_expect_tx(ring.own, T::OWN_A + T::OWN_B);
+      load_rows_tma<PA, BT>(ring.base, &tk, ring.own, kv0, BR, bh);
+      load_rows_tma<PB, BT>(ring.base + T::OWN_A, &tv, ring.own, kv0, BR, bh);
       for (int i = 0; i < n; ++i) {
         const int s = i % T::STAGES, q0 = (first + i) * BT;
         wg::mbar_wait(ring.empty + 8 * s, ((i / T::STAGES) & 1) ^ 1);
         const uint32_t full = ring.full + 8 * s, st = ring.stage(s);
-        wg::mbar_expect_tx(full, 2 * T::TILE + T::ROWS);
-        load_rows_tma<T>(st, &tq, full, q0, BT, bh);
-        load_rows_tma<T>(st + T::TILE, &tdo, full, q0, BT, bh);
+        wg::mbar_expect_tx(full, T::STAGE + T::ROWS);
+        load_rows_tma<PA, BT>(st, &tq, full, q0, BT, bh);
+        load_rows_tma<PB, BT>(st + T::TILE_A, &tdo, full, q0, BT, bh);
         wg::bulk_load(ring.base + T::ROWS0 + s * T::ROWS, rows + (size_t)bh * S_pad + q0, T::ROWS,
                       full);
       }
@@ -369,23 +394,26 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
     const int r0 = kv0 + 64 * c;                    // this warpgroup's first kv row
     const int row_a = r0 + (t >> 5) * 16 + (lane >> 2);  // a thread's kv rows: row_a, row_a + 8
     const int col_t = 2 * (lane & 3);
-    float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[DQK / 2], dv_acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-    const uint64_t own_k = wg::tile_desc<D>(base) + (64 * c * T::RB >> 4);
-    const uint64_t own_v = own_k + (T::OWN >> 4);
-    const uint64_t stage0 = wg::tile_desc<D>(base + T::STAGE0);
+    for (int i = 0; i < DQK / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
+    const uint64_t own_k = wg::tile_desc<DQK>(base) + (64 * c * PA::RB >> 4);
+    const uint64_t own_v = wg::tile_desc<DV>(base + T::OWN_A) + (64 * c * PB::RB >> 4);
+    const uint64_t stage_a = wg::tile_desc<DQK>(base + T::STAGE0);
+    const uint64_t stage_b = wg::tile_desc<DV>(base + T::STAGE0 + T::TILE_A);
     wg::mbar_wait(ring.own, 0);
 
     for (int i = 0; i < n; ++i) {
       const int s = i % T::STAGES, q0 = (first + i) * BT;
       wg::mbar_wait(ring.full + 8 * s, (i / T::STAGES) & 1);
-      const uint64_t qt = stage0 + (s * 2 * T::TILE >> 4), dot = qt + (T::TILE >> 4);
+      const uint64_t qt = stage_a + (s * T::STAGE >> 4), dot = stage_b + (s * T::STAGE >> 4);
       if (!causal || q0 + BT > r0) {  // else every q row of the tile precedes these kv rows
         float sT[BT / 2], dpT[BT / 2];
         wg::fence();
-        scores<D, BT>(sT, own_k, qt);
-        scores<D, BT>(dpT, own_v, dot);
+        scores<DQK, BT>(sT, own_k, qt);
+        scores<DV, BT>(dpT, own_v, dot);
         wg::commit();
         wg::wait<0>();
         wg::fence_operand(sT);
@@ -413,16 +441,15 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
         // dv += p^T dO and dk += ds^T q
         uint32_t hi[BT / 16][4], lo[BT / 16][4];
         split_frags<BT>(sT, hi, lo);
-        accumulate<D, BT>(dv_acc, hi, lo, dot);
+        accumulate<DV, BT>(dv_acc, hi, lo, dot);
         split_frags<BT>(dpT, hi, lo);
-        accumulate<D, BT>(dk_acc, hi, lo, qt);
+        accumulate<DQK, BT>(dk_acc, hi, lo, qt);
       }
       __syncwarp();
       if (lane == 0) wg::mbar_arrive(ring.empty + 8 * s);
     }
-    const size_t at = (size_t)bh * S * D;
-    store_rows<D>(dk + at, dk_acc, scale, row_a, S, lane);
-    store_rows<D>(dv + at, dv_acc, 1.f, row_a, S, lane);
+    store_rows<DQK>(dk + (size_t)bh * S * DQK, dk_acc, scale, row_a, S, lane);
+    store_rows<DV>(dv + (size_t)bh * S * DV, dv_acc, 1.f, row_a, S, lane);
   }
 }
 
@@ -430,7 +457,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 // the kv tiles they see.  Blocks take q rows in reverse order, so the
 // longest causal rows start first.  Per tile: s = q k^T and dp = dO v^T
 // (SS), ds in registers, dq += ds k (RS, hi + lo).
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
     bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -438,7 +465,9 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
                         const __grid_constant__ CUtensorMap tdo, const float2* __restrict__ rows,
                         bf16* __restrict__ dq, int S, int S_pad, int causal, float scale,
                         float scale_log2) {
-  using T = Tiles<D>;
+  using T = Tiles<DQK, DV>;
+  using PA = typename T::A;
+  using PB = typename T::B;
   constexpr int BT = T::BT;
   extern __shared__ __align__(1024) unsigned char ring_smem[];
   const Ring<T> ring(ring_smem);
@@ -453,16 +482,16 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
   if (wgi == 0) {
     wg::regs_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      wg::mbar_expect_tx(ring.own, 2 * T::OWN);
-      load_rows_tma<T>(ring.base, &tq, ring.own, q0, BR, bh);
-      load_rows_tma<T>(ring.base + T::OWN, &tdo, ring.own, q0, BR, bh);
+      wg::mbar_expect_tx(ring.own, T::OWN_A + T::OWN_B);
+      load_rows_tma<PA, BT>(ring.base, &tq, ring.own, q0, BR, bh);
+      load_rows_tma<PB, BT>(ring.base + T::OWN_A, &tdo, ring.own, q0, BR, bh);
       for (int i = 0; i < n; ++i) {
         const int s = i % T::STAGES;
         wg::mbar_wait(ring.empty + 8 * s, ((i / T::STAGES) & 1) ^ 1);
         const uint32_t full = ring.full + 8 * s, st = ring.stage(s);
-        wg::mbar_expect_tx(full, 2 * T::TILE);
-        load_rows_tma<T>(st, &tk, full, i * BT, BT, bh);
-        load_rows_tma<T>(st + T::TILE, &tv, full, i * BT, BT, bh);
+        wg::mbar_expect_tx(full, T::STAGE);
+        load_rows_tma<PA, BT>(st, &tk, full, i * BT, BT, bh);
+        load_rows_tma<PB, BT>(st + T::TILE_A, &tv, full, i * BT, BT, bh);
       }
     }
   } else {
@@ -476,33 +505,34 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
     float2 lr[2];  // (lse2, delta) of the thread's rows; S_pad covers the block
 #pragma unroll
     for (int r = 0; r < 2; ++r) lr[r] = rows[(size_t)bh * S_pad + row_a + 8 * r];
-    float dq_acc[D / 2];
+    float dq_acc[DQK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
-    const uint64_t own_q = wg::tile_desc<D>(base) + (64 * c * T::RB >> 4);
-    const uint64_t own_do = own_q + (T::OWN >> 4);
-    const uint64_t stage0 = wg::tile_desc<D>(base + T::STAGE0);
+    for (int i = 0; i < DQK / 2; ++i) dq_acc[i] = 0.f;
+    const uint64_t own_q = wg::tile_desc<DQK>(base) + (64 * c * PA::RB >> 4);
+    const uint64_t own_do = wg::tile_desc<DV>(base + T::OWN_A) + (64 * c * PB::RB >> 4);
+    const uint64_t stage_a = wg::tile_desc<DQK>(base + T::STAGE0);
+    const uint64_t stage_b = wg::tile_desc<DV>(base + T::STAGE0 + T::TILE_A);
     wg::mbar_wait(ring.own, 0);
-    constexpr bool AREG = D <= 64;  // the owned rows' A fragments in registers
-    uint32_t qa[AREG ? D / 16 : 1][4], ga[AREG ? D / 16 : 1][4];
+    constexpr bool AREG = DQK <= 64 && DV <= 64;  // the owned rows' A fragments in registers
+    uint32_t qa[AREG ? DQK / 16 : 1][4], ga[AREG ? DV / 16 : 1][4];
     if constexpr (AREG) {
-      load_a<D>(qa, ring.ptr, 64 * c, t >> 5, lane);
-      load_a<D>(ga, ring.ptr + T::OWN, 64 * c, t >> 5, lane);
+      load_a<DQK>(qa, ring.ptr, 64 * c, t >> 5, lane);
+      load_a<DV>(ga, ring.ptr + T::OWN_A, 64 * c, t >> 5, lane);
     }
 
     for (int i = 0; i < n; ++i) {
       const int s = i % T::STAGES, k0 = i * BT;
       wg::mbar_wait(ring.full + 8 * s, (i / T::STAGES) & 1);
-      const uint64_t kt = stage0 + (s * 2 * T::TILE >> 4), vt = kt + (T::TILE >> 4);
+      const uint64_t kt = stage_a + (s * T::STAGE >> 4), vt = stage_b + (s * T::STAGE >> 4);
       if (!causal || k0 <= r0 + 63) {  // else every kv row of the tile follows these q rows
         float sc[BT / 2], dp[BT / 2];
         wg::fence();
         if constexpr (AREG) {
-          scores_rs<D, BT>(sc, qa, kt);
-          scores_rs<D, BT>(dp, ga, vt);
+          scores_rs<DQK, BT>(sc, qa, kt);
+          scores_rs<DV, BT>(dp, ga, vt);
         } else {
-          scores<D, BT>(sc, own_q, kt);
-          scores<D, BT>(dp, own_do, vt);
+          scores<DQK, BT>(sc, own_q, kt);
+          scores<DV, BT>(dp, own_do, vt);
         }
         wg::commit();
         wg::wait<0>();
@@ -530,12 +560,12 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
         // dq += ds k
         uint32_t hi[BT / 16][4], lo[BT / 16][4];
         split_frags<BT>(sc, hi, lo);
-        accumulate<D, BT>(dq_acc, hi, lo, kt);
+        accumulate<DQK, BT>(dq_acc, hi, lo, kt);
       }
       __syncwarp();
       if (lane == 0) wg::mbar_arrive(ring.empty + 8 * s);
     }
-    store_rows<D>(dq + (size_t)bh * S * D, dq_acc, scale, row_a, S, lane);
+    store_rows<DQK>(dq + (size_t)bh * S * DQK, dq_acc, scale, row_a, S, lane);
   }
 }
 
@@ -543,41 +573,66 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 
-// the float32 path's block (see the header); DKDV: the dk/dv kernel, else dq
-template <int D_, bool DKDV>
+// a float32 matrix of D columns as panels of one swizzle row each
+template <int D>
+struct F32Panels {
+  static constexpr int CW = D < 32 ? D : 32;  // floats of a panel row
+  static constexpr int NP = D / CW;           // panels
+  static constexpr int RB = 4 * CW;           // bytes of a panel row (64 or 128)
+};
+
+// the N of one accumulating wgmma into a sum of D columns; 32 at D >= 128,
+// where dk/dv's registers spill: fewer spills than at 64, and 4% faster
+// when measured (D = 128)
+template <int D>
+__host__ __device__ constexpr int f32_nw() {
+  return D < 64 ? D : D >= 128 ? 32 : 64;
+}
+
+// the float32 path's block (see the header); DKDV: the dk/dv kernel, else
+// dq.  A pair of matrices is (a, b): a of DQK columns (k or q), b of DV
+// columns (v or dO).
+template <int DQK_, int DV_, bool DKDV>
 struct F32Tiles {
-  static constexpr int D = D_;
-  static constexpr int CW = D < 32 ? D : 32;     // floats of a panel row
-  static constexpr int NP = D / CW;              // panels
-  static constexpr int RB = 4 * CW;              // bytes of a panel row (64 or 128)
-  static constexpr int C = D == 128 ? 1 : 2;     // consumer warpgroups (shared memory)
-  static constexpr int BR = 64 * C;              // rows a block owns
+  static constexpr int DQK = DQK_, DV = DV_;
+  using A = F32Panels<DQK>;
+  using B = F32Panels<DV>;
+  static constexpr bool WIDE = DQK + DV > 256;        // MLA's (192, 128)
+  static constexpr int C = DQK >= 128 ? 1 : 2;        // consumer warpgroups (shared memory)
+  static constexpr int BR = 64 * C;                   // rows a block owns
   static constexpr int THREADS = WG_THREADS * (1 + C);
-  static constexpr int BT = D == 128 ? 16 : 32;  // rows of a walked tile
-  static constexpr int KW = BT < 32 ? BT : 32;   // k positions of a transposed panel row
-  static constexpr int RBT = 4 * KW;             // its bytes
-  // the N of one accumulating wgmma; 32 at D = 128, where dk/dv's registers
-  // spill: fewer spills than at 64, and 4% faster when measured
-  static constexpr int NW = D < 64 ? D : D == 128 ? 32 : 64;
-  static constexpr int OWN = BR * D * 4;         // bytes of one owned plane
-  static constexpr int TILE = BT * D * 4;        // bytes of one walked plane
-  static constexpr int ROWS = BT * 8;            // a walked tile's (lse2, delta) pairs
-  static constexpr int PLANES = DKDV ? 8 : 6;    // walked planes a stage
-  static constexpr int RAWS = 2;                 // raw stages (TMA's landing ring)
+  static constexpr int BT = WIDE ? 8 : DQK == 128 ? 16 : 32;  // rows of a walked tile
+  static constexpr int KW = BT < 32 ? BT : 32;        // k positions of a transposed panel row
+  static constexpr int RBT = 4 * KW;                  // its bytes
+  static constexpr int OWN_A = BR * DQK * 4;          // bytes of one owned plane of a, of b
+  static constexpr int OWN_B = BR * DV * 4;
+  static constexpr int TILE_A = BT * DQK * 4;         // bytes of one walked plane of a, of b
+  static constexpr int TILE_B = BT * DV * 4;
+  static constexpr int ROWS = BT * 8;                 // a walked tile's (lse2, delta) pairs
+  static constexpr int RAWS = 2;                      // raw stages (TMA's landing ring)
+  // a stage of the plane ring: a hi, a lo, b hi, b lo as stored, then the
+  // transposed a hi, a lo and, for dk/dv, b hi, b lo (byte offsets)
+  static constexpr int A_LO = TILE_A, B_HI = 2 * TILE_A, B_LO = B_HI + TILE_B;
+  static constexpr int TA_HI = B_LO + TILE_B, TA_LO = TA_HI + TILE_A;
+  static constexpr int TB_HI = TA_LO + TILE_A, TB_LO = TB_HI + TILE_B;
+  static constexpr int PLANES = DKDV ? TB_LO + TILE_B : TB_HI;  // bytes of a stage
   // byte offsets from the 1024-aligned base: the owned planes (a hi, a lo,
-  // b hi, b lo), the raw ring (a, b), the plane ring (a hi, a lo, b hi,
-  // b lo, then the transposed a hi, a lo and, for dk/dv, b hi, b lo), the
-  // raw ring's (lse2, delta) pairs and STAGES + 1 buffers of them beside
-  // the plane ring, the barriers
-  static constexpr int RAW0 = 4 * OWN;
-  static constexpr int PLANE0 = RAW0 + RAWS * 2 * TILE;
+  // b hi, b lo), the raw ring (a, b), the plane ring, the raw ring's
+  // (lse2, delta) pairs and STAGES + 1 buffers of them beside the plane
+  // ring, the barriers
+  static constexpr int RAW0 = 2 * OWN_A + 2 * OWN_B;
+  static constexpr int RAW = TILE_A + TILE_B;          // bytes of a raw stage
+  static constexpr int PLANE0 = RAW0 + RAWS * RAW;
   static constexpr int FIXED = PLANE0 + (RAWS + 1) * ROWS + 1024 + 128;
-  static constexpr int STAGES = SMEM_LIMIT - FIXED >= 2 * (PLANES * TILE + ROWS) ? 2 : 1;
+  static constexpr int STAGES = SMEM_LIMIT - FIXED >= 2 * (PLANES + ROWS) ? 2 : 1;
   static constexpr int ROWBUFS = STAGES + 1;
-  static constexpr int ROWS0 = PLANE0 + STAGES * PLANES * TILE;
+  static constexpr int ROWS0 = PLANE0 + STAGES * PLANES;
   static constexpr int BARS = ROWS0 + (RAWS + ROWBUFS) * ROWS;
   static constexpr int BYTES = BARS + (RAWS + 4 * STAGES + 2) * 8 + 1024;
   static_assert(BYTES <= SMEM_LIMIT, "the float32 block's shared memory");
+  static_assert(OWN_A % 1024 == 0 && OWN_B % 1024 == 0 && TILE_A % 1024 == 0 &&
+                    TILE_B % 1024 == 0,
+                "every plane on a 1024-byte boundary (the 128-byte swizzle)");
 };
 
 // setmaxnreg with two consumers: 56 x 128 + 2 x 224 x 128 = 168 x 384
@@ -610,22 +665,24 @@ __device__ __forceinline__ float4 split4(float4 x, float4& lo) {
                      __uint_as_float(h[3]));
 }
 
-// the producer warpgroup's split of one walked matrix: the raw tile at src
-// (BT rows, TMA's layout) into hi and lo planes of the same layout
-// (STORED) or of its transpose (D rows of BT k positions in kpos order,
-// panels of KW); thread t of 128.  A warp takes 32 rows of one 16-byte
-// column chunk, so its reads and writes hit distinct banks.
-template <typename T, bool STORED>
+// the producer warpgroup's split of one walked matrix of D columns (panels
+// P): the raw tile at src (BT rows, TMA's layout) into hi and lo planes of
+// the same layout (STORED) or of its transpose (D rows of BT k positions in
+// kpos order, panels of KW); thread t of 128.  A warp takes 32 rows of one
+// 16-byte column chunk (at BT < 32, BT rows of 32 / BT chunks), so at
+// BT = 32 its reads and writes hit distinct banks.
+template <typename T, typename P, bool STORED>
 __device__ __forceinline__ void split_walked(const unsigned char* src, unsigned char* hi,
                                              unsigned char* lo, int t) {
-  constexpr int CHUNKS = T::BT * T::D / 4;
+  constexpr int D = P::NP * P::CW;
+  constexpr int CHUNKS = T::BT * D / 4;
   static_assert(CHUNKS % WG_THREADS == 0, "whole passes");
 #pragma unroll
   for (int it = 0; it < CHUNKS / WG_THREADS; ++it) {
     const int e = t + it * WG_THREADS;
     const int r = e % T::BT, cc = e / T::BT;  // row, 4-column chunk
     const int off =
-        (cc / (T::CW / 4)) * T::BT * T::RB + swz<T::RB>(r * T::RB + (cc % (T::CW / 4)) * 16);
+        (cc / (P::CW / 4)) * T::BT * P::RB + swz<P::RB>(r * P::RB + (cc % (P::CW / 4)) * 16);
     float4 l;
     const float4 h = split4(*reinterpret_cast<const float4*>(src + off), l);
     if constexpr (STORED) {
@@ -637,7 +694,7 @@ __device__ __forceinline__ void split_walked(const unsigned char* src, unsigned 
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int n = 4 * cc + i;
-        const int o = (kp / T::KW) * T::D * T::RBT + swz<T::RBT>(n * T::RBT + (kp % T::KW) * 4);
+        const int o = (kp / T::KW) * D * T::RBT + swz<T::RBT>(n * T::RBT + (kp % T::KW) * 4);
         *reinterpret_cast<float*>(hi + o) = hs[i];
         *reinterpret_cast<float*>(lo + o) = ls[i];
       }
@@ -645,14 +702,15 @@ __device__ __forceinline__ void split_walked(const unsigned char* src, unsigned 
   }
 }
 
-// s (64 x BT) = 64 owned rows . tile^T to float32 grade: lo.hi, hi.lo,
-// hi.hi over every k-step, small terms first.  Descriptors: the owned hi
-// and lo planes at the warpgroup's first row, the walked tile's hi and lo
-// planes, all K-major.  Started with wgmma.fence, left uncommitted.
-template <typename T>
-__device__ __forceinline__ void scores_tf32(float (&s)[T::BT / 2], uint64_t a_hi, uint64_t a_lo,
+// s (64 x BT) = 64 owned rows . tile^T to float32 grade over the K = D
+// columns of panels P: lo.hi, hi.lo, hi.hi over every k-step, small terms
+// first.  Descriptors: the owned hi and lo planes (BR rows) at the
+// warpgroup's first row, the walked tile's hi and lo planes, all K-major.
+// Started with wgmma.fence, left uncommitted.
+template <typename P, int BR, int BT>
+__device__ __forceinline__ void scores_tf32(float (&s)[BT / 2], uint64_t a_hi, uint64_t a_lo,
                                             uint64_t b_hi, uint64_t b_lo) {
-  constexpr int KS = T::D / 8, BR = T::BR, BT = T::BT, RB = T::RB;
+  constexpr int KS = P::NP * P::CW / 8, RB = P::RB;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
     wg::mma_ss_tf32<BT>(s, a_lo + wg::k_off<RB, BR>(kk), b_hi + wg::k_off<RB, BT>(kk), kk > 0);
@@ -668,11 +726,11 @@ __device__ __forceinline__ void scores_tf32(float (&s)[T::BT / 2], uint64_t a_hi
 // (a_hi, from load_a_tf32): lo.hi reads the owned lo plane (SS), hi.lo and
 // hi.hi only the walked tile (RS), a third of the shared-memory reads of
 // scores_tf32's
-template <typename T>
-__device__ __forceinline__ void scores_tf32_rs(float (&s)[T::BT / 2],
-                                               const uint32_t (&a_hi)[T::D / 8][4], uint64_t a_lo,
-                                               uint64_t b_hi, uint64_t b_lo) {
-  constexpr int KS = T::D / 8, BR = T::BR, BT = T::BT, RB = T::RB;
+template <typename P, int BR, int BT>
+__device__ __forceinline__ void scores_tf32_rs(float (&s)[BT / 2],
+                                               const uint32_t (&a_hi)[P::NP * P::CW / 8][4],
+                                               uint64_t a_lo, uint64_t b_hi, uint64_t b_lo) {
+  constexpr int KS = P::NP * P::CW / 8, RB = P::RB;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
     wg::mma_ss_tf32<BT>(s, a_lo + wg::k_off<RB, BR>(kk), b_hi + wg::k_off<RB, BT>(kk), kk > 0);
@@ -682,20 +740,22 @@ __device__ __forceinline__ void scores_tf32_rs(float (&s)[T::BT / 2],
   for (int kk = 0; kk < KS; ++kk) wg::mma_rs_tf32<BT>(s, a_hi[kk], b_hi + wg::k_off<RB, BT>(kk));
 }
 
-// the tf32 A fragments of 64 rows from r0 of an owned plane (BR rows, TMA's
-// layout, at generic address `plane`), this warp's 16 of them: for k-step
-// kk, a[kk] = (row g, column t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-template <typename T>
-__device__ __forceinline__ void load_a_tf32(uint32_t (&a)[T::D / 8][4], const unsigned char* plane,
-                                            int r0, int warp, int lane) {
+// the tf32 A fragments of 64 rows from r0 of an owned plane (BR rows of
+// panels P, TMA's layout, at generic address `plane`), this warp's 16 of
+// them: for k-step kk, a[kk] = (row g, column t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4)
+template <typename P, int BR>
+__device__ __forceinline__ void load_a_tf32(uint32_t (&a)[P::NP * P::CW / 8][4],
+                                            const unsigned char* plane, int r0, int warp,
+                                            int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < T::D / 8; ++kk)
+  for (int kk = 0; kk < P::NP * P::CW / 8; ++kk)
 #pragma unroll
     for (int f = 0; f < 4; ++f) {
       const int row = r0 + 16 * warp + g + 8 * (f & 1), col = 8 * kk + t + 4 * (f >> 1);
       a[kk][f] = *reinterpret_cast<const uint32_t*>(
-          plane + (col / T::CW) * T::BR * T::RB + swz<T::RB>(row * T::RB + (col % T::CW) * 4));
+          plane + (col / P::CW) * BR * P::RB + swz<P::RB>(row * P::RB + (col % P::CW) * 4));
     }
 }
 
@@ -704,10 +764,10 @@ __device__ __forceinline__ void load_a_tf32(uint32_t (&a)[T::D / 8][4], const un
 // (descriptors bt_hi, bt_lo).  x is split into tf32 hi and lo A fragments
 // (c0, c2, c1, c3 of each 8 columns: kpos's order); each NW-column
 // product starts from zero and folds into acc with one rounded add.
-template <typename T>
-__device__ __forceinline__ void accumulate_tf32(float (&acc)[T::D / 2], const float (&x)[T::BT / 2],
+template <typename T, int D>
+__device__ __forceinline__ void accumulate_tf32(float (&acc)[D / 2], const float (&x)[T::BT / 2],
                                                 uint64_t bt_hi, uint64_t bt_lo) {
-  constexpr int KS = T::BT / 8, NW = T::NW, KP = T::KW / 8;
+  constexpr int KS = T::BT / 8, NW = f32_nw<D>(), KP = T::KW / 8;
   uint32_t hi[KS][4], lo[KS][4];
 #pragma unroll
   for (int j = 0; j < KS; ++j)
@@ -716,10 +776,10 @@ __device__ __forceinline__ void accumulate_tf32(float (&acc)[T::D / 2], const fl
       tf32::split_tf32(__float_as_uint(x[4 * j + (f == 1 ? 2 : f == 2 ? 1 : f)]), hi[j][f],
                        lo[j][f]);
 #pragma unroll
-  for (int nc = 0; nc < T::D / NW; ++nc) {
+  for (int nc = 0; nc < D / NW; ++nc) {
     float t[NW / 2];
     const auto at = [&](int c) -> uint64_t {
-      return ((c / KP) * T::D * T::RBT + nc * NW * T::RBT + (c % KP) * 32) >> 4;
+      return ((c / KP) * D * T::RBT + nc * NW * T::RBT + (c % KP) * 32) >> 4;
     };
     wg::fence();
 #pragma unroll
@@ -810,54 +870,60 @@ __device__ __forceinline__ void f32_producer(const F32Ring<T>& ring, const CUten
                                              const CUtensorMap* mb, const CUtensorMap* wa,
                                              const CUtensorMap* wb, const float2* rows,
                                              int own0, int first, int n, int bh, int S_pad) {
-  constexpr int BT = T::BT, TILE = T::TILE;
+  using PA = typename T::A;
+  using PB = typename T::B;
+  constexpr int BT = T::BT;
+  constexpr bool DKDV = T::PLANES > T::TB_HI;
   const int t = threadIdx.x;
   const auto load_walked = [&](int i) {
     const int r = i % T::RAWS, w0 = (first + i) * BT;
-    const uint32_t bar = ring.raw + 8 * r, dst = ring.base + T::RAW0 + r * 2 * TILE;
-    wg::mbar_expect_tx(bar, 2 * TILE + (T::PLANES == 8 ? T::ROWS : 0));
-    load_rows_tma<T>(dst, wa, bar, w0, BT, bh);
-    load_rows_tma<T>(dst + TILE, wb, bar, w0, BT, bh);
-    if constexpr (T::PLANES == 8)
+    const uint32_t bar = ring.raw + 8 * r, dst = ring.base + T::RAW0 + r * T::RAW;
+    wg::mbar_expect_tx(bar, T::RAW + (DKDV ? T::ROWS : 0));
+    load_rows_tma<PA, BT>(dst, wa, bar, w0, BT, bh);
+    load_rows_tma<PB, BT>(dst + T::TILE_A, wb, bar, w0, BT, bh);
+    if constexpr (DKDV)
       wg::bulk_load(ring.base + T::ROWS0 + r * T::ROWS, rows + (size_t)bh * S_pad + w0, T::ROWS,
                     bar);
   };
   if (t == 0) {
-    wg::mbar_expect_tx(ring.own_raw, 2 * T::OWN);
-    load_rows_tma<T>(ring.base, ma, ring.own_raw, own0, T::BR, bh);
-    load_rows_tma<T>(ring.base + 2 * T::OWN, mb, ring.own_raw, own0, T::BR, bh);
+    wg::mbar_expect_tx(ring.own_raw, T::OWN_A + T::OWN_B);
+    load_rows_tma<PA, BT>(ring.base, ma, ring.own_raw, own0, T::BR, bh);
+    load_rows_tma<PB, BT>(ring.base + 2 * T::OWN_A, mb, ring.own_raw, own0, T::BR, bh);
     for (int i = 0; i < T::RAWS && i < n; ++i) load_walked(i);
   }
   unsigned char* const p = ring.ptr;
   wg::mbar_wait(ring.own_raw, 0);
-  for (int m = 0; m < 2; ++m)  // the owned pair: hi in place, lo beside it
-    for (int off = 16 * t; off < T::OWN; off += 16 * WG_THREADS) {
-      float4* x = reinterpret_cast<float4*>(p + 2 * m * T::OWN + off);
+  // the owned pair: hi in place, lo beside it
+  for (int m = 0; m < 2; ++m) {
+    const int at = m ? 2 * T::OWN_A : 0, size = m ? T::OWN_B : T::OWN_A;
+    for (int off = 16 * t; off < size; off += 16 * WG_THREADS) {
+      float4* x = reinterpret_cast<float4*>(p + at + off);
       float4 l;
       *x = split4(*x, l);
-      *reinterpret_cast<float4*>(p + (2 * m + 1) * T::OWN + off) = l;
+      *reinterpret_cast<float4*>(p + at + size + off) = l;
     }
+  }
   wg::fence_proxy_async();
   wg::bar_sync<1, WG_THREADS>();
   if (t == 0) wg::mbar_arrive(ring.own);
 
   for (int i = 0; i < n; ++i) {
     const int r = i % T::RAWS, s = i % T::STAGES, ph = ((i / T::STAGES) & 1) ^ 1;
-    const unsigned char* raw = p + T::RAW0 + r * 2 * TILE;
-    unsigned char* pl = p + T::PLANE0 + s * T::PLANES * TILE;
+    const unsigned char* raw = p + T::RAW0 + r * T::RAW;
+    unsigned char* pl = p + T::PLANE0 + s * T::PLANES;
     wg::mbar_wait(ring.raw + 8 * r, (i / T::RAWS) & 1);
     wg::mbar_wait(ring.empty + 8 * s, ph);
-    split_walked<T, true>(raw, pl, pl + TILE, t);
-    split_walked<T, true>(raw + TILE, pl + 2 * TILE, pl + 3 * TILE, t);
-    if (T::PLANES == 8 && t < BT / 2)
+    split_walked<T, PA, true>(raw, pl, pl + T::A_LO, t);
+    split_walked<T, PB, true>(raw + T::TILE_A, pl + T::B_HI, pl + T::B_LO, t);
+    if (DKDV && t < BT / 2)
       reinterpret_cast<float4*>(ring.rows(i))[t] =
           reinterpret_cast<const float4*>(p + T::ROWS0 + r * T::ROWS)[t];
     wg::fence_proxy_async();
     wg::bar_sync<1, WG_THREADS>();
     if (t == 0) wg::mbar_arrive(ring.full + 8 * s);
     wg::mbar_wait(ring.empty_t + 8 * s, ph);
-    split_walked<T, false>(raw, pl + 4 * TILE, pl + 5 * TILE, t);
-    if constexpr (T::PLANES == 8) split_walked<T, false>(raw + TILE, pl + 6 * TILE, pl + 7 * TILE, t);
+    split_walked<T, PA, false>(raw, pl + T::TA_HI, pl + T::TA_LO, t);
+    if constexpr (DKDV) split_walked<T, PB, false>(raw + T::TILE_A, pl + T::TB_HI, pl + T::TB_LO, t);
     wg::fence_proxy_async();
     wg::bar_sync<1, WG_THREADS>();  // the raw stage is read, the planes written
     if (t == 0) {
@@ -872,19 +938,21 @@ __device__ __forceinline__ void f32_producer(const F32Ring<T>& ring, const CUten
 // (causal: from the block's diagonal on).  Per tile: s^T = k q^T and
 // dp^T = v dO^T (SS, 3xTF32), p^T and ds^T in registers, dv += p^T dO and
 // dk += ds^T q (RS, 3xTF32 against the transposed planes).
-template <int D>
-__global__ void __launch_bounds__(F32Tiles<D, true>::THREADS, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(F32Tiles<DQK, DV, true>::THREADS, 1)
     bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo, const float2* __restrict__ rows,
                          float* __restrict__ dk, float* __restrict__ dv, int S, int S_pad,
                          int causal, float scale, float scale_log2) {
-  using T = F32Tiles<D, true>;
-  constexpr int BT = T::BT, TILE = T::TILE;
+  using T = F32Tiles<DQK, DV, true>;
+  using PA = typename T::A;
+  using PB = typename T::B;
+  constexpr int BT = T::BT, BR = T::BR;
   extern __shared__ __align__(1024) unsigned char f32_smem[];
   const F32Ring<T> ring(f32_smem);
-  const int bh = blockIdx.y, kv0 = blockIdx.x * T::BR;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * BR;
   const int first = causal ? kv0 / BT : 0;  // q tiles before it see none of these kv rows
   const int n = (S + BT - 1) / BT - first;
   if (threadIdx.x == 0) ring.init();
@@ -903,26 +971,31 @@ __global__ void __launch_bounds__(F32Tiles<D, true>::THREADS, 1)
     const int r0 = kv0 + 64 * c;                         // this warpgroup's first kv row
     const int row_a = r0 + (t >> 5) * 16 + (lane >> 2);  // a thread's kv rows: row_a, row_a + 8
     const int col_t = 2 * (lane & 3);
-    float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[DQK / 2], dv_acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-    const uint64_t k_hi = wg::rows_desc<T::RB>(base) + (64 * c * T::RB >> 4);
-    const uint64_t k_lo = k_hi + (T::OWN >> 4), v_hi = k_hi + (2 * T::OWN >> 4),
-                   v_lo = k_hi + (3 * T::OWN >> 4);
-    const uint64_t plane0 = wg::rows_desc<T::RB>(base + T::PLANE0);
-    const uint64_t plane0_t = wg::rows_desc<T::RBT>(base + T::PLANE0);
+    for (int i = 0; i < DQK / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
+    const uint64_t k_hi = wg::rows_desc<PA::RB>(base) + (64 * c * PA::RB >> 4);
+    const uint64_t k_lo = k_hi + (T::OWN_A >> 4);
+    const uint64_t v_hi = wg::rows_desc<PB::RB>(base + 2 * T::OWN_A) + (64 * c * PB::RB >> 4);
+    const uint64_t v_lo = v_hi + (T::OWN_B >> 4);
+    const uint64_t plane_a = wg::rows_desc<PA::RB>(base + T::PLANE0);
+    const uint64_t plane_b = wg::rows_desc<PB::RB>(base + T::PLANE0);
+    const uint64_t plane_t = wg::rows_desc<T::RBT>(base + T::PLANE0);
     wg::mbar_wait(ring.own, 0);
 
     for (int i = 0; i < n; ++i) {
       const int s = i % T::STAGES, ph = (i / T::STAGES) & 1, q0 = (first + i) * BT;
-      const uint64_t st = (uint64_t)(s * T::PLANES * TILE) >> 4, pl = TILE >> 4;
+      const uint64_t st = (uint64_t)(s * T::PLANES) >> 4;
       const bool sees = !causal || q0 + BT > r0;  // else every q row precedes these kv rows
       float sT[BT / 2], dpT[BT / 2];
       wg::mbar_wait(ring.full + 8 * s, ph);
       if (sees) {
         wg::fence();
-        scores_tf32<T>(sT, k_hi, k_lo, plane0 + st, plane0 + st + pl);
-        scores_tf32<T>(dpT, v_hi, v_lo, plane0 + st + 2 * pl, plane0 + st + 3 * pl);
+        scores_tf32<PA, BR, BT>(sT, k_hi, k_lo, plane_a + st, plane_a + st + (T::A_LO >> 4));
+        scores_tf32<PB, BR, BT>(dpT, v_hi, v_lo, plane_b + st + (T::B_HI >> 4),
+                                plane_b + st + (T::B_LO >> 4));
         wg::commit();
         wg::wait<0>();
         wg::fence_operand(sT);
@@ -952,17 +1025,18 @@ __global__ void __launch_bounds__(F32Tiles<D, true>::THREADS, 1)
 
         // dv += p^T dO and dk += ds^T q
         wg::mbar_wait(ring.full_t + 8 * s, ph);
-        accumulate_tf32<T>(dv_acc, sT, plane0_t + st + 6 * pl, plane0_t + st + 7 * pl);
-        accumulate_tf32<T>(dk_acc, dpT, plane0_t + st + 4 * pl, plane0_t + st + 5 * pl);
+        accumulate_tf32<T, DV>(dv_acc, sT, plane_t + st + (T::TB_HI >> 4),
+                               plane_t + st + (T::TB_LO >> 4));
+        accumulate_tf32<T, DQK>(dk_acc, dpT, plane_t + st + (T::TA_HI >> 4),
+                                plane_t + st + (T::TA_LO >> 4));
       } else {
         wg::mbar_wait(ring.full_t + 8 * s, ph);
       }
       __syncwarp();
       if (lane == 0) wg::mbar_arrive(ring.empty_t + 8 * s);
     }
-    const size_t at = (size_t)bh * S * D;
-    store_rows_f32<D>(dk + at, dk_acc, scale, row_a, S, lane);
-    store_rows_f32<D>(dv + at, dv_acc, 1.f, row_a, S, lane);
+    store_rows_f32<DQK>(dk + (size_t)bh * S * DQK, dk_acc, scale, row_a, S, lane);
+    store_rows_f32<DV>(dv + (size_t)bh * S * DV, dv_acc, 1.f, row_a, S, lane);
   }
 }
 
@@ -970,21 +1044,23 @@ __global__ void __launch_bounds__(F32Tiles<D, true>::THREADS, 1)
 // them, and walks the kv tiles they see; blocks take q rows in reverse
 // order.  Per tile: s = q k^T and dp = dO v^T (SS, 3xTF32), ds in
 // registers, dq += ds k (RS, 3xTF32 against k's transposed planes).
-template <int D>
-__global__ void __launch_bounds__(F32Tiles<D, false>::THREADS, 1)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(F32Tiles<DQK, DV, false>::THREADS, 1)
     bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap tdo, const float2* __restrict__ rows,
                        float* __restrict__ dq, int S, int S_pad, int causal, float scale,
                        float scale_log2) {
-  using T = F32Tiles<D, false>;
-  constexpr int BT = T::BT, TILE = T::TILE;
+  using T = F32Tiles<DQK, DV, false>;
+  using PA = typename T::A;
+  using PB = typename T::B;
+  constexpr int BT = T::BT, BR = T::BR;
   extern __shared__ __align__(1024) unsigned char f32_smem[];
   const F32Ring<T> ring(f32_smem);
   const int bh = blockIdx.y;
-  const int q0 = ((S + T::BR - 1) / T::BR - 1 - (int)blockIdx.x) * T::BR;
-  const int kv_end = causal ? min(S, q0 + T::BR) : S;
+  const int q0 = ((S + BR - 1) / BR - 1 - (int)blockIdx.x) * BR;
+  const int kv_end = causal ? min(S, q0 + BR) : S;
   const int n = (kv_end + BT - 1) / BT;
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
@@ -1004,36 +1080,41 @@ __global__ void __launch_bounds__(F32Tiles<D, false>::THREADS, 1)
     float2 lr[2];  // (lse2, delta) of the thread's rows; S_pad covers the block
 #pragma unroll
     for (int r = 0; r < 2; ++r) lr[r] = rows[(size_t)bh * S_pad + row_a + 8 * r];
-    float dq_acc[D / 2];
+    float dq_acc[DQK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
-    const uint64_t q_hi = wg::rows_desc<T::RB>(base) + (64 * c * T::RB >> 4);
-    const uint64_t q_lo = q_hi + (T::OWN >> 4), do_hi = q_hi + (2 * T::OWN >> 4),
-                   do_lo = q_hi + (3 * T::OWN >> 4);
-    const uint64_t plane0 = wg::rows_desc<T::RB>(base + T::PLANE0);
-    const uint64_t plane0_t = wg::rows_desc<T::RBT>(base + T::PLANE0);
+    for (int i = 0; i < DQK / 2; ++i) dq_acc[i] = 0.f;
+    const uint64_t q_hi = wg::rows_desc<PA::RB>(base) + (64 * c * PA::RB >> 4);
+    const uint64_t q_lo = q_hi + (T::OWN_A >> 4);
+    const uint64_t do_hi = wg::rows_desc<PB::RB>(base + 2 * T::OWN_A) + (64 * c * PB::RB >> 4);
+    const uint64_t do_lo = do_hi + (T::OWN_B >> 4);
+    const uint64_t plane_a = wg::rows_desc<PA::RB>(base + T::PLANE0);
+    const uint64_t plane_b = wg::rows_desc<PB::RB>(base + T::PLANE0);
+    const uint64_t plane_t = wg::rows_desc<T::RBT>(base + T::PLANE0);
     wg::mbar_wait(ring.own, 0);
-    constexpr bool AREG = D <= 64;  // the owned rows' hi terms as A fragments in registers
-    uint32_t qa[AREG ? D / 8 : 1][4], ga[AREG ? D / 8 : 1][4];
+    // the owned rows' hi terms as A fragments in registers
+    constexpr bool AREG = DQK <= 64 && DV <= 64;
+    uint32_t qa[AREG ? DQK / 8 : 1][4], ga[AREG ? DV / 8 : 1][4];
     if constexpr (AREG) {
-      load_a_tf32<T>(qa, ring.ptr, 64 * c, t >> 5, lane);
-      load_a_tf32<T>(ga, ring.ptr + 2 * T::OWN, 64 * c, t >> 5, lane);
+      load_a_tf32<PA, BR>(qa, ring.ptr, 64 * c, t >> 5, lane);
+      load_a_tf32<PB, BR>(ga, ring.ptr + 2 * T::OWN_A, 64 * c, t >> 5, lane);
     }
 
     for (int i = 0; i < n; ++i) {
       const int s = i % T::STAGES, ph = (i / T::STAGES) & 1, k0 = i * BT;
-      const uint64_t st = (uint64_t)(s * T::PLANES * TILE) >> 4, pl = TILE >> 4;
+      const uint64_t st = (uint64_t)(s * T::PLANES) >> 4;
       const bool sees = !causal || k0 <= r0 + 63;  // else every kv row follows these q rows
       float sc[BT / 2], dp[BT / 2];
       wg::mbar_wait(ring.full + 8 * s, ph);
       if (sees) {
         wg::fence();
         if constexpr (AREG) {
-          scores_tf32_rs<T>(sc, qa, q_lo, plane0 + st, plane0 + st + pl);
-          scores_tf32_rs<T>(dp, ga, do_lo, plane0 + st + 2 * pl, plane0 + st + 3 * pl);
+          scores_tf32_rs<PA, BR, BT>(sc, qa, q_lo, plane_a + st, plane_a + st + (T::A_LO >> 4));
+          scores_tf32_rs<PB, BR, BT>(dp, ga, do_lo, plane_b + st + (T::B_HI >> 4),
+                                     plane_b + st + (T::B_LO >> 4));
         } else {
-          scores_tf32<T>(sc, q_hi, q_lo, plane0 + st, plane0 + st + pl);
-          scores_tf32<T>(dp, do_hi, do_lo, plane0 + st + 2 * pl, plane0 + st + 3 * pl);
+          scores_tf32<PA, BR, BT>(sc, q_hi, q_lo, plane_a + st, plane_a + st + (T::A_LO >> 4));
+          scores_tf32<PB, BR, BT>(dp, do_hi, do_lo, plane_b + st + (T::B_HI >> 4),
+                                  plane_b + st + (T::B_LO >> 4));
         }
         wg::commit();
         wg::wait<0>();
@@ -1063,14 +1144,15 @@ __global__ void __launch_bounds__(F32Tiles<D, false>::THREADS, 1)
 
         // dq += ds k
         wg::mbar_wait(ring.full_t + 8 * s, ph);
-        accumulate_tf32<T>(dq_acc, sc, plane0_t + st + 4 * pl, plane0_t + st + 5 * pl);
+        accumulate_tf32<T, DQK>(dq_acc, sc, plane_t + st + (T::TA_HI >> 4),
+                                plane_t + st + (T::TA_LO >> 4));
       } else {
         wg::mbar_wait(ring.full_t + 8 * s, ph);
       }
       __syncwarp();
       if (lane == 0) wg::mbar_arrive(ring.empty_t + 8 * s);
     }
-    store_rows_f32<D>(dq + (size_t)bh * S * D, dq_acc, scale, row_a, S, lane);
+    store_rows_f32<DQK>(dq + (size_t)bh * S * DQK, dq_acc, scale, row_a, S, lane);
   }
 }
 
@@ -1111,116 +1193,124 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 3-D map over (BH, S, D) elements of `type` with boxes of T::BT rows and
-// T::CW columns, swizzled as wide as a box row (T::RB bytes); rows at or
-// past S zero-fill inside a batch-head, and never reach the next one's rows
-template <int D, typename T>
+// a 3-D map over (BH, S, D) elements of `type` (D the columns of panels P)
+// with boxes of BOX rows and P::CW columns, swizzled as wide as a box row
+// (P::RB bytes); rows at or past S zero-fill inside a batch-head, and never
+// reach the next one's rows
+template <typename P, int BOX>
 bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S, CUtensorMapDataType type) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  constexpr int ES = T::RB / T::CW;  // bytes of an element
+  constexpr int ES = P::RB / P::CW;  // bytes of an element
+  constexpr int D = P::NP * P::CW;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * ES, (cuuint64_t)S * D * ES};
-  const cuuint32_t box[3] = {(cuuint32_t)T::CW, (cuuint32_t)T::BT, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)P::CW, (cuuint32_t)BOX, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = T::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : T::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+  const CUtensorMapSwizzle swizzle = P::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : P::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// q, k, v and dO's maps
-template <int D, typename T>
+// q, k (panels PA) and v, dO's (panels PB) maps
+template <typename PA, typename PB, int BOX>
 bool tensor_maps(CUtensorMap (&m)[4], const Args& a, CUtensorMapDataType type) {
-  const void* ptrs[4] = {a.q, a.k, a.v, a.dO};
-  for (int i = 0; i < 4; ++i)
-    if (!tensor_map<D, T>(&m[i], ptrs[i], a.BH, a.S, type)) return false;
-  return true;
+  return tensor_map<PA, BOX>(&m[0], a.q, a.BH, a.S, type) &&
+         tensor_map<PA, BOX>(&m[1], a.k, a.BH, a.S, type) &&
+         tensor_map<PB, BOX>(&m[2], a.v, a.BH, a.S, type) &&
+         tensor_map<PB, BOX>(&m[3], a.dO, a.BH, a.S, type);
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_bf16(const Args& a) {
-  using T = Tiles<D>;
+  using T = Tiles<DQK, DV>;
   const int nb = (a.S + BR - 1) / BR, S_pad = nb * BR;
   float2* rows = reinterpret_cast<float2*>(a.scratch);
-  rows_kernel<bf16, D><<<dim3(S_pad / 8, a.BH), 256, 0, a.stream>>>(
+  rows_kernel<bf16, DV><<<dim3(S_pad / 8, a.BH), 256, 0, a.stream>>>(
       static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dO), a.lse, rows, a.S, S_pad);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap m[4];
-  if (!tensor_maps<D, T>(m, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16)) return cudaErrorInvalidValue;
+  if (!tensor_maps<typename T::A, typename T::B, T::BT>(m, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16))
+    return cudaErrorInvalidValue;
   const CUtensorMap &tq = m[0], &tk = m[1], &tv = m[2], &tdo = m[3];
   static bool kv_set = false, q_set = false;
-  if ((e = allow_smem(bwd_dkdv_wgmma_kernel<D>, T::BYTES, kv_set)) != cudaSuccess) return e;
-  if ((e = allow_smem(bwd_dq_wgmma_kernel<D>, T::BYTES, q_set)) != cudaSuccess) return e;
+  if ((e = allow_smem(bwd_dkdv_wgmma_kernel<DQK, DV>, T::BYTES, kv_set)) != cudaSuccess) return e;
+  if ((e = allow_smem(bwd_dq_wgmma_kernel<DQK, DV>, T::BYTES, q_set)) != cudaSuccess) return e;
   const dim3 grid(nb, a.BH);
   const float sl2 = a.scale * LOG2E;
-  bwd_dkdv_wgmma_kernel<D><<<grid, BLOCK_THREADS, T::BYTES, a.stream>>>(
+  bwd_dkdv_wgmma_kernel<DQK, DV><<<grid, BLOCK_THREADS, T::BYTES, a.stream>>>(
       tq, tk, tv, tdo, rows, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, S_pad,
       a.causal, a.scale, sl2);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dq_wgmma_kernel<D><<<grid, BLOCK_THREADS, T::BYTES, a.stream>>>(
+  bwd_dq_wgmma_kernel<DQK, DV><<<grid, BLOCK_THREADS, T::BYTES, a.stream>>>(
       tq, tk, tv, tdo, rows, static_cast<bf16*>(a.dq), a.S, S_pad, a.causal, a.scale, sl2);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_f32(const Args& a) {
-  using TK = F32Tiles<D, true>;
-  using TQ = F32Tiles<D, false>;
+  using TK = F32Tiles<DQK, DV, true>;
+  using TQ = F32Tiles<DQK, DV, false>;
   const int S_pad = (a.S + BR - 1) / BR * BR;  // as the bf16 path's scratch
   float2* rows = reinterpret_cast<float2*>(a.scratch);
-  rows_kernel<float, D><<<dim3(S_pad / 8, a.BH), 256, 0, a.stream>>>(
+  rows_kernel<float, DV><<<dim3(S_pad / 8, a.BH), 256, 0, a.stream>>>(
       static_cast<const float*>(a.o), static_cast<const float*>(a.dO), a.lse, rows, a.S, S_pad);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap m[4];  // one box shape serves both kernels
-  if (!tensor_maps<D, TK>(m, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) return cudaErrorInvalidValue;
+  if (!tensor_maps<typename TK::A, typename TK::B, TK::BT>(m, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return cudaErrorInvalidValue;
   static bool kv_set = false, q_set = false;
-  if ((e = allow_smem(bwd_dkdv_tf32_kernel<D>, TK::BYTES, kv_set)) != cudaSuccess) return e;
-  if ((e = allow_smem(bwd_dq_tf32_kernel<D>, TQ::BYTES, q_set)) != cudaSuccess) return e;
+  if ((e = allow_smem(bwd_dkdv_tf32_kernel<DQK, DV>, TK::BYTES, kv_set)) != cudaSuccess) return e;
+  if ((e = allow_smem(bwd_dq_tf32_kernel<DQK, DV>, TQ::BYTES, q_set)) != cudaSuccess) return e;
   const dim3 grid((a.S + TK::BR - 1) / TK::BR, a.BH);
   const float sl2 = a.scale * LOG2E;
-  bwd_dkdv_tf32_kernel<D><<<grid, TK::THREADS, TK::BYTES, a.stream>>>(
+  bwd_dkdv_tf32_kernel<DQK, DV><<<grid, TK::THREADS, TK::BYTES, a.stream>>>(
       m[0], m[1], m[2], m[3], rows, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S,
       S_pad, a.causal, a.scale, sl2);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  bwd_dq_tf32_kernel<D><<<grid, TQ::THREADS, TQ::BYTES, a.stream>>>(
+  bwd_dq_tf32_kernel<DQK, DV><<<grid, TQ::THREADS, TQ::BYTES, a.stream>>>(
       m[0], m[1], m[2], m[3], rows, static_cast<float*>(a.dq), a.S, S_pad, a.causal, a.scale,
       sl2);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const Args& a, int dtype) {
-  if (dtype == 0) return launch_f32<D>(a);
-  if (dtype == 1) return launch_bf16<D>(a);
+  if (dtype == 0) return launch_f32<DQK, DV>(a);
+  if (dtype == 1) return launch_bf16<DQK, DV>(a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v, o, dO, dq, dk, dv (BH, S, D) row-major on the device, all of one
-// dtype: 0 = float32, 1 = bfloat16, 16-byte aligned.  lse (BH, S) float32
-// from K3's forward (natural log of the scaled scores' row sums).  scratch:
-// float32 (BH, S_pad, 2), (lse log2 e, delta) per row with S_pad = S
-// rounded up to 128, 16-byte aligned.  D: 16, 32, 64 or 128.  causal: 0 or 1.  Returns a cudaError_t.
+// q, k, dq, dk (BH, S, D) and v, o, dO, dv (BH, S, Dv) row-major on the
+// device, all of one dtype: 0 = float32, 1 = bfloat16, 16-byte aligned.
+// lse (BH, S) float32 from K3's forward (natural log of the scaled scores'
+// row sums).  scratch: float32 (BH, S_pad, 2), (lse log2 e, delta) per row
+// with S_pad = S rounded up to 128, 16-byte aligned.  (D, Dv): (16, 16),
+// (32, 32), (64, 64), (128, 128) or MLA's (192, 128).  causal: 0 or 1.
+// Returns a cudaError_t.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dO, const void* lse,
                                          void* scratch, void* dq, void* dk, void* dv, int BH,
-                                         int S, int D, int dtype, int causal, float scale,
+                                         int S, int D, int Dv, int dtype, int causal, float scale,
                                          void* stream) {
   if (BH <= 0 || BH > 65535 || S <= 0 || (causal != 0 && causal != 1))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, dO, static_cast<const float*>(lse), static_cast<float*>(scratch),
                dq, dk, dv, BH, S, causal, scale, reinterpret_cast<cudaStream_t>(stream)};
+  if (D == 192 && Dv == 128) return (int)launch<192, 128>(a, dtype);
+  if (D != Dv) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return (int)launch<16>(a, dtype);
-    case 32: return (int)launch<32>(a, dtype);
-    case 64: return (int)launch<64>(a, dtype);
-    case 128: return (int)launch<128>(a, dtype);
+    case 16: return (int)launch<16, 16>(a, dtype);
+    case 32: return (int)launch<32, 32>(a, dtype);
+    case 64: return (int)launch<64, 64>(a, dtype);
+    case 128: return (int)launch<128, 128>(a, dtype);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -458,7 +458,9 @@ scan_topk_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
   }
 }
 
-__global__ void init_bounds(float* bound, int B, int nsplit, int K) {
+// static: every translation unit that includes this defines its own (K1 and
+// K2 link several units into one library, kernels/_build.py UNITS)
+static __global__ void init_bounds(float* bound, int B, int nsplit, int K) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < B * nsplit) bound[(size_t)(i / nsplit) * K + i % nsplit] = topk::inf_f();
 }

@@ -180,7 +180,17 @@ __device__ __forceinline__ void fence_operand(uint32_t (&r)[N][4]) {
 // 8 j + 2 (lane % 4) + e % 2.
 template <int N, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  static_assert(N == 32 || N == 64, "m64n32k16 or m64n64k16");
+  static_assert(N == 16 || N == 32 || N == 64, "m64n16k16, m64n32k16 or m64n64k16");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
   if constexpr (N == 32) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
@@ -259,7 +269,15 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
 // memory.  The accumulator layout is mma_ss's.
 template <int N>
 __device__ __forceinline__ void mma_ss_tf32(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  static_assert(N == 16 || N == 32, "m64n16k8 or m64n32k8");
+  static_assert(N == 8 || N == 16 || N == 32, "m64n8k8, m64n16k8 or m64n32k8");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(acc));
+  }
   if constexpr (N == 16) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"

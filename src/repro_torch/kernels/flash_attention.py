@@ -18,10 +18,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims with q . k and v of one width (the backward kernel's too)
+#: head dims with q . k and v of one width
 HEAD_DIMS = (16, 32, 64, 128)
-#: the (q . k, v) head dims the kernel is instantiated for: equal pairs, and
-#: MLA's (192, 128) (DeepSeek-V2: 128 nope + 64 rope dims, v 128)
+#: the (q . k, v) head dims the kernel (and K3-bwd) is instantiated for:
+#: equal pairs, and MLA's (192, 128) (DeepSeek-V2: 128 nope + 64 rope dims,
+#: v 128)
 INSTANCES = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535  # the grid's second dimension

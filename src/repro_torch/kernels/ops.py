@@ -224,12 +224,13 @@ def _flash_forward(q, k, v, causal: bool, scale: float, with_lse: bool):
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, scale: float | None = None):
-    """The gradient of :func:`flash_attention`: (dq, dk, dv) from q, k, v
-    (BH, S, D), the forward's output ``o``, the output's gradient ``do``
-    and the forward's row log-sum-exp ``lse`` (BH, S) float32.  CPU tensors
-    run ``ref.flash_attention_bwd_ref``; CUDA tensors launch K3-bwd (the
-    dtypes and head dims of K3; anything else raises).  Inputs that are
-    not contiguous or not on the 16-byte grid are copied first."""
+    """The gradient of :func:`flash_attention`: (dq, dk, dv) from q, k
+    (BH, S, D), v (BH, S, Dv), the forward's output ``o`` and the output's
+    gradient ``do`` (BH, S, Dv), and the forward's row log-sum-exp ``lse``
+    (BH, S) float32.  CPU tensors run ``ref.flash_attention_bwd_ref``; CUDA
+    tensors launch K3-bwd (the dtypes and (D, Dv) instances of K3; anything
+    else raises).  Inputs that are not contiguous or not on the 16-byte
+    grid are copied first."""
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     dev = q.device
     if dev.type == "cpu":
@@ -274,7 +275,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     are not contiguous, or do not start on a 16-byte boundary (the kernel
     copies rows in 16-byte pieces), are copied first.  Where autograd
     records (an input requires grad), the call is differentiable: its
-    backward is :func:`flash_attention_bwd`, for Dv = D only."""
+    backward is :func:`flash_attention_bwd`."""
     if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 or v.shape[:2] != q.shape[:2]:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}; expected q, k (BH, S, D) and v (BH, S, Dv)")
@@ -284,10 +285,6 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     if q.device.type == "cuda" and q.numel() == 0:
         return q.new_empty(v.shape)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(
-                f"flash_attention: the gradient with a v head dim ({v.shape[-1]}) other than "
-                f"q's ({q.shape[-1]}) is not ported (MLA training, ROADMAP §1 item 10.3b)")
         return _FlashAttention.apply(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale, with_lse=False)
 

@@ -219,20 +219,22 @@ def flash_attention_bwd_ref(
     block_q: int = 1024,
     block_k: int = 1024,
 ):
-    """The gradient of attention over (BH, S, D): the plain version of
-    K3-bwd (``csrc/flash_attention_bwd.cu``), the function the JAX package
-    gets from autodiff of ``chunked_attention``.
+    """The gradient of attention over q, k (BH, S, D) and v (BH, S, Dv): the
+    plain version of K3-bwd (``csrc/flash_attention_bwd.cu``), the function
+    the JAX package gets from autodiff of ``chunked_attention``.
 
-    From q, k, v, the forward's output o, its gradient ``do`` and the row
-    log-sum-exp ``lse`` of :func:`flash_attention_ref` (``with_lse``),
+    From q, k, v, the forward's output o and its gradient ``do`` (both
+    (BH, S, Dv)) and the row log-sum-exp ``lse`` of
+    :func:`flash_attention_ref` (``with_lse``),
     rebuilds ``p = exp(scale q k^T - lse)`` block by block with the
     forward's masks (future kv when causal; kv blocks wholly above the
     diagonal skipped), then ``delta = rowsum(do o)``, ``ds = p (do v^T -
     delta)``, ``dv = p^T do``, ``dk = scale ds^T q``, ``dq = scale ds k``.
     All math and every sum is float32; the results take q's dtype.
-    Returns (dq, dk, dv).
+    Returns (dq, dk, dv), dv of v's shape.
     """
     BH, S, D = q.shape
+    Dv = v.shape[-1]
     scale = scale or 1.0 / math.sqrt(D)
     _no_tf32(q)
     dev = q.device
@@ -240,7 +242,7 @@ def flash_attention_bwd_ref(
     delta = (f(do) * f(o)).sum(-1)
     dq = torch.empty_like(q)
     dk = torch.zeros((BH, S, D), dtype=torch.float32, device=dev)
-    dv = torch.zeros((BH, S, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((BH, S, Dv), dtype=torch.float32, device=dev)
     for q0 in range(0, S, block_q):
         q1 = min(q0 + block_q, S)
         qb, dob = f(q[:, q0:q1]), f(do[:, q0:q1])

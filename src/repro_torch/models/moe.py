@@ -16,6 +16,15 @@ reference leaves them to XLA, outside any Pallas kernel).  The combine is
 a gather of each (token, k)'s slot row summed over k, in ``ye``'s dtype:
 the reference scatter-adds, and ``index_add_`` on the card is atomic, in an
 order that changes from run to run; the gather sums in a fixed order.
+Dispatch and combine are each other's gradient (``_Dispatch``,
+``_Combine``): the dispatch's backward is the combine's gather and sum,
+where autograd would scatter-add each token's k slot grads (atomically on
+the card), and the combine's backward is the dispatch's gather, where
+autograd's index backward would sort the slots and add every dropped
+assignment's grad into the dump slot one after another.  So a step's grads
+are the same bits every run.  Grads reach the router through its softmax,
+the kept gates (``prob_buf``) and the load-balance loss's mean
+probabilities; the top-1 fractions carry none, as in the reference.
 
 Only the reference's local path (``_moe_apply_local``) is ported: on one
 device ``moe_apply`` is that path.  The expert-parallel ``shard_map`` path
@@ -101,6 +110,57 @@ def route(params, cfg: MoEConfig, xf: torch.Tensor):
     return probs, top_p * cfg.routed_scaling, top_e
 
 
+def _gather_slots(x, tok_buf):
+    """Each slot's token row, ``x[tok_buf[s]]`` for x (T, d) and tok_buf
+    (E * C,), zeros where a slot is empty (``tok_buf`` holds T there)."""
+    return torch.cat([x, x.new_zeros(1, x.shape[1])])[tok_buf]
+
+
+def _sum_assignments(ye, slot, top_k: int):
+    """Each token's K assignments' slot rows, ``ye[slot]`` for ye (E * C,
+    d) and slot (T * K,), summed over k in ``ye``'s dtype; the dump slot
+    E * C reads zeros."""
+    rows = torch.cat([ye, ye.new_zeros(1, ye.shape[1])])[slot]
+    return rows.reshape(slot.shape[0] // top_k, top_k, ye.shape[1]).sum(dim=1)
+
+
+class _Dispatch(torch.autograd.Function):
+    """xe = ``_gather_slots(xf, tok_buf)``; its gradient is
+    ``_sum_assignments`` of the slot grads (a gather and a sum over k,
+    where autograd would scatter-add them)."""
+
+    @staticmethod
+    def forward(ctx, xf, tok_buf, slot, top_k: int):
+        ctx.save_for_backward(slot)
+        ctx.top_k = top_k
+        return _gather_slots(xf, tok_buf)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        return _sum_assignments(g, slot, ctx.top_k), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y = ``_sum_assignments(ye, slot, K)``; its gradient is
+    ``_gather_slots`` of the token grads (a kept slot has one assignment;
+    dropped ones, all in the dump slot, get none), where autograd's index
+    backward would sort the slots and accumulate the dump slot's many
+    sources in series."""
+
+    @staticmethod
+    def forward(ctx, ye, tok_buf, slot, top_k: int):
+        ctx.save_for_backward(tok_buf)
+        return _sum_assignments(ye, slot, top_k)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (tok_buf,) = ctx.saved_tensors
+        return _gather_slots(g, tok_buf), None, None, None
+
+
 def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, *, capacity_factor: float = 0.0):
     """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar).
 
@@ -129,8 +189,7 @@ def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, *, capacity_factor: float
     tok_buf[slot] = flat_tok
     prob_buf = torch.zeros(E * C + 1, dtype=torch.float32, device=dev)
     prob_buf[slot] = top_p.reshape(T * K)
-    x_pad = torch.cat([xf, xf.new_zeros(1, d)])  # an empty slot gathers row T: zeros
-    xe = x_pad[tok_buf[:E * C]].reshape(E, C, d)
+    xe = _Dispatch.apply(xf, tok_buf[:E * C], slot, K).reshape(E, C, d)
 
     g = torch.bmm(xe, params["w_gate"])
     u = torch.bmm(xe, params["w_up"])
@@ -138,8 +197,7 @@ def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, *, capacity_factor: float
     ye = ye * prob_buf[:E * C].reshape(E, C, 1).to(ye.dtype)
 
     # combine: each assignment's slot row (the dump slot reads zeros), summed over k
-    ye_pad = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
-    y = ye_pad[slot].reshape(T, K, d).sum(dim=1)
+    y = _Combine.apply(ye.reshape(E * C, d), tok_buf[:E * C], slot, K)
 
     if "shared" in params:
         y = y + mlp_apply(params["shared"], xf)

@@ -9,8 +9,7 @@ reference stacks them for ``scan``), the dense head layers of a MoE model
 in ``dense_blocks`` before ``blocks``; ``forward`` runs the layers in a
 Python loop and carries gradients (``remat`` / ``remat_group`` checkpoint
 blocks or groups of blocks, as the reference's scan does), and ``apply``
-is the same forward under ``torch.no_grad`` for serving.  Training a MoE
-or MLA model is not ported yet (``train_step.lm_loss_fn`` raises).
+is the same forward under ``torch.no_grad`` for serving.
 """
 
 from __future__ import annotations

@@ -71,15 +71,18 @@ def global_norm(tree) -> torch.Tensor:
 
 def reference_ndim(name: str, leaf) -> int:
     """A leaf's rank in the reference's pytree, where every block leaf is
-    stacked over the layers: one more than here for ``blocks/...``."""
-    return leaf.ndim + 1 if name.startswith("blocks/") else leaf.ndim
+    stacked over its layers: one more than here for ``blocks/...`` and for
+    a MoE model's ``dense_blocks/...`` (stacked over ``first_k_dense``
+    there, even when that is 1)."""
+    stacked = name.startswith("blocks/") or name.startswith("dense_blocks/")
+    return leaf.ndim + 1 if stacked else leaf.ndim
 
 
 def default_decay_mask(name: str, leaf) -> bool:
     """The reference's default on a ``Transformer``, ``leaf.ndim >= 2`` on
-    its own shapes: every block leaf decays (norm scales and biases
-    included, being (L, d) there), ``embed`` and ``lm_head`` decay,
-    ``final_norm`` does not."""
+    its own shapes: every block and dense-block leaf decays (norm scales
+    and biases included, being (L, d) there, MLA's nested ``kv_norm`` too),
+    ``embed`` and ``lm_head`` decay, ``final_norm`` does not."""
     return reference_ndim(name, leaf) >= 2
 
 

@@ -6,8 +6,8 @@ with the reference's arithmetic: the loss's grads by autograd (for the LMs
 K3 and K3-bwd in every layer's attention on the card, under ``torch.utils.
 checkpoint`` where the config asks for remat), float32 accumulation over
 microbatches, and the AdamW update in place (``train.optimizer``).  The LM
-(dense GQA) and recsys losses are ported; the MoE / MLA LMs' and the
-DimeNet loss raise.
+losses (dense GQA, and the MoE / MLA LMs with their load-balance loss) and
+the recsys losses are ported; the DimeNet loss raises.
 """
 
 from __future__ import annotations
@@ -119,14 +119,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *, num_micro: int =
 
 def lm_loss_fn(cfg, z_loss: float = 1e-4):
     """loss_fn(params, batch) for a ``Transformer``: batch ``tokens`` (B, S)
-    and ``labels`` (B, S), optional ``mask`` (B, S).  A MoE or MLA config
-    raises: their training is not ported yet (the decay rule does not know
-    ``dense_blocks``, and K3-bwd has no (192, 128) instance)."""
+    and ``labels`` (B, S), optional ``mask`` (B, S).  The loss is the
+    token CE (with z-loss) plus ``aux``, the float32 sum of the MoE layers'
+    Switch load-balance losses (0 for a dense model), as the reference's:
+    grads reach the router through its softmax, the kept top-k gates and
+    aux's mean router probabilities; aux is returned beside the loss."""
     from repro_torch.models import transformer as tf
-
-    if cfg.moe is not None or cfg.attention != "gqa":
-        raise NotImplementedError(f"{cfg.name}: training a MoE / MLA model is not ported "
-                                  "(ROADMAP §1 item 10.3b)")
 
     def loss_fn(params, batch):
         logits, _, aux = tf.forward(params, cfg, batch["tokens"])

@@ -663,6 +663,112 @@ def test_k3_bwd_takes_strided_and_misaligned_inputs_and_is_deterministic(cuda, d
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# MLA's (192, 128) instance: one key, a consumer warpgroup's 64 rows, a
+# block's 128, the 16-row (bf16) and 8-row (float32) walked tiles, ragged S,
+# and the float32 card-vs-CPU check's (16, 1100)
+K3_BWD_MLA_CASES = [(BH, S, causal) for BH, S in ((1, 1), (1, 15), (1, 17), (3, 63), (3, 65),
+                                                  (2, 129), (2, 1000), (16, 1100))
+                    for causal in (True, False)]
+
+
+def _k3_bwd_mla_case(dev, dtype, BH, S, seed, q_scale=1.0, v_scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn(BH, S, 192, generator=g, device=dev) for _ in range(2))
+    v, do = (torch.randn(BH, S, 128, generator=g, device=dev) for _ in range(2))
+    return (q * q_scale).to(dtype), k.to(dtype), (v * v_scale).to(dtype), do.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,causal", K3_BWD_MLA_CASES)
+def test_k3_bwd_mla_head_dims_match_plain(cuda, dtype, BH, S, causal):
+    """K3-bwd at q . k 192 and v 128 (DeepSeek-V2's MLA) against the plain
+    backward on the same tensors, dq and dk of q's shape and dv of v's, one
+    launch, and two launches bit-equal."""
+    q, k, v, do = _k3_bwd_mla_case(cuda, dtype, BH, S, seed=BH * S + 11)
+    scale = 192 ** -0.5
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale, with_lse=True)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    assert ops.KERNEL_LAUNCHES["flash_attention_bwd"] == 1
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    f = lambda t: t.float()
+    want = ref.flash_attention_bwd_ref(f(q), f(k), f(v), f(out), f(do), lse, causal=causal)
+    torch.cuda.synchronize()
+    assert [tuple(t.shape) for t in got] == [(BH, S, 192), (BH, S, 192), (BH, S, 128)]
+    _check_k3_bwd(got, want, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,causal,q_scale,v_scale", [
+    (BH, S, causal, qs, vs) for BH, S in ((1, 65), (2, 1000)) for causal in (True, False)
+    for qs, vs in ((4.0, 1.0), (1.0, 8.0))])
+def test_k3_bwd_mla_f32_scaled_inputs_match_plain(cuda, BH, S, causal, q_scale, v_scale):
+    """The (192, 128) float32 instance on q x 4 (a peaky softmax) and v x 8
+    (large values) at the float32 limit."""
+    q, k, v, do = _k3_bwd_mla_case(cuda, torch.float32, BH, S, seed=S + 13, q_scale=q_scale,
+                                   v_scale=v_scale)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=192 ** -0.5, with_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    _check_k3_bwd(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_k3_bwd_rejects_head_dims_without_an_instance(cuda):
+    """A (D, Dv) with no CUDA instance raises on the card, in the gradient's
+    entry and in K3's forward that precedes it: never the plain version."""
+    q = torch.zeros(2, 64, 96, device=cuda)
+    v = torch.zeros(2, 64, 64, device=cuda)
+    lse = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="not in"):
+        ops.flash_attention_bwd(q, q, v, v, v, lse, causal=True)
+    with pytest.raises(NotImplementedError, match="not in"):
+        ops.flash_attention(q.requires_grad_(), q, v, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention", ["gqa", "mla"])
+def test_card_moe_mla_train_step_matches_cpu(cuda, attention):
+    """One train step's grads of a small MoE LM with the DeepSeek head dims
+    (GQA at 128; MLA at q . k 128 + 64 and v 128, so K3 and K3-bwd run the
+    (192, 128) instance), float32, chunked attention, 2 microbatches: the
+    card (kernels) against the CPU (plain versions) from the same params:
+    loss and aux within 1e-5 relative, every grad within 1e-3 of the CPU's
+    largest entry, the grad norm within 1e-4 relative."""
+    import copy
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.moe import MoEConfig
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import _accumulate_grads, lm_loss_fn
+
+    cfg = tf.TransformerConfig(
+        n_layers=3, d_model=256, n_heads=2, n_kv_heads=2, head_dim=128, d_ff=512, vocab=512,
+        attention=attention, mla_kv_lora_rank=64, q_chunk=64, remat=True,
+        moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=128, n_shared=1, first_k_dense=1,
+                      capacity_factor=1.25))
+    cpu_params = tf.init(cfg, seed=0, device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to(cuda)
+    toks, labels = token_batch(4, 300, cfg.vocab, seed=2)
+    batch = {"tokens": toks, "labels": labels}
+    ops.reset_launches()
+    loss_g, grads_g, aux_g = _accumulate_grads(lm_loss_fn(cfg), gpu_params, batch, 2)
+    torch.cuda.synchronize()
+    assert ops.KERNEL_LAUNCHES["flash_attention"] == 2 * cfg.n_layers * 2
+    assert ops.KERNEL_LAUNCHES["flash_attention_bwd"] == cfg.n_layers * 2
+    loss_c, grads_c, aux_c = _accumulate_grads(lm_loss_fn(cfg), cpu_params, batch, 2)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-5 * abs(float(aux_c))
+    for g, c in zip(grads_g, grads_c):
+        assert float((g.cpu() - c).abs().max()) <= 1e-3 * float(c.abs().max())
+    n_g, n_c = float(global_norm(grads_g)), float(global_norm(grads_c))
+    assert abs(n_g - n_c) <= 1e-4 * n_c
+
+
 @pytest.mark.cuda
 def test_card_train_step_matches_cpu(cuda):
     """One train step of a small LM (f32, chunked attention: K3 and K3-bwd

@@ -4,8 +4,10 @@
 ``layers.chunked_attention`` (``ops.flash_attention`` -> its autograd
 Function) against ``jax.vjp`` of the reference's ``chunked_attention``,
 GQA through ``_repeat_kv`` included.  float32; causal and bidirectional,
-ragged S, D in {16, 64}.  Limits: rtol 1e-4 / atol 1e-5 against JAX (two
-summation orders), 1e-5 against autograd of the same plain forward.
+ragged S, D in {16, 64}, and a v head dim other than q's: the reduced MLA
+config's (24, 16) and DeepSeek-V2's (192, 128).  Limits: rtol 1e-4 / atol
+1e-5 against JAX (two summation orders), 1e-5 against autograd of the same
+plain forward.
 K3-bwd itself is held against this plain version on the card in
 ``test_torch_cuda.py``."""
 
@@ -100,6 +102,77 @@ def test_gqa_grads_through_repeat_kv_match_jax(causal, S, D):
         assert got[1].shape == (1, S, KV, D)
         for name, g, w in zip("qkv", got, want):
             np.testing.assert_allclose(g.numpy(), w, **JAX_TOL, err_msg=f"d{name} H={H}")
+
+
+# (BH or B, S, D, Dv, causal): MLA's head dims, the reduced config's and the
+# full config's, ragged S against the blocks used below
+DV_CASES = [(2, 50, 24, 16, True), (3, 33, 24, 16, False), (1, 40, 192, 128, True),
+            (2, 19, 192, 128, False)]
+
+
+def _jax_vjp_dv(q, k, v, do, causal, q_chunk, kv_chunk):
+    out, vjp = jax.vjp(lambda q, k, v: jax_chunked(q, k, v, causal=causal, q_chunk=q_chunk,
+                                                   kv_chunk=kv_chunk),
+                       *(jnp.asarray(a) for a in (q, k, v)))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("BH,S,D,Dv,causal", DV_CASES)
+def test_bwd_ref_with_v_head_dim_matches_jax_vjp(BH, S, D, Dv, causal):
+    """``ref.flash_attention_bwd_ref`` on q, k (BH, S, D) and v, o, dO (BH, S,
+    Dv) from the plain forward's output and lse: dq, dk (BH, S, D) and dv
+    (BH, S, Dv) against ``jax.vjp`` of the reference's
+    ``chunked_attention`` (heads as its H axis, one batch row)."""
+    rng = np.random.default_rng(S + D + Dv)
+    q, k = (rng.standard_normal((BH, S, D)).astype(np.float32) for _ in range(2))
+    v, do = (rng.standard_normal((BH, S, Dv)).astype(np.float32) for _ in range(2))
+    bshd = lambda a: a.transpose(1, 0, 2)[None]
+    _, want = _jax_vjp_dv(*(bshd(a) for a in (q, k, v, do)), causal, q_chunk=16, kv_chunk=16)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = ref.flash_attention_ref(qt, kt, vt, causal=causal, block_q=16, block_k=16,
+                                     with_lse=True)
+    got = ref.flash_attention_bwd_ref(qt, kt, vt, o, dot, lse, causal=causal, block_q=16,
+                                      block_k=16)
+    assert [tuple(g.shape) for g in got] == [(BH, S, D), (BH, S, D), (BH, S, Dv)]
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w[0].transpose(1, 0, 2), **JAX_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,S,H,D,Dv,causal", [(2, 37, 3, 24, 16, True), (1, 37, 2, 24, 16, False),
+                                               (1, 40, 2, 192, 128, True)])
+def test_flash_attention_grads_with_v_head_dim_match_jax_vjp(B, S, H, D, Dv, causal):
+    """``ops.flash_attention_bhsd`` is differentiable with v's head dim other
+    than q's (MLA training): its autograd Function (the plain forward with
+    lse, then ``flash_attention_bwd_ref``) against ``jax.vjp`` of the
+    reference's ``chunked_attention``."""
+    rng = np.random.default_rng(B * S + D)
+    q, k = (rng.standard_normal((B, S, H, D)).astype(np.float32) for _ in range(2))
+    v, do = (rng.standard_normal((B, S, H, Dv)).astype(np.float32) for _ in range(2))
+    want_out, want = _jax_vjp_dv(q, k, v, do, causal, q_chunk=16, kv_chunk=8)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ops.flash_attention_bhsd(qt, kt, vt, causal=causal)
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), want_out, **JAX_TOL)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, **JAX_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("D,Dv", [(24, 16), (192, 64), (96, 96)])
+def test_bwd_launcher_refuses_head_dims_without_an_instance(D, Dv):
+    """K3-bwd's launcher refuses a (D, Dv) that has no CUDA instance before
+    it looks at the device: on the card such a gradient raises and never
+    falls back to the plain version (``ops.flash_attention_bwd`` hands
+    every CUDA tensor to it)."""
+    from repro_torch.kernels.flash_attention import INSTANCES
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+
+    assert (D, Dv) not in INSTANCES and (192, 128) in INSTANCES
+    q = torch.zeros(2, 8, D)
+    v = torch.zeros(2, 8, Dv)
+    with pytest.raises(NotImplementedError, match="not in"):
+        flash_attention_bwd_cuda(q, q, v, v, v, torch.zeros(2, 8), causal=True, scale=0.1)
 
 
 def test_grad_path_on_cpu_launches_nothing_and_inference_keeps_no_lse():

@@ -5,10 +5,15 @@ reference's stable order), the three ``mla_apply`` branches (no cache,
 whole prefill into the latent cache, the absorbed decode), K3's plain path
 with a v head dim other than q's, ``transformer.apply`` logits and aux,
 prefill-then-decode, ``init``, the parameter counts, the numpy round trip
-and the ``ServeEngine`` (greedy tokens equal to the JAX engine's).  Inputs
-and params are drawn with numpy and carried across; float32 throughout,
-rtol = atol = 1e-5 (the combine sums each token's k expert rows where the
-reference scatter-adds them: another order, within float32 rounding)."""
+and the ``ServeEngine`` (greedy tokens equal to the JAX engine's); and
+training: ``lm_loss_fn``'s loss, aux and grads (drops included) against
+``jax.value_and_grad`` of the reference's, the MoE layer's gradient, the
+dispatch's deterministic backward, remat, and K3's path differentiable
+with v's head dim other than q's.  Inputs and params are drawn with numpy
+and carried across; float32 throughout, rtol = atol = 1e-5 (the combine
+sums each token's k expert rows where the reference scatter-adds them:
+another order, within float32 rounding); grads rtol 1e-4 with an atol of
+1e-5 of each tensor's largest entry."""
 
 import dataclasses
 
@@ -25,14 +30,16 @@ from repro.models import moe as jmoe
 from repro.models import transformer as jtf
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
-from repro_torch.configs import get_config, reduced_config, serving_config
-from repro_torch.convert import transformer_from_jax, transformer_to_numpy
+from repro.train import train_step as jts
+from repro_torch.common.tree import unflatten
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.convert import transformer_from_jax, transformer_to_numpy, tree_to_numpy
 from repro_torch.kernels import ops
 from repro_torch.models import layers as pl
 from repro_torch.models import moe as pmoe
 from repro_torch.models import transformer as tf
 from repro_torch.serve import Request, ServeEngine
-from repro_torch.train.train_step import lm_loss_fn
+from repro_torch.train.train_step import _accumulate_grads, lm_loss_fn
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
@@ -234,13 +241,27 @@ def test_flash_attention_v_head_dim_matches_chunked(causal):
     _close(got, want)
 
 
-def test_flash_attention_gradient_refuses_v_head_dim():
-    q = torch.zeros(2, 8, 24, requires_grad=True)
-    v = torch.zeros(2, 8, 16)
-    with pytest.raises(NotImplementedError, match="10.3b"):
-        ops.flash_attention(q, q, v)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gradient_with_v_head_dim_matches_chunked(causal):
+    """The gradient of ``ops.flash_attention`` with q . k 24 and v 16 (the
+    reduced MLA config's): its backward (``flash_attention_bwd_ref`` on the
+    CPU) against ``jax.grad`` of the reference's ``chunked_attention``,
+    and the same call under ``no_grad`` keeps no graph."""
+    rng = np.random.default_rng(16)
+    B, S, H = 2, 37, 3
+    q, k = (rng.standard_normal((B, S, H, 24)).astype(np.float32) for _ in range(2))
+    v, w = (rng.standard_normal((B, S, H, 16)).astype(np.float32) for _ in range(2))
+    f = lambda q, k, v: jnp.sum(jl.chunked_attention(q, k, v, causal=causal, q_chunk=16,
+                                                     kv_chunk=8, scale=0.3) * w)
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ops.flash_attention_bhsd(qt, kt, vt, causal=causal, scale=0.3)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), (qt, kt, vt))
+    for g, wg in zip(got, want):
+        assert tuple(g.shape) == wg.shape
+        _close(g, wg)
     with torch.no_grad():
-        assert tuple(ops.flash_attention(q, q, v).shape) == (2, 8, 16)
+        assert ops.flash_attention(qt[0], kt[0], vt[0]).grad_fn is None
 
 
 # --------------------------------------------------------------------------
@@ -372,9 +393,174 @@ def test_engine_tokens_match_jax_engine(arch, q_chunk, cf):
     assert {k: peng.stats[k] for k in keys} == {k: jeng.stats[k] for k in keys}
 
 
+# --------------------------------------------------------------------------
+# training: the loss, its grads, the MoE layer's gradient
+# --------------------------------------------------------------------------
+
+
+class _CountDrops:
+    """Counts the (token, k) assignments that ``moe.moe_apply`` drops at its
+    capacity while a block runs (the routing recomputed with the port's
+    ``route``)."""
+
+    def __enter__(self):
+        self.dropped, self._orig = 0, pmoe.moe_apply
+
+        def counting(params, cfg, x, *, capacity_factor=0.0):
+            T = x.shape[0] * x.shape[1]
+            with torch.no_grad():
+                _, _, top_e = pmoe.route(params, cfg, x.reshape(T, -1))
+                rank = pmoe._ranks_within_expert(top_e.reshape(-1), cfg.num_experts)
+            self.dropped += int((rank >= pmoe.capacity(cfg, T, capacity_factor)).sum())
+            return self._orig(params, cfg, x, capacity_factor=capacity_factor)
+
+        pmoe.moe_apply = counting
+        return self
+
+    def __exit__(self, *exc):
+        pmoe.moe_apply = self._orig
+        return False
+
+
+def _grads_np(pparams, grads):
+    """The port's grads (in the params' leaf order) in the reference's
+    stacked layout, numpy."""
+    return tree_to_numpy(unflatten(tf.param_tree(pparams), grads))
+
+
+# limits of a grad tensor: rtol 1e-4, atol 1e-5 of the tensor's largest
+# |entry| (float32 on both sides, sums in other orders: an entry near zero
+# carries the rounding of its sum's largest terms; the loss's grads here
+# come within 3.8e-6 of the largest)
+GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 1e-5
+
+
+def _grad_close(got, want, name=""):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL_OF_MAX * float(np.abs(want).max()), err_msg=name)
+
+
+def _assert_tree_close(got_np, want):
+    assert jax.tree.structure(got_np) == jax.tree.structure(want)
+    for path, w in jax.tree_util.tree_flatten_with_path(want)[0]:
+        g = got_np
+        for key in path:
+            g = g[key.key]
+        _grad_close(g, w, jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+@pytest.mark.parametrize("q_chunk", [0, 16])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_lm_loss_fn_refuses_moe_and_mla(arch):
-    cfg = reduced_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match="10.3b"):
-        lm_loss_fn(cfg)
-    assert serving_config(get_config(arch), "prefill").moe.capacity_factor == 1.25
+def test_lm_loss_fn_loss_aux_and_grads_match_reference(arch, q_chunk, cf):
+    """``lm_loss_fn`` on the reduced DeepSeek configs: loss (ce + aux), aux
+    and every grad against ``jax.value_and_grad`` of the reference's
+    ``lm_loss_fn``.  q_chunk 16 runs attention through K3's path (the
+    plain versions here, MLA at q . k 24 and v 16); capacity factor 1.25
+    drops assignments (counted), so the gates' grads cover kept and
+    dropped routes.  Loss and aux rtol 1e-5."""
+    moe_cf = lambda c: dataclasses.replace(c, moe=dataclasses.replace(c.moe, capacity_factor=cf))
+    jcfg, jparams, pcfg, pparams, _ = _models(arch, seed=4, q_chunk=q_chunk, kv_chunk=16)
+    jcfg, pcfg = moe_cf(jcfg), moe_cf(pcfg)
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, 512, (2, 40)).astype(np.int32)
+    labels = rng.integers(0, 512, (2, 40)).astype(np.int32)
+    (want, want_aux), want_g = jax.value_and_grad(jts.lm_loss_fn(jcfg), has_aux=True)(
+        jparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+    with _CountDrops() as drops:
+        loss, grads, aux = _accumulate_grads(lm_loss_fn(pcfg), pparams,
+                                             {"tokens": toks, "labels": labels}, 1)
+    assert (drops.dropped > 0) == (cf == 1.25), drops.dropped
+    assert float(aux) > 0 and aux.dtype == torch.float32
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+    _assert_tree_close(_grads_np(pparams, grads), want_g)
+
+
+@pytest.mark.parametrize("cf,top_k", [(8.0, 2), (1.0, 2), (0.5, 2), (1.0, 6)])
+def test_moe_apply_grads_match_local_path(cf, top_k):
+    """The MoE layer's gradient alone: d(sum(out * w) + aux) with respect to
+    x and every param (router, experts, shared) against ``jax.grad`` of the
+    reference's ``_moe_apply_local``, kept and dropped routes (cf 1.0,
+    0.5), top-2 and top-6."""
+    cfg = dataclasses.replace(MOE, top_k=top_k)
+    rng = np.random.default_rng(13)
+    params = _np_tree(jmoe.moe_init(jax.random.PRNGKey(5), 32, cfg))
+    x = rng.standard_normal((2, 24, 32)).astype(np.float32)
+    w = rng.standard_normal((2, 24, 32)).astype(np.float32)
+
+    def jloss(p, x):
+        out, aux = jmoe._moe_apply_local(p, cfg, x, capacity_factor=cf)
+        return jnp.sum(out * w) + aux
+
+    want_p, want_x = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)).requires_grad_(), params)
+    tx = torch.from_numpy(x).requires_grad_()
+    out, aux = pmoe.moe_apply(tp, _pmoe_cfg(cfg), tx, capacity_factor=cf)
+    flat = jax.tree_util.tree_leaves(tp)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum() + aux, [tx] + flat)
+    _grad_close(got[0].numpy(), want_x, "x")
+    for g, wg in zip(got[1:], jax.tree_util.tree_leaves(want_p)):
+        _grad_close(g.numpy(), wg)
+
+
+def test_moe_dispatch_backward_is_the_gather_of_its_slot_grads():
+    """``moe._Dispatch``'s backward (each token's k slot grads gathered and
+    summed) equals autograd of the plain dispatch gather (a scatter-add of
+    every slot into token space), with drops at capacity 1.0, top-6, and
+    two backwards give the same bits; ``moe._Combine``'s backward (the
+    dispatch's gather) equals autograd of the plain combine bit for bit."""
+    cfg = _pmoe_cfg(dataclasses.replace(MOE, top_k=6))
+    rng = np.random.default_rng(14)
+    params = _torch_tree(_np_tree(jmoe.moe_init(jax.random.PRNGKey(6), 32, MOE)))
+    xf = torch.from_numpy(rng.standard_normal((48, 32)).astype(np.float32))
+    T, K, E = 48, 6, cfg.num_experts
+    C = pmoe.capacity(cfg, T, 1.0)
+    _, _, top_e = pmoe.route(params, cfg, xf)
+    flat_e = top_e.reshape(T * K)
+    rank = pmoe._ranks_within_expert(flat_e, E)
+    assert int((rank >= C).sum()) > 0
+    slot = torch.where(rank < C, flat_e * C + rank, E * C)
+    tok_buf = torch.full((E * C + 1,), T, dtype=torch.long)
+    tok_buf[slot] = torch.arange(T).repeat_interleave(K)
+    g = torch.from_numpy(rng.standard_normal((E * C, 32)).astype(np.float32))
+    x1 = xf.clone().requires_grad_()
+    (got,) = torch.autograd.grad(pmoe._Dispatch.apply(x1, tok_buf[:E * C], slot, K), x1, g)
+    (again,) = torch.autograd.grad(pmoe._Dispatch.apply(x1, tok_buf[:E * C], slot, K), x1, g)
+    x2 = xf.clone().requires_grad_()
+    plain = torch.cat([x2, x2.new_zeros(1, 32)])[tok_buf[:E * C]]
+    (want,) = torch.autograd.grad(plain, x2, g)
+    assert torch.equal(pmoe._Dispatch.apply(xf, tok_buf[:E * C], slot, K), plain.detach())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, again)
+
+    # the combine: each token's k slot rows summed; its backward is the
+    # dispatch's gather, autograd's the index backward of the plain gather
+    ye = torch.from_numpy(rng.standard_normal((E * C, 32)).astype(np.float32))
+    gy = torch.from_numpy(rng.standard_normal((T, 32)).astype(np.float32))
+    y1 = ye.clone().requires_grad_()
+    out = pmoe._Combine.apply(y1, tok_buf[:E * C], slot, K)
+    (got_y,) = torch.autograd.grad(out, y1, gy)
+    y2 = ye.clone().requires_grad_()
+    plain_y = torch.cat([y2, y2.new_zeros(1, 32)])[slot].reshape(T, K, 32).sum(dim=1)
+    (want_y,) = torch.autograd.grad(plain_y, y2, gy)
+    assert torch.equal(out.detach(), plain_y.detach())
+    assert torch.equal(got_y, want_y)  # one source a kept slot, none an empty one
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_gives_the_grads_of_no_remat_on_moe(arch):
+    """Remat (every block, dense head layer included, checkpointed and run
+    again in the backward, routing and dispatch with it) gives the same
+    grads, bit for bit, and aux, as no remat."""
+    _, _, pcfg, pparams, _ = _models(arch, seed=6, q_chunk=16, kv_chunk=16)
+    rng = np.random.default_rng(15)
+    batch = {"tokens": rng.integers(0, 512, (2, 40)).astype(np.int32),
+             "labels": rng.integers(0, 512, (2, 40)).astype(np.int32)}
+    loss, want, aux = _accumulate_grads(lm_loss_fn(pcfg), pparams, batch, 1)
+    loss_r, got, aux_r = _accumulate_grads(lm_loss_fn(dataclasses.replace(pcfg, remat=True)),
+                                           pparams, batch, 1)
+    assert torch.equal(loss, loss_r) and torch.equal(aux, aux_r)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -4,7 +4,10 @@ side), AdamW on identical grads with the reference's decay rule, remat and
 remat_group, float32 microbatch accumulation, ``token_batch``,
 ``ShardedBatchIterator``, ``CheckpointManager`` (cross-loads with the
 reference's included) and ``python -m repro_torch.launch.train
---device cpu`` with a resume.
+--device cpu`` with a resume; and the same for the MoE and MLA LMs
+(deepseek-moe-16b, deepseek-v2-lite-16b at their reduced configs): the
+step, the decay rule over ``dense_blocks`` and the nested groups, AdamW
+state through ``convert`` both ways, checkpoints and the entry point.
 
 Params and AdamW state are drawn by the reference and carried across
 (``convert``); the reduced smollm config at S = 32 with q_chunk 8, so the
@@ -38,9 +41,15 @@ from repro_torch.configs import (
     REMAT_GROUP,
     get_config,
     reduced_config,
+    serving_config,
     training_config,
 )
-from repro_torch.convert import adamw_state_from_jax, transformer_from_jax, transformer_to_numpy
+from repro_torch.convert import (
+    adamw_state_from_jax,
+    transformer_from_jax,
+    transformer_to_numpy,
+    tree_to_numpy,
+)
 from repro_torch.data.pipeline import ShardedBatchIterator
 from repro_torch.data.synthetic import token_batch
 from repro_torch.kernels import ops
@@ -51,6 +60,7 @@ from repro_torch.train import optimizer as popt
 from repro_torch.train import train_step as pts
 
 ARCH = "smollm-360m"
+MOE_ARCHS = ("deepseek-moe-16b", "deepseek-v2-lite-16b")
 
 
 def _cfgs(**kw):
@@ -544,3 +554,211 @@ def test_launch_train_cpu_checkpoint_and_resume(tmp_path, capsys):
     assert resumed["losses"][3] == whole["losses"][3]
     assert all(np.isfinite(list(whole["losses"].values())))
     assert launch_train.main(common[:2] + ["--steps", "1"]) == 0
+
+
+# --------------------------------------------------------------------------
+# the MoE and MLA LMs
+
+
+def _moe_cfgs(arch, **kw):
+    jcfg = dataclasses.replace(get_arch(arch).model_config(reduced=True), **kw)
+    pcfg = dataclasses.replace(reduced_config(get_config(arch)), **kw)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(pcfg)
+    return jcfg, pcfg
+
+
+def _adamw_state_np(state):
+    """The port's AdamW state in the reference's layout (blocks stacked),
+    as its checkpoints hold it."""
+    return {"step": np.int32(int(state["step"])), "m": tree_to_numpy(state["m"]),
+            "v": tree_to_numpy(state["v"])}
+
+
+def _assert_trees_close(got_np, want, atol, what):
+    assert jax.tree.structure(got_np) == jax.tree.structure(want), what
+    for path, w in jax.tree_util.tree_flatten_with_path(want)[0]:
+        g = got_np
+        for key in path:
+            g = g[key.key]
+        np.testing.assert_allclose(g, np.asarray(w, np.float32), rtol=0, atol=atol,
+                                   err_msg=f"{what} {jax.tree_util.keystr(path)}")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_mla_training_configs_match_reference(arch):
+    """``training_config`` is the reference's train_4k cell config (bf16,
+    remat, q_chunk 1024, kv_chunk 2048), the arch's microbatches and remat
+    group are the reference's, and serving keeps capacity factor 1.25."""
+    ref_arch = get_arch(arch)
+    cfg = get_config(arch)
+    assert (NUM_MICRO[arch], REMAT_GROUP[arch]) == (ref_arch.num_micro, ref_arch.remat_group)
+    want = ref_arch._dryrun_model_cfg(ref_arch.cells["train_4k"])
+    assert dataclasses.asdict(training_config(cfg)) == dataclasses.asdict(want)
+    assert training_config(cfg).moe.capacity_factor == 1.25
+    assert serving_config(cfg, "prefill").moe.capacity_factor == 1.25
+
+
+@pytest.mark.parametrize("num_micro", [1, 2])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_mla_train_step_matches_reference(arch, num_micro):
+    """Two steps of ``make_train_step(lm_loss_fn(cfg), ...)`` on the reduced
+    DeepSeek configs (q_chunk 16: K3's path, MLA at q . k 24 and v 16)
+    against the reference's jitted step from the same params and state:
+    loss, aux, grad_norm and lr rtol 1e-5; after the first step and after
+    the second, params and both moments within 1e-5 (lr 3e-4, as the dense
+    LM's test)."""
+    jcfg, pcfg = _moe_cfgs(arch, q_chunk=16, kv_chunk=16)
+    jparams = jtf.init(jax.random.PRNGKey(3), jcfg)
+    opt_cfg = jopt.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    jstate = jopt.init_state(jparams)
+    pparams = transformer_from_jax(pcfg, _np(jparams), device="cpu")
+    pstate = adamw_state_from_jax(pcfg, jax.tree.map(np.asarray, jstate), device="cpu")
+    jstep = jax.jit(jts.make_train_step(jts.lm_loss_fn(jcfg), opt_cfg, num_micro=num_micro))
+    pstep = pts.make_train_step(pts.lm_loss_fn(pcfg),
+                                popt.AdamWConfig(**dataclasses.asdict(opt_cfg)),
+                                num_micro=num_micro)
+    for s in range(2):
+        batch = _batch(seed=20 + s)
+        jparams, jstate, jm = jstep(jparams, jstate, jax.tree.map(jnp.asarray, batch))
+        pparams, pstate, pm = pstep(pparams, pstate, batch)
+        for key in ("loss", "aux_loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(pm[key]), float(jm[key]), rtol=1e-5, err_msg=key)
+        assert float(pm["aux_loss"]) > 0
+        assert int(pstate["step"]) == int(jstate["step"]) == s + 1
+        _assert_trees_close(transformer_to_numpy(pparams), jparams, 1e-5, f"step {s + 1} params")
+        got = _adamw_state_np(pstate)
+        for key in ("m", "v"):
+            _assert_trees_close(got[key], jstate[key], 1e-5, f"step {s + 1} {key}")
+
+
+def _ref_names(tree):
+    """(port name, reference leaf) for every leaf of the reference's tree,
+    each stacked block leaf once per layer (``blocks/1/attn/kv_norm/scale``)."""
+    for path, a in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        keys = [k.key for k in path]
+        if keys[0] in ("blocks", "dense_blocks"):
+            for l in range(a.shape[0]):
+                yield "/".join([keys[0], str(l)] + keys[1:]), a
+        else:
+            yield "/".join(keys), a
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_decay_mask_is_the_references_on_every_leaf(arch):
+    """Every leaf of both trees, ``dense_blocks`` and the nested ``kv_norm``
+    and ``shared`` groups included: the port's ``default_decay_mask`` is
+    the reference's ``leaf.ndim >= 2`` on the reference's own (stacked)
+    shapes.  Then a zero-grad step decays the dense head layer's norms."""
+    jcfg, pcfg = _moe_cfgs(arch)
+    ref = jtf.init(jax.random.PRNGKey(0), jcfg)
+    params = tf.init(pcfg, seed=0, device="cpu")
+    ours = dict(flatten(tf.param_tree(params)))
+    want = dict(_ref_names(ref))
+    assert set(ours) == set(want)
+    nested = [n for n in ours if "/kv_norm/" in n or "/shared/" in n]
+    assert nested and any(n.startswith("dense_blocks/0/") for n in ours)
+    for name, leaf in ours.items():
+        assert popt.default_decay_mask(name, leaf) == (want[name].ndim >= 2), name
+    grads = popt.init_state(params)["m"]  # zeros of the params' tree
+    before = {n: t.clone() for n, t in ours.items()}
+    popt.adamw_update(popt.AdamWConfig(lr=1e-2, warmup_steps=0, weight_decay=0.1), params,
+                      grads, popt.init_state(params))
+    after = dict(flatten(tf.param_tree(params)))
+    for name in ("dense_blocks/0/attn_norm/scale", "dense_blocks/0/mlp_norm/scale",
+                 "blocks/0/attn_norm/scale"):
+        np.testing.assert_allclose(after[name].numpy(), (before[name] * (1 - 1e-3)).numpy(),
+                                   rtol=1e-6, err_msg=name)
+    assert torch.equal(after["final_norm/scale"], before["final_norm/scale"])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_mla_adamw_state_round_trips_through_convert(arch):
+    """The reference's AdamW state (random moments, step 7) into the port's
+    layout and back: the same tree and the same arrays; the port's moments
+    follow its param tree leaf for leaf."""
+    jcfg, pcfg = _moe_cfgs(arch)
+    rng = np.random.default_rng(4)
+    params = jax.tree.map(np.asarray, jtf.init(jax.random.PRNGKey(1), jcfg))
+    state = {"step": np.int32(7),
+             "m": jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32), params),
+             "v": jax.tree.map(lambda a: rng.random(a.shape).astype(np.float32), params)}
+    pstate = adamw_state_from_jax(pcfg, state, device="cpu")
+    pparams = transformer_from_jax(pcfg, params, device="cpu")
+    names = [n for n, _ in flatten(tf.param_tree(pparams))]
+    for key in ("m", "v"):
+        assert [n for n, _ in flatten(pstate[key])] == names
+        assert all(t.dtype == torch.float32 for t in leaves(pstate[key]))
+    back = _adamw_state_np(pstate)
+    assert int(back["step"]) == 7 and back["step"].dtype == np.int32
+    for key in ("m", "v"):
+        assert jax.tree.structure(back[key]) == jax.tree.structure(state[key])
+        jax.tree.map(np.testing.assert_array_equal, back[key], state[key])
+
+
+def test_moe_train_state_checkpoint_cross_loads_with_reference(tmp_path):
+    """deepseek-moe-16b's train state after one step, in the reference's
+    layout: the reference's checkpoint restores in the port (through
+    ``convert`` into a port state equal to the one the port's own step
+    made), and the port's (``transformer_to_numpy`` / ``tree_to_numpy``)
+    restores in the reference, array-equal, with the same manifest names.
+    The port's own layout (``param_tree``, per-layer blocks) restores bit
+    for bit."""
+    jcfg, pcfg = _moe_cfgs("deepseek-moe-16b")
+    jparams = jtf.init(jax.random.PRNGKey(2), jcfg)
+    opt_cfg = jopt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    jstate = jopt.init_state(jparams)
+    pparams = transformer_from_jax(pcfg, _np(jparams), device="cpu")
+    pstate = adamw_state_from_jax(pcfg, jax.tree.map(np.asarray, jstate), device="cpu")
+    batch = _batch(seed=30)
+    jparams, jstate, _ = jax.jit(jts.make_train_step(jts.lm_loss_fn(jcfg), opt_cfg))(
+        jparams, jstate, jax.tree.map(jnp.asarray, batch))
+    pparams, pstate, _ = pts.make_train_step(
+        pts.lm_loss_fn(pcfg), popt.AdamWConfig(**dataclasses.asdict(opt_cfg)))(
+        pparams, pstate, batch)
+    ours = {"p": transformer_to_numpy(pparams), "o": _adamw_state_np(pstate)}
+
+    jckpt.CheckpointManager(str(tmp_path / "ref")).save(1, {"p": jparams, "o": jstate})
+    got, _ = pckpt.CheckpointManager(str(tmp_path / "ref")).restore(1, ours)
+    jax.tree.map(np.testing.assert_array_equal, got["p"], jax.tree.map(np.asarray, jparams))
+    restored = adamw_state_from_jax(pcfg, got["o"], device="cpu")
+    assert int(restored["step"]) == 1
+    for key in ("m", "v"):
+        _assert_trees_close(_adamw_state_np(restored)[key], ours["o"][key], 1e-5, key)
+
+    pckpt.CheckpointManager(str(tmp_path / "port")).save(1, ours)
+    back, _ = jckpt.CheckpointManager(str(tmp_path / "port")).restore(1, {"p": jparams,
+                                                                         "o": jstate})
+    jax.tree.map(np.testing.assert_array_equal, back["p"], ours["p"])
+    jax.tree.map(np.testing.assert_array_equal, back["o"], ours["o"])
+    names = [[a["name"] for a in json.load(open(tmp_path / d / "step_0000000001" /
+                                                "manifest.json"))["arrays"]]
+             for d in ("ref", "port")]
+    assert names[0] == names[1] and "p/dense_blocks/mlp/w_up" in names[0]
+    assert "o/m/blocks/moe/shared/w_gate" in names[0]
+
+    tree = {"p": tf.param_tree(pparams), "o": pstate}
+    pckpt.CheckpointManager(str(tmp_path / "own")).save(1, tree)
+    fresh = tf.init(pcfg, seed=5, device="cpu")
+    own, _ = pckpt.CheckpointManager(str(tmp_path / "own")).restore(
+        1, {"p": tf.param_tree(fresh), "o": popt.init_state(fresh)})
+    assert _equal(own, tree)
+
+
+def test_launch_train_moe_mla_cpu_checkpoint_and_resume(tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch deepseek-v2-lite-16b``
+    (the reduced config) on the CPU, 4 steps in 2 microbatches with a
+    checkpoint at step 2, then ``--resume``: the resumed step's loss equals
+    the uninterrupted run's (the rule ROADMAP §3 documents: resume at the
+    step after the saved one)."""
+    common = ["--arch", "deepseek-v2-lite-16b", "--device", "cpu", "--steps", "4", "--batch",
+              "4", "--seq", "16", "--num-micro", "2", "--log-every", "1"]
+    whole = launch_train.train(launch_train.parse_args(common))
+    ckpt = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    first = launch_train.train(launch_train.parse_args(common + ckpt))
+    assert pckpt.CheckpointManager(str(tmp_path)).steps() == [2]
+    resumed = launch_train.train(launch_train.parse_args(common + ckpt + ["--resume"]))
+    out = capsys.readouterr().out
+    assert "arch=deepseek-v2-lite-16b" in out and "resumed from step 2" in out
+    assert first["losses"] == whole["losses"]
+    assert resumed["start_step"] == 3 and resumed["losses"][3] == whole["losses"][3]
+    assert all(np.isfinite(list(whole["losses"].values())))

@@ -2,19 +2,21 @@
 """Where a training step's time goes on one CUDA card: ``chip_smoke.py``
 phase 6b's step (smollm-360m at full width and depth under
 ``training_config``: bf16, remat, q_chunk 1024; S 4096, 16 sequences in 4
-microbatches) under ``torch.profiler``.
+microbatches) under ``torch.profiler``; with ``--arch deepseek-moe-16b
+--layers 4`` (or deepseek-v2-lite-16b), phase 6d's step.
 
-    python3 tools/train_profile.py [--steps 2] [--top 25]
+    python3 tools/train_profile.py [--arch smollm-360m] [--layers 0] [--steps 2] [--top 25]
 
 After two warm-up steps it profiles ``--steps`` steps and prints, as JSON:
 the step's wall time (CUDA events), the device time summed over kernels
-by group (K3 forward, K3-bwd, cuBLAS GEMMs, reductions and elementwise
-kernels, copies), the device busy share of the profiled window (kernel
+by group (K3 forward, K3-bwd, cuBLAS GEMMs, gathers, scatters and sorts,
+reductions and elementwise kernels, copies), the device busy share of the profiled window (kernel
 time over wall time, an upper bound since kernels may overlap), the top
 kernels by device time, and the card's name and power limit.
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,6 +39,7 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("K3", ("flash_fwd",)),
     ("gemm", ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet")),
     ("copy", ("copy", "Memcpy", "Memset")),
+    ("gather / scatter / sort", ("index", "gather", "scatter", "Sort", "sort", "radix")),
     ("reduce", ("reduce", "Reduce", "softmax", "logsumexp")),
 )
 
@@ -50,6 +53,8 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="smollm-360m")
+    p.add_argument("--layers", type=int, default=0, help="cut the depth to this (0: the arch's)")
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--top", type=int, default=25)
     args = p.parse_args()
@@ -59,7 +64,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     _build.build_all(("flash_attention.cu", "flash_attention_bwd.cu"))
-    cfg = training_config(get_config("smollm-360m"))
+    cfg = training_config(get_config(args.arch))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = tf.init(cfg, seed=0)
     state = init_state(params)
     step = make_train_step(lm_loss_fn(cfg), AdamWConfig(lr=1e-3, warmup_steps=2,
@@ -91,7 +98,8 @@ def main() -> int:
     step_ms = 1e3 * wall_s / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:args.top]
     print(json.dumps({
-        "card": smi, "steps": args.steps, "step_ms_profiled": step_ms,
+        "card": smi, "arch": args.arch, "n_layers": cfg.n_layers, "steps": args.steps,
+        "step_ms_profiled": step_ms,
         "device_ms_per_step": busy_ms, "busy_share": busy_ms / step_ms,
         "device_ms_per_step_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:120], "ms_per_step": us / 1e3 / args.steps,
