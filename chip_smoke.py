@@ -155,7 +155,9 @@ Phases, each printed as JSON records; any failure exits non-zero:
    and by the host clock (to the ids on the host), one K1 launch each; the
    user tower and projection alone (p50 over 50 calls); and K1 alone at
    (1 x 1,000,448 x 50, k 100 -> 128, ip) against its plain version, its
-   bound and ``torch.topk(q @ x.T)``.  Then (f)
+   bound and ``torch.topk(q @ x.T)``.  (c) also runs one step twice from
+   one saved state: params and moments bit-equal (the lookups' backward
+   sums in a fixed order, ``models.segment``).  Then (f)
    ``examples/recsys_retrieval_torch.py`` on the card: its R@50.
 5. LM prefill at the reference's prefill_32k shape: smollm-360m at full
    width and depth, ``serving_config(..., "prefill")`` (bf16, q_chunk 1024),
@@ -234,16 +236,45 @@ Phases, each printed as JSON records; any failure exits non-zero:
    largest entry, grad norm within 1e-4 relative.  Then K3 / plain / SDPA
    at the step's shape and the check's, and K3-bwd at the check's
    (float32).  No checkpoint of the full-width state is written (~23 GB).
-7. the HNSW beam under ``torch.profiler``, last (a profiler session slows
-   the rest of the process's kernel launches): one batch of 3c and one of
-   3d, each on an index carrying 3c's graphs again — kernel launches,
-   device busy time and idle share, the top kernels by device time.
+6e. GNN training: DimeNet at full published width (6 blocks, d_hidden
+   128, 8 bilinear, 7 spherical, 6 radial) under the GNN cells' config
+   (bf16 params; every product after the embedding promotes to float32,
+   as in the reference), params from a seeded ``torch.Generator`` on the
+   card, ``make_train_step(dimenet_loss_fn(cfg), AdamWConfig(lr=1e-3,
+   warmup_steps=2, total_steps=20))`` on one seeded batch, repeated, in
+   three cells: (a) molecule, ``random_molecule_batch(128, 30, 64)``, each
+   molecule's first 256 triplets, graph targets; (b) full_graph_sm,
+   ``power_law_graph(2708, 10556, d_feat=1433)``, triplets capped at 8 an
+   edge and padded to 84,448, node targets and ``node_mask``; (c) one
+   minibatch_lg lane: ``power_law_graph(232965, 114615892)`` ->
+   ``CSRGraph``, ``sample_subgraph`` of 1,024 seeded seeds at fanout (15,
+   10) into 16,384 nodes and edges, ``build_triplets(max_triplets=32768)``,
+   z per global node, one graph target (the graph's host seconds by stage
+   apart from the step's).  Each: nodes, edges, real triplets, a warm-up
+   step, then 5 timed steps (CUDA events): step p50, peak device bytes,
+   losses and grad norms (finite losses, one of them below step 1's unless
+   every grad norm overflowed float32, which zeroes the clipped update, as
+   in the reference, on molecules at init).  Each also runs two steps twice
+   from one saved state (params and moments bit-equal), and one step's
+   grads at full width in float32 on the card and on the CPU from the same
+   params: for (a) and (b) loss within 1e-5 relative, each grad within
+   1e-3 of the CPU's largest, the grad norm (summed in float64) within
+   1e-4 relative; for (c) the same numbers, recorded.  No kernel of the kernel
+   layer launches in 6e (checked).  After phase 7, one step of each cell
+   under ``torch.profiler``: kernel launches a step, device busy and idle
+   share, the top kernels.
+7. the HNSW beam under ``torch.profiler``, last but 6e's launch count (a
+   profiler session slows the rest of the process's kernel launches): one
+   batch of 3c and one of 3d, each on an index carrying 3c's graphs again —
+   kernel launches, device busy time and idle share, the top kernels by
+   device time.
 8. the kernels line: launches on the main path (K1: phases 3, 3c's ground
    truth, 3e, 3f, 4 and 3g; K2: 3b and 4b; K3: 5, 6, 6b's and 6d's forward
    launches and 6c; K3-bwd: 6b's and 6d's steps and their card-vs-CPU
-   checks; the HNSW beam
-   is torch ops and launches none of them), max error, kernel / plain /
-   library times at a main-path shape, and each bound; K1, K3 and K3-bwd
+   checks; the HNSW beam and DimeNet's training (6e) are torch ops and
+   launch none of them, which the line's ``not_launched_by`` says), max
+   error, kernel / plain / library times at a main-path shape, and each
+   bound; K1, K3 and K3-bwd
    also by shape (``instances``: K1's scan phases at the paper partition
    and 3g at the retrieval_cand shape; K3's bf16 32k prefill, each float32
    bucket, the bf16 training step, 6c's two 32k prefills, its engine
@@ -1835,6 +1866,13 @@ def event_ms(fn, n: int) -> np.ndarray:
     return np.asarray(out)
 
 
+def clone_tree(tree):
+    """A copy of a tree of tensors (params, or AdamW state), leaf for leaf."""
+    from repro_torch.common.tree import leaves, unflatten
+
+    return unflatten(tree, [t.detach().clone() for t in leaves(tree)])
+
+
 def phase_recsys(n_cand: int = 1_000_000, serve_batch: int = 512, train_batch: int = 8192,
                  cpu_rows: int = 64, requests: int = 200) -> dict:
     """3g: the recsys family at full published width, and its retrieval_cand
@@ -1842,7 +1880,7 @@ def phase_recsys(n_cand: int = 1_000_000, serve_batch: int = 512, train_batch: i
     import dataclasses
     import runpy
 
-    from repro_torch.common.tree import flatten, unflatten
+    from repro_torch.common.tree import flatten, leaves, unflatten
     from repro_torch.configs import EMBED_DIM_RETRIEVAL, RECSYS_ARCH_IDS, RECSYS_CELLS, get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.models import recsys as rs
@@ -1973,10 +2011,21 @@ def phase_recsys(n_cand: int = 1_000_000, serve_batch: int = 512, train_batch: i
         peak = torch.cuda.max_memory_allocated()
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise AssertionError(f"3g {arch}: training losses {losses}")
+        # run-to-run bits: one step twice from one saved state
+        saved = clone_tree(p16), clone_tree(opt_state)
+        runs = []
+        for _ in range(2):
+            p, s, _ = step_fn(clone_tree(saved[0]), clone_tree(saved[1]), train)
+            runs.append(leaves(p) + leaves(s["m"]) + leaves(s["v"]))
+        differ = sum(not torch.equal(a, b) for a, b in zip(*runs))
+        del saved, runs, p, s
+        if differ:
+            raise AssertionError(f"3g {arch}: {differ} tensors differ between two steps from "
+                                 "one state")
         rec["train"] = {"batch": train_batch, "dtype": "bfloat16 params, float32 moments",
                         "losses": losses, "step_ms": step_ms.tolist(),
                         "step_p50_ms": float(np.percentile(step_ms, 50)),
-                        "peak_device_bytes": peak}
+                        "peak_device_bytes": peak, "repeat_step_bit_equal": True}
         rec["seconds"] = time.perf_counter() - t_arch
         emit({"phase": "recsys", "arch": arch, **rec})
         archs[arch] = rec
@@ -3280,6 +3329,271 @@ def phase_moe_mla_training(archs=("deepseek-moe-16b", "deepseek-v2-lite-16b"), S
     return out
 
 
+
+def gnn_molecule_cell(B: int = 128, n: int = 30, E: int = 64, t_max: int = 256) -> dict:
+    """6e (a): ``random_molecule_batch(B, n, E)``, each molecule's first
+    t_max triplets (``GNNArch.smoke``'s cut), -1 padded; graph targets."""
+    from repro_torch.data.synthetic import random_molecule_batch
+    from repro_torch.models.dimenet import build_triplets
+
+    t0 = time.perf_counter()
+    mols = random_molecule_batch(B, n, E, seed=0)
+    t_in, t_out = np.full((B, t_max), -1, np.int32), np.full((B, t_max), -1, np.int32)
+    found = []
+    for b in range(B):
+        ti, to = build_triplets(mols["edge_index"][b], n)
+        found.append(len(ti))
+        t_in[b, :min(t_max, len(ti))], t_out[b, :min(t_max, len(to))] = ti[:t_max], to[:t_max]
+    batch = {"positions": mols["positions"], "edge_index": mols["edge_index"], "t_in": t_in,
+             "t_out": t_out, "z": mols["z"], "y": mols["y"]}
+    return {"batch": batch, "host_s": time.perf_counter() - t0,
+            "info": {"graphs": B, "nodes": B * n,
+                     "edges": int((mols["edge_index"][:, 0] >= 0).sum()),
+                     "triplets": int((t_in >= 0).sum()), "t_max": t_max,
+                     "triplets_a_molecule": [min(found), max(found)],
+                     "molecules_cut_at_t_max": int(sum(f > t_max for f in found))}}
+
+
+def gnn_full_graph_cell(n: int = 2708, E: int = 10556, d_feat: int = 1433,
+                        cap: int = 8) -> dict:
+    """6e (b): ``power_law_graph(n, E, d_feat)`` (Cora's sizes), triplets
+    capped at ``cap`` an edge and padded to E x cap; node targets, every node
+    in ``node_mask`` (the graph has no padding)."""
+    from repro_torch.data.synthetic import power_law_graph
+    from repro_torch.models.dimenet import build_triplets
+
+    t0 = time.perf_counter()
+    g = power_law_graph(n, E, d_feat=d_feat, seed=0)
+    ti, to = build_triplets(g["edge_index"], n, max_in_per_edge=cap)
+    T = E * cap
+    t_in, t_out = np.full(T, -1, np.int32), np.full(T, -1, np.int32)
+    t_in[:len(ti)], t_out[:len(to)] = ti, to
+    y = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    batch = {"positions": g["positions"], "edge_index": g["edge_index"], "t_in": t_in,
+             "t_out": t_out, "features": g["features"], "node_mask": np.ones(n, bool), "y": y}
+    return {"batch": batch, "host_s": time.perf_counter() - t0,
+            "info": {"nodes": n, "edges": E, "d_feat": d_feat, "triplets": len(ti),
+                     "t_padded": T, "triplet_cap": cap}}
+
+
+def gnn_minibatch_lane(n: int = 232_965, E: int = 114_615_892, batch_nodes: int = 1024,
+                       fanout=(15, 10), n_max: int = 16_384, e_max: int = 16_384,
+                       t_max: int = 32_768) -> dict:
+    """6e (c): one minibatch_lg lane (``families.py``'s layout): the Reddit-
+    sized ``power_law_graph`` -> ``CSRGraph``; ``sample_subgraph`` of
+    ``batch_nodes`` seeded seeds at ``fanout`` into n_max / e_max;
+    ``build_triplets(max_triplets=t_max)``, -1 padded; z drawn per global
+    node in [1, 10); one graph target.  Host seconds by stage."""
+    from repro_torch.data.sampler import CSRGraph, sample_subgraph
+    from repro_torch.data.synthetic import power_law_graph
+    from repro_torch.models.dimenet import build_triplets
+
+    secs = {}
+    t0 = time.perf_counter()
+    g = power_law_graph(n, E, seed=0)
+    secs["power_law_graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = CSRGraph.from_edge_index(g.pop("edge_index"), n)
+    secs["csr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2)
+    z_global = rng.integers(1, 10, n).astype(np.int32)
+    seeds = rng.choice(n, batch_nodes, replace=False)
+    sub = sample_subgraph(csr, seeds, tuple(fanout), rng=rng, n_max=n_max, e_max=e_max)
+    secs["sample_subgraph"] = time.perf_counter() - t0
+    max_degree = int(np.diff(csr.indptr).max())
+    del csr
+    t0 = time.perf_counter()
+    ti, to = build_triplets(sub["edge_index"], n_max, max_triplets=t_max)
+    secs["build_triplets"] = time.perf_counter() - t0
+    nodes = sub["nodes"]
+    real = nodes >= 0
+    t_in, t_out = np.full(t_max, -1, np.int32), np.full(t_max, -1, np.int32)
+    t_in[:len(ti)], t_out[:len(to)] = ti, to
+    batch = {"positions": np.where(real[:, None], g["positions"][nodes.clip(0)], 0)[None],
+             "edge_index": sub["edge_index"][None], "t_in": t_in[None], "t_out": t_out[None],
+             "z": np.where(real, z_global[nodes.clip(0)], -1).astype(np.int32)[None],
+             "y": rng.standard_normal(1).astype(np.float32)}
+    return {"batch": batch, "host_s": sum(secs.values()), "host_s_by_stage": secs,
+            "info": {"graph_nodes": n, "graph_edges": E, "graph_max_out_degree": max_degree,
+                     "seeds": batch_nodes, "fanout": list(fanout), "nodes": int(real.sum()),
+                     "edges": int((sub["edge_index"][0] >= 0).sum()), "triplets": len(ti),
+                     "n_max": n_max, "e_max": e_max, "t_max": t_max}}
+
+
+def gnn_train_cell(cfg, batch: dict, steps: int) -> dict:
+    """6e: ``make_train_step(dimenet_loss_fn(cfg), AdamWConfig(lr=1e-3,
+    warmup_steps=2, total_steps=20))`` from seeded params on the card, one
+    batch repeated: a warm-up step, then ``steps`` timed steps (CUDA
+    events), peak device bytes, losses finite and falling."""
+    from repro_torch.common.tree import leaves
+    from repro_torch.models import dimenet
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import dimenet_loss_fn, make_train_step
+
+    params = dimenet.init(cfg, seed=0, device="cuda")
+    opt_state = init_state(params)
+    step_fn = make_train_step(dimenet_loss_fn(cfg), AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                                total_steps=20))
+    card = to_card(batch)
+    losses, norms = [], []
+
+    def step():
+        nonlocal params, opt_state
+        params, opt_state, m = step_fn(params, opt_state, card)
+        losses.append(float(m["loss"]))  # waits for the step
+        norms.append(float(m["grad_norm"]))
+
+    step()  # warm-up: step 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = event_ms(step, steps)
+    peak = torch.cuda.max_memory_allocated()
+    # At init the losses are 1e10-1e32 (in the reference too) and the first
+    # steps swing by orders of magnitude, the reference's as well, so the
+    # last loss need not be the lowest: the loss must fall below step 1's at
+    # some step.  An inf grad norm (its float32
+    # sum of squares overflows, as the reference's does on molecules) makes
+    # the clip zero every grad: the step is weight decay alone, below a bf16
+    # param's rounding, and the loss cannot move; that passes only when
+    # every norm is inf.
+    clipped_to_zero = not any(np.isfinite(norms))
+    if not (all(np.isfinite(losses)) and (min(losses[1:]) < losses[0] or clipped_to_zero)):
+        raise AssertionError(f"6e: losses {losses}, grad norms {norms}")
+    record = {"losses": losses, "grad_norms": norms, "update_clipped_to_zero": clipped_to_zero,
+              "step_ms": ms.tolist(),
+              "step_p50_ms": float(np.median(ms)),
+              "peak_device_bytes": peak, "params": sum(t.numel() for t in leaves(params)),
+              "param_bytes": sum(t.numel() * t.element_size() for t in leaves(params))}
+    return {"record": record, "step_fn": step_fn, "params": params, "opt_state": opt_state,
+            "batch": card}
+
+
+def gnn_repeat_bits(cell: dict, steps: int = 2) -> dict:
+    """6e: ``steps`` steps run twice from one saved state: params and AdamW
+    moments must be the same bits."""
+    from repro_torch.common.tree import leaves
+
+    saved_p, saved_s = clone_tree(cell["params"]), clone_tree(cell["opt_state"])
+    runs = []
+    for _ in range(2):
+        p, s = clone_tree(saved_p), clone_tree(saved_s)
+        for _ in range(steps):
+            p, s, m = cell["step_fn"](p, s, cell["batch"])
+        runs.append((leaves(p) + leaves(s["m"]) + leaves(s["v"]), float(m["loss"])))
+    differ = sum(not torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    if differ or runs[0][1] != runs[1][1]:
+        raise AssertionError(f"6e: {differ} tensors differ between two runs from one state")
+    return {"steps": steps, "tensors": len(runs[0][0]), "bit_equal": True, "loss": runs[0][1]}
+
+
+def gnn_card_vs_cpu(cfg, batch: dict) -> dict:
+    """6e: the grads of one step at full width in float32, seeded params on
+    the card and the same params on the CPU; ``within_limits``: loss within
+    1e-5 relative, each grad within 1e-3 of the CPU's largest entry, the
+    grad norm within 1e-4 relative.  The norm is summed in float64: at init the molecule
+    cell's float32 norm overflows to inf (in the reference too), where
+    inf - inf would compare nothing; the float32 norms are recorded."""
+    import dataclasses
+
+    from repro_torch.common.tree import leaves, unflatten
+    from repro_torch.models import dimenet
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import _accumulate_grads, dimenet_loss_fn
+
+    def norm64(grads):
+        return float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads)))
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    gpu = dimenet.init(cfg32, seed=1, device="cuda")
+    cpu = unflatten(gpu, [t.cpu() for t in leaves(gpu)])
+    out, secs = {}, {}
+    for name, params in (("cuda", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        loss, grads, _ = _accumulate_grads(dimenet_loss_fn(cfg32), params, batch, 1)
+        out[name] = (float(loss), [g.cpu() for g in grads], norm64(grads),
+                     float(global_norm(grads)))
+        secs[name] = time.perf_counter() - t0
+    (lg, gg, ng, fg), (lc, gc_, nc, fc) = out["cuda"], out["cpu"]
+    grad_err = max(float((g - c).abs().max()) / float(c.abs().max()) for g, c in zip(gg, gc_))
+    record = {"dtype": "float32", "loss_cuda": lg, "loss_cpu": lc,
+              "loss_rel_err": abs(lg - lc) / abs(lc), "grad_max_rel_err": grad_err,
+              "grad_norm_cuda": ng, "grad_norm_cpu": nc, "grad_norm_rel_err": abs(ng - nc) / nc,
+              "grad_norm_float32_cuda": fg, "grad_norm_float32_cpu": fc, "seconds": secs}
+    record["within_limits"] = (record["loss_rel_err"] <= 1e-5 and grad_err <= 1e-3
+                               and record["grad_norm_rel_err"] <= 1e-4)
+    return record
+
+
+def phase_gnn_training(steps: int = 5, cells=None) -> dict:
+    """6e: DimeNet trained at full published width in three of the GNN
+    cells (see the module docstring).  Returns each cell's step for the
+    launch count taken after phase 7 (``phase_gnn_profile``)."""
+    from repro_torch.configs import get_config, gnn_cell_config
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    base = get_config("dimenet")
+    makers = cells or {"molecule": gnn_molecule_cell, "full_graph_sm": gnn_full_graph_cell,
+                       "minibatch_lg": gnn_minibatch_lane}
+    out = {}
+    for name, make in makers.items():
+        t_cell = time.perf_counter()
+        data = make()
+        cfg = gnn_cell_config(base, name)
+        cell = gnn_train_cell(cfg, data["batch"], steps)
+        rec = {"phase": "gnn_training", "cell": name, "arch": "dimenet",
+               "config": {"n_blocks": cfg.n_blocks, "d_hidden": cfg.d_hidden,
+                          "n_bilinear": cfg.n_bilinear, "n_spherical": cfg.n_spherical,
+                          "n_radial": cfg.n_radial, "d_node_feat": cfg.d_node_feat,
+                          "param_dtype": cfg.param_dtype, "compute": "float32 (promoted)"},
+               **data["info"], "host_s": data["host_s"], "timed_steps": steps,
+               "optimizer": {"lr": 1e-3, "warmup_steps": 2, "total_steps": 20},
+               **cell["record"]}
+        if "host_s_by_stage" in data:
+            rec["host_s_by_stage"] = data["host_s_by_stage"]
+        rec["repeat_bits"] = gnn_repeat_bits(cell)
+        rec["card_vs_cpu"] = gnn_card_vs_cpu(cfg, data["batch"])
+        # held to the limits in (a) and (b); the lane's recorded: its loss is
+        # one sum over 16,384 node outputs (3.6e-5 relative on an H100)
+        if name != "minibatch_lg" and not rec["card_vs_cpu"]["within_limits"]:
+            raise AssertionError(f"6e {name} card vs CPU: {rec['card_vs_cpu']}")
+        rec["seconds"] = time.perf_counter() - t_cell
+        emit(rec)
+        out[name] = cell
+        del data
+        gc.collect()
+    launched = dict(ops.KERNEL_LAUNCHES)
+    if any(launched.values()):
+        raise AssertionError(f"6e launched a kernel of the port's kernel layer: {launched}")
+    emit({"phase": "gnn_training_summary", "cells": list(out), "kernel_layer_launches": launched,
+          "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def phase_gnn_profile(cells: dict) -> dict:
+    """6e's launch count, after phase 7: one step of each cell under
+    ``torch.profiler`` (kernel launches, device busy and idle share, the
+    top kernels).  The cells are freed."""
+    out = {}
+    for name in list(cells):
+        cell = cells.pop(name)
+        state = {"p": cell["params"], "s": cell["opt_state"]}
+
+        def one_step():
+            state["p"], state["s"], m = cell["step_fn"](state["p"], state["s"], cell["batch"])
+            float(m["loss"])
+
+        out[name] = device_profile(one_step)
+        del cell, state
+    emit({"phase": "gnn_profile", "steps_profiled": 1, **out})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3325,8 +3639,10 @@ def main() -> int:
     train = timed("6b", phase_train_step)
     moe_mla = timed("6c", phase_moe_mla_serving)
     moe_train = timed("6d", phase_moe_mla_training)
+    gnn = timed("6e", phase_gnn_training)
     timed("7", phase_beam_profile, hnsw_state, profile_batch)
     del hnsw_state
+    timed("6e profile", phase_gnn_profile, gnn)
     k1_scan_launches = (paper["launches"] + paper_hnsw["launches"] + persist["launches"]
                         + serve_step["launches"] + deploy["launches"])
     k1_launches = k1_scan_launches + recsys["launches"]
@@ -3391,7 +3707,7 @@ def main() -> int:
          "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
          "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
          "instances": k3_bwd_instances},
-    ]})
+    ], "not_launched_by": {"3c/3d HNSW beam": "torch ops", "6e DimeNet training": "torch ops"}})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

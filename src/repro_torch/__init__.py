@@ -29,8 +29,10 @@ retrieval_cand cell (``serve/recsys.py``: user tower, projection, K1 over
 the candidate corpus); and the MoE and MLA LMs, deepseek-moe-16b and
 deepseek-v2-lite-16b (``models/moe.py``, ``layers.mla_apply``), served
 through ``ServeEngine`` with K3 in every prefill layer (MLA's q . k head
-dim 192 with v's 128 included).
+dim 192 with v's 128 included) and trained with K3-bwd; and the GNN
+family, DimeNet (``models/dimenet.py``, ``data/sampler.py``), trained
+with fixed-order gathers and segment sums (``models/segment.py``).
 
-Not ported: training the MoE / MLA LMs, the sharded LM cells, the GNN
-family, and the static analyzers (ROADMAP "Modules to port").
+Not ported: the sharded cells, their sharding rules and the dry run
+(ROADMAP §1 item 10.4), and the static checkers (item 10.6).
 """

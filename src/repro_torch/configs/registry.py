@@ -1,7 +1,6 @@
 """The architectures the port runs, with their published configs.
 
-A copy of the LM and recsys entries of ``repro.configs.registry`` (sources
-as there):
+A copy of the entries of ``repro.configs.registry`` (sources as there):
 
   codeqwen1.5-7b        [hf:Qwen/CodeQwen1.5-7B]
   qwen2-72b             [arXiv:2407.10671]
@@ -12,19 +11,22 @@ as there):
   din                   [arXiv:1706.06978]
   sasrec                [arXiv:1808.09781]
   xdeepfm               [arXiv:1803.05170]
+  dimenet               [arXiv:2003.03123]
 
 with the reference's cell overrides (``serving_config``,
-``training_config``), its reduced configs (``reduced_config``,
-``reduced_recsys_config``), and the recsys cells' batch sizes
-(``RECSYS_CELLS``) and candidate widths (``EMBED_DIM_RETRIEVAL``).  The
-reference's GNN arch (dimenet) and ``configs/families.py`` are not ported
-yet (ROADMAP §1 items 10.4, 10.5).
+``training_config``, ``gnn_cell_config``), its reduced configs
+(``reduced_config``, ``reduced_recsys_config``, ``reduced_gnn_config``),
+the recsys cells' batch sizes (``RECSYS_CELLS``) and candidate widths
+(``EMBED_DIM_RETRIEVAL``), and the GNN cells' shapes (``GNN_CELLS``).  Not
+ported: the cells' sharding, ``build_cell`` and the dry run of
+``configs/families.py`` (ROADMAP §1 item 10.4).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.models.dimenet import DimeNetConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.recsys import AutoIntConfig, DINConfig, SASRecConfig, XDeepFMConfig
 from repro_torch.models.transformer import TransformerConfig
@@ -82,8 +84,13 @@ _RECSYS = {
                              cin_layers=(200, 200, 200), mlp=(400, 400),
                              vocab_sizes=CRITEO39_VOCABS),
 }
+_GNN = {
+    "dimenet": DimeNetConfig(name="dimenet", n_blocks=6, d_hidden=128, n_bilinear=8,
+                             n_spherical=7, n_radial=6),
+}
 ARCH_IDS = tuple(_CONFIGS)
 RECSYS_ARCH_IDS = tuple(_RECSYS)
+GNN_ARCH_IDS = tuple(_GNN)
 #: the retrieval_cand cell's candidate width a recsys arch (the reference's
 #: ``embed_dim_retrieval or 64``)
 EMBED_DIM_RETRIEVAL = {"autoint": 64, "din": 18, "sasrec": 50, "xdeepfm": 64}
@@ -95,6 +102,20 @@ RECSYS_CELLS = {
     "serve_bulk": {"kind": "forward", "global_batch": 262_144},
     "retrieval_cand": {"kind": "retrieval", "global_batch": 1, "n_candidates": 1_000_000},
 }
+#: the reference's GNN cells (``families.py`` ``GNN_CELLS``): kind, global
+#: batch and shapes (``fanout`` the sampler's per hop; ``triplet_cap`` the
+#: cap of ``build_triplets``; ``n_loc`` / ``e_loc`` a halo partition's)
+GNN_CELLS = {
+    "full_graph_sm": {"kind": "train", "n_nodes": 2708, "n_edges": 10556, "d_feat": 1433,
+                      "triplet_cap": 8},
+    "minibatch_lg": {"kind": "train", "n_nodes": 232_965, "n_edges": 114_615_892,
+                     "batch_nodes": 1024, "fanout": (15, 10), "n_max": 16_384,
+                     "e_max": 16_384, "t_max": 32_768},
+    "ogb_products": {"kind": "train", "n_nodes": 2_449_029, "n_edges": 61_859_140,
+                     "d_feat": 100, "triplet_cap": 4, "n_loc": 16_384, "e_loc": 262_144},
+    "molecule": {"kind": "train", "global_batch": 128, "n_nodes": 30, "n_edges": 64,
+                 "t_max": 256},
+}
 #: microbatches of a training step, and the two-level remat group
 #: (``LMArch(num_micro=..., remat_group=...)`` in the reference's registry)
 NUM_MICRO = {"codeqwen1.5-7b": 4, "qwen2-72b": 16, "smollm-360m": 1, "deepseek-moe-16b": 4,
@@ -104,13 +125,13 @@ REMAT_GROUP = {"codeqwen1.5-7b": 0, "qwen2-72b": 5, "smollm-360m": 0, "deepseek-
 
 
 def get_config(arch_id: str):
-    """The published config of an LM (a ``TransformerConfig``) or a recsys
-    arch (its ``models.recsys`` config)."""
-    if arch_id in _RECSYS:
-        return _RECSYS[arch_id]
-    if arch_id not in _CONFIGS:
-        raise ValueError(f"unknown arch {arch_id!r}; the port has {ARCH_IDS + RECSYS_ARCH_IDS}")
-    return _CONFIGS[arch_id]
+    """The published config of an LM (a ``TransformerConfig``), a recsys
+    arch (its ``models.recsys`` config) or a GNN (a ``DimeNetConfig``)."""
+    for table in (_CONFIGS, _RECSYS, _GNN):
+        if arch_id in table:
+            return table[arch_id]
+    raise ValueError(f"unknown arch {arch_id!r}; the port has "
+                     f"{ARCH_IDS + RECSYS_ARCH_IDS + GNN_ARCH_IDS}")
 
 
 def serving_config(cfg: TransformerConfig, kind: str) -> TransformerConfig:
@@ -173,3 +194,19 @@ def reduced_recsys_config(cfg):
         return dataclasses.replace(cfg, vocab_sizes=(64,) * cfg.n_sparse, cin_layers=(16, 16),
                                    mlp=(32, 32), **small)
     raise TypeError(type(cfg))
+
+
+def reduced_gnn_config(cfg: DimeNetConfig) -> DimeNetConfig:
+    """The reference's reduced GNN config (``GNNArch.model_config(
+    reduced=True)``): 2 blocks, d_hidden 32, 4 bilinear, 4 spherical and 4
+    radial bases."""
+    return dataclasses.replace(cfg, n_blocks=2, d_hidden=32, n_bilinear=4, n_spherical=4,
+                               n_radial=4)
+
+
+def gnn_cell_config(cfg: DimeNetConfig, cell: str) -> DimeNetConfig:
+    """The reference's config of a GNN cell (``GNNArch._cfg_for_cell``):
+    bf16 params (the float32 inputs promote every product after the
+    embedding to float32) and the cell's node features, if it has any."""
+    return dataclasses.replace(cfg, d_node_feat=GNN_CELLS[cell].get("d_feat", 0),
+                               param_dtype="bfloat16", compute_dtype="bfloat16")

@@ -5,8 +5,8 @@ segmenter tree and per-partition corpora (and, for the HNSW engine, its
 frozen graphs) become a port ``LannsIndex`` without refitting,
 re-partitioning or rebuilding, so both packages query the same partitions;
 the JAX LM's params (and AdamW state) become the port's ``Transformer``
-(and optimizer state), and back; and a recsys model's params (and AdamW
-state), plain trees in both packages, are carried leaf for leaf.
+(and optimizer state), and back; and a recsys model's or DimeNet's params
+(and AdamW state), plain trees in both packages, are carried leaf for leaf.
 """
 
 from __future__ import annotations
@@ -192,3 +192,15 @@ def recsys_adamw_state_from_jax(state_np: dict, device=None) -> dict:
     step = torch.tensor(int(np.asarray(state_np["step"])), dtype=torch.int32, device=dev)
     return {"step": step, "m": recsys_params_from_jax(state_np["m"], device=dev),
             "v": recsys_params_from_jax(state_np["v"], device=dev)}
+
+
+def dimenet_params_from_jax(cfg, params_np, device=None):
+    """The port's DimeNet params from the reference's ``dimenet.init``
+    pytree as numpy arrays: the same tree (``blocks`` stacked over the
+    blocks in both), each leaf in ``cfg.param_dtype`` on the device.  Its
+    AdamW state carries across with :func:`recsys_adamw_state_from_jax`."""
+    return recsys_params_from_jax(params_np, dtype=cfg.dtype(), device=device)
+
+
+#: the inverse of :func:`dimenet_params_from_jax` (float32 numpy leaves)
+dimenet_params_to_numpy = recsys_params_to_numpy

@@ -1,6 +1,6 @@
-"""Deterministic synthetic ANN datasets, LM token batches and click-log
-batches, bit-identical to ``repro.data.synthetic`` for a fixed seed (numpy
-generators)."""
+"""Deterministic synthetic ANN datasets, LM token batches, graphs,
+molecules and click-log batches, bit-identical to ``repro.data.synthetic``
+for a fixed seed (numpy generators)."""
 
 from __future__ import annotations
 
@@ -54,6 +54,58 @@ def token_batch(batch: int, seq_len: int, vocab: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, size=(batch, seq_len + 1), dtype=np.int64)
     return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+
+def power_law_graph(
+    n_nodes: int,
+    n_edges: int,
+    *,
+    d_feat: int = 0,
+    seed: int = 0,
+    with_positions: bool = True,
+):
+    """Directed edge list with power-law-ish degree (sources drawn with a
+    zipf rank weight 1 / rank^0.8, destinations uniform), optional features
+    and positions.
+
+    Returns dict(edge_index (2, E) int32, positions (n, 3) float32?,
+    features (n, d_feat) float32?).  Self-loops are moved one node on;
+    parallel edges stay (as real web graphs have them).
+    """
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, n_nodes + 1, dtype=np.float64)
+    w = 1.0 / ranks**0.8
+    w /= w.sum()
+    src = rng.choice(n_nodes, size=n_edges, p=w).astype(np.int64)
+    dst = rng.integers(0, n_nodes, size=n_edges, dtype=np.int64)
+    loops = src == dst
+    dst[loops] = (dst[loops] + 1) % n_nodes
+    out = {"edge_index": np.stack([src, dst]).astype(np.int32)}
+    if with_positions:
+        out["positions"] = rng.standard_normal((n_nodes, 3)).astype(np.float32)
+    if d_feat:
+        out["features"] = rng.standard_normal((n_nodes, d_feat)).astype(np.float32)
+    return out
+
+
+def random_molecule_batch(batch: int, n_nodes: int = 30, n_edges: int = 64, seed: int = 0):
+    """Batched small molecules (the ``molecule`` cell): atom types z (B, n)
+    in [1, 10), positions (B, n, 3), the ``n_edges`` nearest ordered pairs
+    of each molecule as edges (B, 2, n_edges) (-1 padded), and a graph
+    target y (B,)."""
+    rng = np.random.default_rng(seed)
+    z = rng.integers(1, 10, size=(batch, n_nodes), dtype=np.int32)
+    pos = rng.standard_normal((batch, n_nodes, 3)).astype(np.float32) * 1.5
+    edges = np.full((batch, 2, n_edges), -1, dtype=np.int32)
+    for b in range(batch):
+        d = np.linalg.norm(pos[b][:, None] - pos[b][None, :], axis=-1)
+        np.fill_diagonal(d, np.inf)
+        flat = np.argsort(d, axis=None)[:n_edges]
+        src, dst = np.unravel_index(flat, d.shape)
+        edges[b, 0, : len(src)] = src
+        edges[b, 1, : len(dst)] = dst
+    y = rng.standard_normal((batch,)).astype(np.float32)
+    return {"z": z, "positions": pos, "edge_index": edges, "y": y}
 
 
 def criteo_like_batch(

@@ -2,8 +2,11 @@
 ``repro.models.recsys``.
 
 The shared substrate is the embedding layer over huge sparse tables:
-``index_select`` for single-hot lookups and ``index_add`` for multi-hot bags
-(id -1 is padding and reads as a zero row).  Params are plain trees (dicts
+gathers for single-hot lookups and segment sums for multi-hot bags (id -1
+is padding and reads as a zero row), both in a fixed order
+(``models.segment``: a lookup's backward sums each row's grads in index
+order, where ``index_add`` would add them atomically, so a train step gives
+the same bits every run).  Params are plain trees (dicts
 and lists) of tensors with the reference's names, shapes and (d_in, d_out)
 weight layout; each ``*_init`` draws from a ``torch.Generator`` on the
 device where the params live.  Not JAX's numbers: tests that compare the
@@ -39,6 +42,7 @@ import torch
 
 from repro_torch.common.utils import resolve_device
 from repro_torch.models.layers import _init_dense
+from repro_torch.models.segment import FixedIndex, gather, segment_sum
 
 _NEG_INF = float("-inf")
 
@@ -59,7 +63,7 @@ def embedding_table_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch
 def embedding_lookup(table: torch.Tensor, ids) -> torch.Tensor:
     """Single-hot lookup: ids (...,) -> (..., dim); id -1 gives zeros."""
     ids = _on(ids, table.device)
-    out = table.index_select(0, ids.reshape(-1).clamp(min=0).long())
+    out = gather(table, FixedIndex(ids.reshape(-1).clamp(min=0), table.shape[0]))
     return torch.where((ids >= 0)[..., None], out.reshape(*ids.shape, table.shape[1]), 0.0)
 
 
@@ -76,13 +80,13 @@ def embedding_bag(table: torch.Tensor, ids, segment_ids, num_segments: int,
     dev, dtype = table.device, table.dtype
     ids = _on(ids, dev)
     valid = (ids >= 0).to(dtype)
-    rows = table.index_select(0, ids.clamp(min=0).long()) * valid[:, None]
-    seg = torch.where(ids >= 0, _on(segment_ids, dev), num_segments).long()  # padding -> spare bag
-    out = torch.zeros(num_segments + 1, table.shape[1], dtype=dtype, device=dev)
-    out = out.index_add(0, seg, rows)[:num_segments]
+    rows = gather(table, FixedIndex(ids.clamp(min=0), table.shape[0])) * valid[:, None]
+    seg = torch.where(ids >= 0, _on(segment_ids, dev), num_segments)  # padding -> spare bag
+    bags = FixedIndex(seg, num_segments + 1)
+    out = segment_sum(rows, bags)[:num_segments]
     if mode == "mean":
-        cnt = torch.zeros(num_segments + 1, dtype=dtype, device=dev).index_add(0, seg, valid)
-        out = out / torch.clamp(cnt[:num_segments, None], min=1.0)
+        cnt = segment_sum(valid[:, None], bags)[:num_segments]
+        out = out / torch.clamp(cnt, min=1.0)
     return out
 
 
@@ -101,7 +105,7 @@ def multi_field_lookup(tables: dict, sparse_ids, vocab_sizes) -> torch.Tensor:
     table = tables["table"]
     ids = _on(sparse_ids, table.device)
     flat = ids + _on(field_offsets(vocab_sizes), table.device)[None, :]
-    out = table.index_select(0, flat.reshape(-1).clamp(min=0).long())
+    out = gather(table, FixedIndex(flat.reshape(-1).clamp(min=0), table.shape[0]))
     return torch.where((ids >= 0)[..., None], out.reshape(*ids.shape, table.shape[1]), 0.0)
 
 

@@ -6,8 +6,9 @@ with the reference's arithmetic: the loss's grads by autograd (for the LMs
 K3 and K3-bwd in every layer's attention on the card, under ``torch.utils.
 checkpoint`` where the config asks for remat), float32 accumulation over
 microbatches, and the AdamW update in place (``train.optimizer``).  The LM
-losses (dense GQA, and the MoE / MLA LMs with their load-balance loss) and
-the recsys losses are ported; the DimeNet loss raises.
+losses (dense GQA, and the MoE / MLA LMs with their load-balance loss), the
+recsys losses and the DimeNet loss (one graph, or batched lanes with graph
+or node targets) are ported.
 """
 
 from __future__ import annotations
@@ -18,9 +19,6 @@ import torch
 
 from repro_torch.common.tree import leaves, unflatten
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, tree_of
-
-_ROADMAP_MODELS = ("the {} model is not ported (ROADMAP §1 item 10: the port runs the LMs "
-                   "and the recsys archs)")
 
 
 def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0, mask=None):
@@ -138,7 +136,42 @@ def lm_loss_fn(cfg, z_loss: float = 1e-4):
 
 
 def dimenet_loss_fn(cfg):
-    raise NotImplementedError(_ROADMAP_MODELS.format("DimeNet"))
+    """loss_fn(params, batch) for DimeNet (``models.dimenet``), with the
+    reference's three batch layouts:
+
+    * one graph, positions (n, 3): full-batch training on node targets y
+      (n,), masked by ``node_mask`` where given;
+    * batched lanes, positions (B, n, 3) (molecules, sampled subgraphs, halo
+      partitions): ``apply_batched`` (the reference's ``vmap``), with graph
+      targets y (B,) (mean squared error of each lane's sum) or node targets
+      y (B, n) (masked by ``node_mask`` where given).
+
+    Optional keys ``z``, ``features`` and ``node_mask``.  The batch moves to
+    the params' device; aux is 0."""
+    from repro_torch.models import dimenet as dn
+
+    def loss_fn(params, batch):
+        dev = leaves(params)[0].device
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        kw = dict(positions=b["positions"], edge_index=b["edge_index"], t_in=b["t_in"],
+                  t_out=b["t_out"], z=b.get("z"), node_feat=b.get("features"),
+                  node_mask=b.get("node_mask"))
+        y, mask = b["y"], b.get("node_mask")
+        batched = b["positions"].ndim == 3
+        if batched and y.ndim == 1:  # graph targets, one a lane
+            _, graph_pred = dn.apply_batched(params, cfg, **kw)
+            loss = torch.mean((graph_pred[:, 0] - y) ** 2)
+        else:  # node targets, of one graph or of every lane
+            node_pred, _ = (dn.apply_batched if batched else dn.apply)(params, cfg, **kw)
+            se = (node_pred[..., 0] - y) ** 2
+            if mask is None:
+                loss = torch.mean(se)
+            else:
+                mask = mask.to(torch.float32)
+                loss = torch.sum(se * mask) / torch.clamp(mask.sum(), min=1.0)
+        return loss, torch.zeros((), dtype=torch.float32, device=dev)
+
+    return loss_fn
 
 
 def recsys_loss_fn(arch: str, cfg):

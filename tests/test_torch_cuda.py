@@ -804,3 +804,113 @@ def test_card_train_step_matches_cpu(cuda):
     n_g, n_c = float(global_norm(grads_g)), float(global_norm(grads_c))
     assert abs(n_g - n_c) <= 1e-4 * n_c
     assert len(leaves(tf.param_tree(gpu_params))) == len(grads_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fixed_order_ops_are_bit_equal_on_card(cuda, dtype):
+    """``segment.gather``'s backward and ``segment_sum`` on the card, on
+    indices that repeat thousands of times (a power-law head) with an empty
+    row: two runs bit-equal, and float32 within rounding of the CPU."""
+    from repro_torch.models import segment
+
+    rng = np.random.default_rng(0)
+    n, M, h = 1000, 200_000, 128
+    idx = np.minimum(rng.zipf(1.5, M) - 1, n - 1)
+    idx[idx == 5] = 4
+    x = torch.from_numpy(rng.standard_normal((n, h)).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal((M, h)).astype(np.float32)).to(dtype)
+    outs = {}
+    for dev in ("cuda", "cuda", "cpu"):
+        t = x.to(dev).requires_grad_()
+        fi = segment.FixedIndex(torch.from_numpy(idx).to(dev), n)
+        y = segment.gather(t, fi)
+        s = segment.segment_sum(y * g.to(dev), fi)
+        (gt,) = torch.autograd.grad(s.float().square().sum(), t)
+        outs.setdefault(dev, []).append((s.detach().cpu(), gt.cpu()))
+    (s1, g1), (s2, g2) = outs["cuda"]
+    assert torch.equal(s1, s2) and torch.equal(g1, g2)
+    assert not s1[5].any()
+    if dtype == torch.float32:
+        s_c, g_c = outs["cpu"][0]
+        assert float((s1 - s_c).abs().max()) <= 1e-5 * float(s_c.abs().max())
+        assert float((g1 - g_c).abs().max()) <= 1e-5 * float(g_c.abs().max())
+
+
+@pytest.mark.cuda
+def test_card_dimenet_train_step_matches_cpu_and_repeats_its_bits(cuda):
+    """One DimeNet train step (reduced config, float32, molecules with -1
+    padding) on the card against the CPU from the same params: loss within
+    1e-5 relative, every grad within 1e-3 of the CPU's largest, the grad
+    norm within 1e-4 relative; and two card steps from one state give the
+    same params, bit for bit."""
+    import copy
+
+    from repro_torch.common.tree import leaves, unflatten
+    from repro_torch.configs import get_config, reduced_gnn_config
+    from repro_torch.data.synthetic import random_molecule_batch
+    from repro_torch.models import dimenet
+    from repro_torch.train.optimizer import AdamWConfig, global_norm, init_state
+    from repro_torch.train.train_step import _accumulate_grads, dimenet_loss_fn, make_train_step
+
+    cfg = reduced_gnn_config(get_config("dimenet"))
+    mols = random_molecule_batch(16, 30, 64, seed=1)
+    t_in, t_out = np.full((16, 256), -1, np.int32), np.full((16, 256), -1, np.int32)
+    for b in range(16):
+        ti, to = dimenet.build_triplets(mols["edge_index"][b], 30)
+        m = min(256, len(ti))
+        t_in[b, :m], t_out[b, :m] = ti[:m], to[:m]
+    batch = {"positions": mols["positions"], "edge_index": mols["edge_index"], "t_in": t_in,
+             "t_out": t_out, "z": mols["z"], "y": mols["y"]}
+    cpu_params = dimenet.init(cfg, seed=0, device="cpu")
+    gpu_params = unflatten(cpu_params, [t.to(cuda) for t in leaves(cpu_params)])
+    loss_g, grads_g, _ = _accumulate_grads(dimenet_loss_fn(cfg), gpu_params, batch, 1)
+    loss_c, grads_c, _ = _accumulate_grads(dimenet_loss_fn(cfg), cpu_params, batch, 1)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for g, c in zip(grads_g, grads_c):
+        assert float((g.cpu() - c).abs().max()) <= 1e-3 * float(c.abs().max())
+    n_g, n_c = float(global_norm(grads_g)), float(global_norm(grads_c))
+    assert abs(n_g - n_c) <= 1e-4 * n_c
+    step = make_train_step(dimenet_loss_fn(cfg), AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                             total_steps=20))
+    runs = []
+    for _ in range(2):
+        p = copy.deepcopy(gpu_params)
+        s = init_state(p)
+        for _ in range(2):
+            p, s, _ = step(p, s, batch)
+        runs.append([t.detach().clone() for t in leaves(p)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_recsys_train_step_repeats_its_bits_on_card(cuda):
+    """AutoInt (reduced vocabs of 64 rows a field, so every row repeats in
+    a batch of 4,096): two train steps from one state on the card give the
+    same params, bit for bit (the lookups' backward sums in a fixed order)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.common.tree import leaves
+    from repro_torch.configs import get_config, reduced_recsys_config
+    from repro_torch.data.synthetic import criteo_like_batch
+    from repro_torch.models import recsys
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step, recsys_loss_fn
+
+    cfg = dataclasses.replace(reduced_recsys_config(get_config("autoint")),
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    data = criteo_like_batch(4096, n_sparse=cfg.n_sparse, vocab_sizes=list(cfg.vocab_sizes),
+                             seed=0)
+    batch = {"sparse_ids": data["sparse_ids"], "label": data["label"]}
+    params = recsys.init(cfg, seed=0, device=cuda)
+    step = make_train_step(recsys_loss_fn("autoint", cfg), AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                                      total_steps=20))
+    runs = []
+    for _ in range(2):
+        p = copy.deepcopy(params)
+        s = init_state(p)
+        for _ in range(2):
+            p, s, _ = step(p, s, batch)
+        runs.append([t.detach().clone() for t in leaves(p)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -222,6 +222,42 @@ def test_embedding_lookups_match_reference():
                                           vocab)))
 
 
+def test_lookup_backwards_match_reference_scatter_adds():
+    """The lookups' table grads on ids that repeat many times (and -1
+    padding) against the reference's vjp, a scatter-add: within float32
+    rounding (the port sums each row's grads in index order, in a fixed
+    order on the card too); two runs bit-equal."""
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((12, 4)).astype(np.float32)
+    ids = rng.integers(-1, 12, (40, 6)).astype(np.int32)
+    seg = rng.integers(0, 9, ids.size).astype(np.int32)
+    vocab = [5, 7]
+    fused = rng.standard_normal((512, 4)).astype(np.float32)
+    sparse = np.stack([rng.integers(-1, v, 300) for v in vocab], 1).astype(np.int32)
+    cases = (
+        (table, lambda t: jrs.embedding_lookup(t, jnp.asarray(ids)),
+         lambda t: prs.embedding_lookup(t, ids)),
+        (table, lambda t: jrs.embedding_bag(t, jnp.asarray(ids.reshape(-1)), jnp.asarray(seg),
+                                            9, "mean"),
+         lambda t: prs.embedding_bag(t, ids.reshape(-1), seg, 9, "mean")),
+        (fused, lambda t: jrs.multi_field_lookup({"table": t}, jnp.asarray(sparse), vocab),
+         lambda t: prs.multi_field_lookup({"table": t}, sparse, vocab)),
+    )
+    for tab, jfn, pfn in cases:
+        want, vjp = jax.vjp(jfn, jnp.asarray(tab))
+        cot = rng.standard_normal(want.shape).astype(np.float32) * 10
+        grads = []
+        for _ in range(2):
+            t = torch.from_numpy(tab).requires_grad_()
+            got = pfn(t)
+            np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6,
+                                       atol=1e-6)
+            grads.append(torch.autograd.grad(got, t, torch.from_numpy(cot))[0])
+        np.testing.assert_allclose(grads[0].numpy(), np.asarray(vjp(jnp.asarray(cot))[0]),
+                                   rtol=1e-6, atol=1e-5)
+        assert torch.equal(grads[0], grads[1])
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_shapes_and_scales_match_reference(arch):
     """The port's own draws: the reference's tree, shapes, dtypes (bf16 too)

@@ -314,8 +314,22 @@ def test_microbatch_grads_accumulate_in_float32():
 
 
 def test_losses_of_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pts.dimenet_loss_fn(None)
+    # the DimeNet loss is ported (tests/test_torch_dimenet.py): finite on a
+    # tiny batch of two molecules
+    from repro_torch.configs import get_config, reduced_gnn_config
+    from repro_torch.data.synthetic import random_molecule_batch
+    from repro_torch.models import dimenet
+
+    cfg = reduced_gnn_config(get_config("dimenet"))
+    mols = random_molecule_batch(2, 6, 10, seed=0)
+    t_in, t_out = np.full((2, 16), -1, np.int32), np.full((2, 16), -1, np.int32)
+    for b in range(2):
+        ti, to = dimenet.build_triplets(mols["edge_index"][b], 6)
+        t_in[b, :min(16, len(ti))], t_out[b, :min(16, len(to))] = ti[:16], to[:16]
+    batch = {"positions": mols["positions"], "edge_index": mols["edge_index"], "t_in": t_in,
+             "t_out": t_out, "z": mols["z"], "y": mols["y"]}
+    loss, aux = pts.dimenet_loss_fn(cfg)(dimenet.init(cfg, seed=0, device="cpu"), batch)
+    assert torch.isfinite(loss) and float(aux) == 0.0
     # the recsys family is ported (tests/test_torch_recsys.py); an arch it
     # does not have raises when its loss is taken
     with pytest.raises(ValueError, match="unknown arch"):
