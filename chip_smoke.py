@@ -263,30 +263,59 @@ Phases, each printed as JSON records; any failure exits non-zero:
    layer launches in 6e (checked).  After phase 7, one step of each cell
    under ``torch.profiler``: kernel launches a step, device busy and idle
    share, the top kernels.
+6f. the sharded cells and the dry run (``configs.families``,
+   ``launch.dryrun``): (a) every arch's ``smoke`` on the card (the
+   reference's reduced-config steps and asserts): metrics and seconds; (b)
+   in a world of one rank over NCCL (``run_world``, mesh data 1 x model
+   1), smollm-360m's ``build_cell(train_4k)`` at full width and depth, the
+   batch cut to 6b's (16 x 4,096, ``num_micro`` 4), params and moments
+   DTensors with the cell's placements, K3 / K3-bwd through ``local_map``:
+   a warm-up step, then 3 timed (CUDA events): step p50, peak device
+   bytes, K3 and K3-bwd launches a step (2 x layers x microbatches and
+   layers x microbatches), the losses against ``make_train_step`` on the
+   same params and batch as plain tensors (bit-equal, or within 1e-6
+   relative: which is recorded); (c) in the same world, one ogb_products
+   lane at its full lane shape through ``GNNArch.build_cell``: a seeded
+   halo partition of 16,384 nodes (half owned, the rest masked), 262,144
+   edges, triplets capped at 4 an edge padded to 1,048,576, bf16 features
+   of width 100; a warm-up step, then 3 timed (step p50, peak, finite
+   losses), two steps run twice from one state (bit-equal), and one step's
+   loss and grads in float32 on the lane cut to an eighth, card against
+   CPU (recorded); (d) the dry run, in a host process started before phase
+   5 (it needs no card): the cells of (b) and (c) on a fake world of one
+   (predicted peak against the measured one, the calibration), and
+   deepseek-moe-16b's and deepseek-v2-lite-16b's train_4k at full depth on
+   16 x 16: per-rank peak, argument bytes, flops and seconds.  6e's
+   Reddit-sized graph and its sampled lane are built in a second host
+   process started with it, beside the card's phases 5-6d.
 7. the HNSW beam under ``torch.profiler``, last but 6e's launch count (a
    profiler session slows the rest of the process's kernel launches): one
    batch of 3c and one of 3d, each on an index carrying 3c's graphs again —
    kernel launches, device busy time and idle share, the top kernels by
    device time.
 8. the kernels line: launches on the main path (K1: phases 3, 3c's ground
-   truth, 3e, 3f, 4 and 3g; K2: 3b and 4b; K3: 5, 6, 6b's and 6d's forward
-   launches and 6c; K3-bwd: 6b's and 6d's steps and their card-vs-CPU
-   checks; the HNSW beam and DimeNet's training (6e) are torch ops and
+   truth, 3e, 3f, 4 and 3g; K2: 3b and 4b; K3: 5, 6, 6b's, 6d's and 6f's
+   forward launches and 6c; K3-bwd: 6b's, 6d's and 6f's steps and their
+   card-vs-CPU checks; the HNSW beam and DimeNet's training (6e, 6f) are torch ops and
    launch none of them, which the line's ``not_launched_by`` says), max
    error, kernel / plain / library times at a main-path shape, and each
    bound; K1, K3 and K3-bwd
    also by shape (``instances``: K1's scan phases at the paper partition
    and 3g at the retrieval_cand shape; K3's bf16 32k prefill, each float32
    bucket, the bf16 training step, 6c's two 32k prefills, its engine
-   buckets and its float32 checks, 6d's steps and checks; K3-bwd's bf16
-   training steps (6b, and 6d's GQA 128 and MLA (192, 128)) and their
-   float32 checks; each with its launches, times and bound).
+   buckets and its float32 checks, 6d's steps and checks, 6f's cell steps
+   (6b's layer shape, timed there); K3-bwd's bf16 training steps (6b, 6d's
+   GQA 128 and MLA (192, 128), 6f's) and their float32 checks; each with
+   its launches, times and bound).  Every phase's seconds are in the
+   ``total`` record's ``by_phase``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import gc
 import json
 import os
@@ -3594,6 +3623,306 @@ def phase_gnn_profile(cells: dict) -> dict:
     torch.cuda.empty_cache()
     return out
 
+# ------------------------------------------------------------ 6f: cells and dry run
+
+#: the background dry-run jobs of 6f, as one python program (run from the
+#: repo root with ``src`` on the path; no CUDA): smollm-360m's train_4k cut
+#: as 6f (b) runs it and one ogb_products lane on a fake world of one, and
+#: the MoE / MLA train_4k cells at full depth on 16 x 16
+DRYRUN_JOBS = """
+import copy, dataclasses, json, sys, time
+from repro_torch.configs.families import Cell, get_arch
+from repro_torch.launch import dryrun as dr
+
+out = []
+arch = copy.copy(get_arch("smollm-360m"))
+arch.num_micro = {num_micro}
+cell = Cell("train_4k", "train", global_batch={global_batch}, seq_len={seq_len})
+out.append(dr.run_cell("smollm-360m", "train_4k", mesh="1x1", arch=arch, cell=cell,
+                       label="_cut"))
+out.append(dr.run_cell("dimenet", "ogb_products", mesh="1x1"))
+for aid in ("deepseek-moe-16b", "deepseek-v2-lite-16b"):
+    out.append(dr.run_cell(aid, "train_4k"))
+for r in out:
+    r.pop("traceback", None)
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+def start_dryrun_jobs(path: str, num_micro: int, global_batch: int, seq_len: int):
+    """6f's dry runs in a background process on the host (they need no
+    card): started before 6f so they overlap the card's phases."""
+    code = DRYRUN_JOBS.format(num_micro=num_micro, global_batch=global_batch, seq_len=seq_len)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", code, path], cwd=ROOT, env=env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def family_smokes() -> dict:
+    """6f (a): every arch's ``smoke`` on the card: its metrics and seconds."""
+    from repro_torch.configs.families import ARCH_IDS, get_arch
+
+    out = {}
+    for aid in ARCH_IDS:
+        t0 = time.perf_counter()
+        metrics = get_arch(aid).smoke(seed=0, device="cuda")
+        out[aid] = {**metrics, "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _full_np(t) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    t = t.full_tensor() if isinstance(t, DTensor) else t
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def _timed_steps(step_fn, state: dict, steps: int) -> dict:
+    """One warm-up step, then ``steps`` timed (CUDA events): losses, step
+    times, peak device bytes, K3 / K3-bwd launches of the timed steps."""
+    from repro_torch.kernels import ops
+
+    losses = []
+
+    def one():
+        state["p"], state["s"], m = step_fn(state["p"], state["s"], state["b"])
+        losses.append(float(_full_np(m["loss"])))
+
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    times = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        one()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = dict(ops.KERNEL_LAUNCHES)
+    return {"losses": losses, "step_ms": times, "step_p50_ms": float(np.percentile(times, 50)),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "k3_launches": launches["flash_attention"],
+            "k3_bwd_launches": launches["flash_attention_bwd"]}
+
+
+def families_lm_cell(mesh, global_batch: int, seq_len: int, num_micro: int, steps: int) -> dict:
+    """6f (b), on the world's one rank: smollm-360m's train_4k through
+    ``LMArch.build_cell`` (full width and depth, the batch cut), params and
+    moments DTensors with the cell's placements; then ``make_train_step``
+    on plain tensors from the same seed and batch, its losses beside the
+    cell's."""
+    from repro_torch.configs.families import Cell, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import lm_loss_fn, make_train_step
+
+    arch = copy.copy(get_arch("smollm-360m"))
+    arch.num_micro = num_micro
+    cell = Cell("train_4k", "train", global_batch=global_batch, seq_len=seq_len)
+    spec = arch.build_cell(cell, mesh)
+    t0 = time.perf_counter()
+    params, st, batch = spec.make_args(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    placements = {n: [str(p) for p in pl] for n, pl in spec.placements[0].items()
+                  if n in ("embed", "blocks/0/attn/wq", "blocks/0/mlp/w_down")}
+    cell_run = _timed_steps(spec.fn, {"p": params, "s": st, "b": batch}, steps)
+    local_batch = {k: v.to_local() for k, v in batch.items()}
+    del params, st, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = arch._dryrun_model_cfg(cell)
+    plain_params = tf.init(cfg, 0, "cuda")
+    plain_step = make_train_step(lm_loss_fn(cfg), AdamWConfig(lr=3e-4, total_steps=10_000),
+                                 num_micro=num_micro)
+    ops.reset_launches()
+    plain = _timed_steps(plain_step, {"p": plain_params, "s": init_state(plain_params),
+                                      "b": local_batch}, steps)
+    del plain_params, local_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = np.array(cell_run["losses"]), np.array(plain["losses"])
+    rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    return {"cell": cell_run, "plain": plain, "init_s": init_s, "placements": placements,
+            "num_micro": num_micro, "layers": cfg.n_layers, "n_heads": cfg.n_heads,
+            "head_dim": cfg.head_dim, "losses_bit_equal": bool(np.array_equal(a, b)),
+            "losses_max_rel": rel}
+
+
+def families_gnn_lane(mesh, steps: int) -> dict:
+    """6f (c): one ogb_products lane at its full lane shape through
+    ``GNNArch.build_cell`` on the world's one rank: a warm-up step, then
+    ``steps`` timed; two steps run twice from one state (bit-equal); then
+    one step's loss and grads in float32 on the lane cut to an eighth, on
+    the card (the cell's DTensor path) and on the CPU (one device)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.common.tree import flatten, leaves, unflatten
+    from repro_torch.configs.families import GNN_CELLS, get_arch, make_ctx
+    from repro_torch.kernels import ops
+    from repro_torch.models import dimenet as dn
+    from repro_torch.train.train_step import _accumulate_grads, dimenet_loss_fn
+
+    arch = get_arch("dimenet")
+    cell = GNN_CELLS["ogb_products"]
+    spec = arch.build_cell(cell, mesh)
+    t0 = time.perf_counter()
+    params, st, batch = spec.make_args(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    shapes = {k: list(v.shape) for k, v in batch.items()}
+    real_triplets = int((batch["t_in"].to_local() >= 0).sum())
+    state = {"p": params, "s": st, "b": batch}
+    ops.reset_launches()
+    run = _timed_steps(spec.fn, state, steps)
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"6f (c) losses {run['losses']}")
+    # two steps twice from one saved state
+    tree = {"p": state["p"], "s": state["s"]}
+    saved = [t.to_local().clone() if isinstance(t, DTensor) else t.clone()
+             for t in leaves(tree)]
+
+    def two_steps():
+        for _ in range(2):
+            state["p"], state["s"], _ = spec.fn(state["p"], state["s"], state["b"])
+        return [t.to_local().clone() if isinstance(t, DTensor) else t.clone()
+                for t in leaves({"p": state["p"], "s": state["s"]})]
+
+    first = two_steps()
+    with torch.no_grad():
+        for t, s in zip(leaves({"p": state["p"], "s": state["s"]}), saved):
+            (t.to_local() if isinstance(t, DTensor) else t).copy_(s)
+    second = two_steps()
+    bit_equal = all(torch.equal(x, y) for x, y in zip(first, second))
+    kernel_layer = dict(ops.KERNEL_LAUNCHES)
+    del state, params, st, batch, tree, saved, first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+    # card vs CPU, float32, the lane cut to an eighth
+    n, E = cell.get("n_loc") // 8, cell.get("e_loc") // 8
+    cut = dataclasses.replace(cell, extra=tuple(
+        (k, n if k == "n_loc" else E if k == "e_loc" else v) for k, v in cell.extra))
+    arch32 = copy.copy(arch)
+    cfg32 = dataclasses.replace(arch._cfg_for_cell(cell), param_dtype="float32",
+                                compute_dtype="float32")
+    arch32._cfg_for_cell = lambda c: cfg32
+    spec32 = arch32.build_cell(cut, mesh)
+    p_card, _, b_card = spec32.make_args(seed=1, device="cuda")
+    loss_c, g_c, _ = _accumulate_grads(dimenet_loss_fn(cfg32, make_ctx(mesh)), p_card, b_card, 1)
+    p_cpu = dn.init(cfg32, 1, "cuda")
+    p_cpu = unflatten(p_cpu, [t.cpu() for t in leaves(p_cpu)])
+    b_cpu = {k: v.to_local().cpu() for k, v in b_card.items()}
+    loss_p, g_p, _ = _accumulate_grads(dimenet_loss_fn(cfg32), p_cpu, b_cpu, 1)
+    names = [nm for nm, _ in flatten(p_cpu)]
+    grad_gap = max(float(np.abs(_full_np(a) - b.numpy()).max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(g_c, g_p))
+    lc, lp = float(_full_np(loss_c)), float(loss_p)
+    return {**run, "shapes": shapes, "real_triplets": real_triplets, "data_s": data_s,
+            "repeat_bit_equal": bit_equal, "kernel_layer_launches": kernel_layer,
+            "card_vs_cpu_f32": {"nodes": n, "edges": E, "loss_card": lc, "loss_cpu": lp,
+                                "loss_rel": abs(lc - lp) / abs(lp),
+                                "max_grad_gap_of_largest": grad_gap, "leaves": len(names)}}
+
+
+def families_rank(mesh, global_batch: int, seq_len: int, num_micro: int, steps: int) -> dict:
+    """The rank body of 6f (b) and (c) in one world of one rank (NCCL, mesh
+    data 1 x model 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lm = families_lm_cell(mesh, global_batch, seq_len, num_micro, steps)
+    lm["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gnn = families_gnn_lane(mesh, steps)
+    gnn["seconds"] = time.perf_counter() - t0
+    return {"lm": lm, "gnn": gnn}
+
+
+def phase_families(dryrun, dryrun_path: str, global_batch: int = 16, seq_len: int = 4096,
+                   num_micro: int = 4, steps: int = 3) -> dict:
+    """6f: the sharded cells (``configs.families``) and the dry run
+    (``launch.dryrun``); see the module docstring.  ``dryrun`` is the
+    background process of :func:`start_dryrun_jobs`, joined here."""
+    from repro_torch.launch.mesh import run_world
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    smokes = family_smokes()
+    emit({"phase": "families_smoke", "archs": smokes, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    world = run_world(families_rank, (1, 1), ("data", "model"),
+                      (global_batch, seq_len, num_micro, steps), device="cuda", timeout=900)[0]
+    world_s = time.perf_counter() - t0
+    lm, gnn = world["lm"], world["gnn"]
+    t0 = time.perf_counter()
+    err = dryrun.communicate(timeout=600)[1]
+    if dryrun.returncode != 0:
+        raise AssertionError(f"6f dry runs failed: {err[-3000:]}")
+    dry_wait_s = time.perf_counter() - t0
+    dry = {f"{r['arch']}/{r['cell']}@{r['mesh']}": r for r in json.load(open(dryrun_path))}
+    bad = {k: r.get("error") for k, r in dry.items() if r["status"] != "ok"}
+    if bad:
+        emit({"phase": "families", "world": world})
+        raise AssertionError(f"6f dry runs in error: {bad}")
+    L = lm["layers"]
+    per_step = {"k3": lm["cell"]["k3_launches"] / steps,
+                "k3_bwd": lm["cell"]["k3_bwd_launches"] / steps}
+    lm_dry = dry["smollm-360m/train_4k_cut@1x1"]
+    gnn_dry = dry["dimenet/ogb_products@1x1"]
+    calib = {"smollm_train_4k_cut": {
+                 "predicted_peak_bytes": lm_dry["memory"]["peak_bytes"],
+                 "measured_peak_bytes": lm["cell"]["peak_device_bytes"],
+                 "measured_over_predicted": lm["cell"]["peak_device_bytes"]
+                 / lm_dry["memory"]["peak_bytes"]},
+             "ogb_products_lane": {
+                 "predicted_peak_bytes": gnn_dry["memory"]["peak_bytes"],
+                 "measured_peak_bytes": gnn["peak_device_bytes"],
+                 "measured_over_predicted": gnn["peak_device_bytes"]
+                 / gnn_dry["memory"]["peak_bytes"]}}
+    full_depth = {k: {"peak_bytes": r["memory"]["peak_bytes"],
+                      "argument_bytes": r["memory"]["argument_bytes"],
+                      "flops_per_rank": r["cost"]["flops"], "seconds": r["total_seconds"],
+                      "fits": r["fits"], "collective_bytes": r["collectives"]["total_bytes"]}
+                  for k, r in dry.items() if r["mesh"] == "16x16"}
+    rec = {"phase": "families", "archs_smoked": len(smokes),
+           "lm_cell": {"arch": "smollm-360m", "cell": "train_4k",
+                       "reduced": {"global_batch": f"256 -> {global_batch}"},
+                       "S": seq_len, "num_micro": num_micro, "mesh": "data 1 x model 1 (NCCL)",
+                       **{k: v for k, v in lm.items() if k not in ("cell", "plain")},
+                       "cell_run": lm["cell"], "plain_run": lm["plain"],
+                       "k3_launches_per_step": per_step["k3"],
+                       "k3_bwd_launches_per_step": per_step["k3_bwd"],
+                       "losses_match": "bit-equal" if lm["losses_bit_equal"] else
+                       f"within {lm['losses_max_rel']:.3g} relative"},
+           "gnn_lane": {"arch": "dimenet", "cell": "ogb_products", "lanes": 1, **gnn},
+           "dryrun_calibration": calib, "dryrun_full_depth_16x16": full_depth,
+           "dryrun_records": {k: {"status": r["status"], "seconds": r["total_seconds"],
+                                  "peak_bytes": r["memory"]["peak_bytes"]}
+                              for k, r in dry.items()},
+           "world_s": world_s, "dryrun_wait_s": dry_wait_s,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if per_step != {"k3": 2 * L * num_micro, "k3_bwd": L * num_micro}:
+        raise AssertionError(f"6f (b) K3 / K3-bwd launches a step {per_step}, want "
+                             f"{2 * L * num_micro} / {L * num_micro}")
+    if not (lm["losses_bit_equal"] or lm["losses_max_rel"] <= 1e-6):
+        raise AssertionError(f"6f (b) cell vs make_train_step losses: {lm['cell']['losses']} "
+                             f"vs {lm['plain']['losses']}")
+    if not all(np.isfinite(lm["cell"]["losses"])):
+        raise AssertionError(f"6f (b) losses {lm['cell']['losses']}")
+    if not gnn["repeat_bit_equal"]:
+        raise AssertionError("6f (c): two steps from one state differ in their bits")
+    if any(gnn["kernel_layer_launches"].values()):
+        raise AssertionError(f"6f (c) launched a kernel: {gnn['kernel_layer_launches']}")
+    return {"launches": lm["cell"]["k3_launches"] + lm["plain"]["k3_launches"],
+            "bwd_launches": lm["cell"]["k3_bwd_launches"] + lm["plain"]["k3_bwd_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3634,12 +3963,33 @@ def main() -> int:
     deploy = timed("4", phase_deployment)
     deploy_q8 = timed("4b", phase_deployment_q8, *deploy.pop("data"))
     recsys = timed("3g", phase_recsys)
-    prefill = timed("5", phase_prefill_32k)
-    serve = timed("6", phase_serve_engine)
-    train = timed("6b", phase_train_step)
-    moe_mla = timed("6c", phase_moe_mla_serving)
-    moe_train = timed("6d", phase_moe_mla_training)
-    gnn = timed("6e", phase_gnn_training)
+    # host work that needs no card runs beside the card's phases 5-6d: 6e's
+    # Reddit-sized graph and sampled lane, and 6f's dry runs
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    dry_path = str(ROOT / "build" / f"dryrun_6f_{os.getpid()}.json")
+    dryrun = start_dryrun_jobs(dry_path, num_micro=4, global_batch=16, seq_len=4096)
+    lane_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        lane = lane_pool.submit(gnn_minibatch_lane)
+        prefill = timed("5", phase_prefill_32k)
+        serve = timed("6", phase_serve_engine)
+        train = timed("6b", phase_train_step)
+        moe_mla = timed("6c", phase_moe_mla_serving)
+        moe_train = timed("6d", phase_moe_mla_training)
+        gnn = timed("6e", phase_gnn_training, 5, {"molecule": gnn_molecule_cell,
+                                                 "full_graph_sm": gnn_full_graph_cell,
+                                                 "minibatch_lg": lane.result})
+        fam = timed("6f", phase_families, dryrun, dry_path)
+    finally:
+        lane_pool.shutdown(cancel_futures=True)
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.wait()
+        if os.path.exists(dry_path):
+            os.remove(dry_path)
     timed("7", phase_beam_profile, hnsw_state, profile_batch)
     del hnsw_state
     timed("6e profile", phase_gnn_profile, gnn)
@@ -3648,9 +3998,9 @@ def main() -> int:
     k1_launches = k1_scan_launches + recsys["launches"]
     k2_launches = paper_q8["launches"] + deploy_q8["launches"]
     k3_launches = (prefill["launches"] + serve["launches"] + train["launches"]
-                   + moe_mla["launches"] + moe_train["launches"])
+                   + moe_mla["launches"] + moe_train["launches"] + fam["launches"])
     k3_bwd_launches = (train["bwd_launches"] + train["check_bwd"]["launches"]
-                       + moe_train["bwd_launches"])
+                       + moe_train["bwd_launches"] + fam["bwd_launches"])
     if min(k1_launches, k2_launches, k3_launches, k3_bwd_launches) <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
                              f"K2 {k2_launches}, K3 {k3_launches}, K3-bwd {k3_bwd_launches}")
@@ -3660,7 +4010,9 @@ def main() -> int:
                                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_backend")}
         for rec in (prefill["instances"] + serve["instances"] + train["instances"]
-                    + moe_mla["instances"] + moe_train["instances"])]
+                    + moe_mla["instances"] + moe_train["instances"]
+                    # 6f's cell runs 6b's layer shape (60, 4096, 64), timed there
+                    + [{**train["instances"][0], "launches": fam["launches"]}])]
     t3 = k3_instances[0]  # the 32k prefill's bf16 shape
     t4 = k3_bwd["timing"]  # the training step's layer shape
     k1_keys = ("shape", "B", "N", "D", "k", "k_pad", "metric", "launches", "max_abs_err", "ms",
@@ -3678,6 +4030,7 @@ def main() -> int:
     bwd_recs = [{**t4, "launches": train["bwd_launches"]}, train["check_bwd"]]
     for arch, b in moe_train["bwd"].items():
         bwd_recs += [{**k3_bwd["timings"][f"6d {arch}"], "launches": b["step"]}, b["check"]]
+    bwd_recs.append({**t4, "launches": fam["bwd_launches"]})  # 6f's steps, 6b's shape
     k3_bwd_instances = [{key: rec[key] for key in bwd_keys} for rec in bwd_recs]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
     emit({"kernels": [
@@ -3707,7 +4060,8 @@ def main() -> int:
          "ms": t4["ms"], "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
          "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
          "instances": k3_bwd_instances},
-    ], "not_launched_by": {"3c/3d HNSW beam": "torch ops", "6e DimeNet training": "torch ops"}})
+    ], "not_launched_by": {"3c/3d HNSW beam": "torch ops",
+                           "6e / 6f DimeNet training": "torch ops"}})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -31,8 +31,12 @@ deepseek-v2-lite-16b (``models/moe.py``, ``layers.mla_apply``), served
 through ``ServeEngine`` with K3 in every prefill layer (MLA's q . k head
 dim 192 with v's 128 included) and trained with K3-bwd; and the GNN
 family, DimeNet (``models/dimenet.py``, ``data/sampler.py``), trained
-with fixed-order gathers and segment sums (``models/segment.py``).
+with fixed-order gathers and segment sums (``models/segment.py``); and
+the sharded cells (ROADMAP §1 item 10.4): the sharding rules
+(``distributed/sharding_rules.py``: DTensor placements over a named
+mesh), every family's cells with ``build_cell`` / ``smoke``
+(``configs/families.py``) and the dry run on a fake world
+(``launch/dryrun.py``).
 
-Not ported: the sharded cells, their sharding rules and the dry run
-(ROADMAP §1 item 10.4), and the static checkers (item 10.6).
+Not ported: the static checkers (item 10.6).
 """

@@ -17,9 +17,9 @@ with the reference's cell overrides (``serving_config``,
 ``training_config``, ``gnn_cell_config``), its reduced configs
 (``reduced_config``, ``reduced_recsys_config``, ``reduced_gnn_config``),
 the recsys cells' batch sizes (``RECSYS_CELLS``) and candidate widths
-(``EMBED_DIM_RETRIEVAL``), and the GNN cells' shapes (``GNN_CELLS``).  Not
-ported: the cells' sharding, ``build_cell`` and the dry run of
-``configs/families.py`` (ROADMAP §1 item 10.4).
+(``EMBED_DIM_RETRIEVAL``), and the GNN cells' shapes (``GNN_CELLS``).  The
+cells themselves, their sharding and ``build_cell`` are in
+``configs/families.py``.
 """
 
 from __future__ import annotations

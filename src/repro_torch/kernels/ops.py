@@ -8,6 +8,15 @@ inf maps to id -1.  Which code runs follows the tensors: on CPU tensors the
 plain PyTorch versions (``ref.distance_topk_blocked``,
 ``ref.distance_topk_q8_blocked``, ``ref.flash_attention_ref``), on CUDA
 tensors the K1 / K2 / K3 kernels — never a fallback from one to the other.
+
+Each kernel is also a ``torch.library`` custom op (``repro_torch::
+distance_topk``, ``distance_topk_q8``, ``flash_attention``,
+``flash_attention_bwd``) with a CUDA implementation, the launcher, and a
+fake one that gives the outputs' shapes: so a step traced on fake tensors
+(``launch/dryrun.py``) takes the kernel's path and allocates what the
+kernel allocates, with no launch.  On a mesh, K3 and K3-bwd run on each
+rank's own batch rows and heads (``torch.distributed.tensor.experimental.
+local_map``, :func:`flash_attention_bhsd`).
 """
 
 from __future__ import annotations
@@ -36,6 +45,111 @@ KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0, "flash_attention":
 def reset_launches() -> None:
     for name in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[name] = 0
+
+
+def _plain(t: torch.Tensor) -> bool:
+    """True for a real CPU tensor, which takes the plain version; a fake
+    tensor (of any device) takes the kernel's custom op and its fake
+    implementation."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return t.device.type == "cpu" and not is_fake(t)
+
+
+@torch.library.custom_op("repro_torch::distance_topk", mutates_args=(), device_types="cuda")
+def _k1_op(q: torch.Tensor, x: torch.Tensor, k_pad: int, n_valid: int,
+           metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    out = distance_topk_cuda(q, x, k_pad=k_pad, n_valid=n_valid, metric=metric)
+    KERNEL_LAUNCHES["distance_topk"] += 1
+    return out
+
+
+@_k1_op.register_fake
+def _(q, x, k_pad, n_valid, metric):
+    B = q.shape[0]
+    return q.new_empty((B, k_pad), dtype=torch.float32), q.new_empty((B, k_pad),
+                                                                     dtype=torch.int32)
+
+
+@torch.library.custom_op("repro_torch::distance_topk_q8", mutates_args=(), device_types="cuda")
+def _k2_op(q_codes: torch.Tensor, x_codes: torch.Tensor, q_scale: torch.Tensor,
+           norms2: torch.Tensor, k_pad: int, n_valid: int,
+           metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    out = distance_topk_q8_cuda(q_codes, x_codes, q_scale, norms2, k_pad=k_pad,
+                                n_valid=n_valid, metric=metric)
+    KERNEL_LAUNCHES["distance_topk_q8"] += 1
+    return out
+
+
+@_k2_op.register_fake
+def _(q_codes, x_codes, q_scale, norms2, k_pad, n_valid, metric):
+    B = q_codes.shape[0]
+    return (q_scale.new_empty((B, k_pad), dtype=torch.float32),
+            q_scale.new_empty((B, k_pad), dtype=torch.int32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _k3_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
+           with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    res = flash_attention_cuda(q, k, v, causal=causal, scale=scale, with_lse=with_lse)
+    KERNEL_LAUNCHES["flash_attention"] += 1
+    return res if with_lse else (res, q.new_empty((0,), dtype=torch.float32))
+
+
+@_k3_op.register_fake
+def _(q, k, v, causal, scale, with_lse):
+    BH, S, _ = q.shape
+    lse = q.new_empty((BH, S) if with_lse else (0,), dtype=torch.float32)
+    return q.new_empty((BH, S, v.shape[-1])), lse
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _k3_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+               do: torch.Tensor, lse: torch.Tensor, causal: bool,
+               scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal, scale=scale)
+    KERNEL_LAUNCHES["flash_attention_bwd"] += 1
+    return grads
+
+
+@_k3_bwd_op.register_fake
+def _(q, k, v, o, do, lse, causal, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _register_flop_formulas():
+    """K3's and K3-bwd's flops for ``torch.utils.flop_counter`` (the dry
+    run's per-rank count): SDPA's formulas at (1, BH, S, D), the whole
+    S x S product whether causal or not, as torch counts SDPA; K1 and K2
+    count their scores, 2 B N D."""
+    from torch.utils.flop_counter import (
+        register_flop_formula,
+        sdpa_backward_flop_count,
+        sdpa_flop_count,
+    )
+
+    def bhsd(shape):  # the formulas get shapes
+        return (1, *shape)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q, k, v, *args, out_shape=None, **kwargs):
+        return sdpa_flop_count(bhsd(q), bhsd(k), bhsd(v))
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _(q, k, v, o, do, *args, out_shape=None, **kwargs):
+        return sdpa_backward_flop_count(bhsd(do), bhsd(q), bhsd(k), bhsd(v))
+
+    @register_flop_formula(torch.ops.repro_torch.distance_topk)
+    def _(q, x, *args, out_shape=None, **kwargs):
+        return 2 * q[0] * x[0] * q[1]
+
+    @register_flop_formula(torch.ops.repro_torch.distance_topk_q8)
+    def _(q_codes, x_codes, *args, out_shape=None, **kwargs):
+        return 2 * q_codes[0] * x_codes[0] * q_codes[1]
+
+
+_register_flop_formulas()
 
 
 def _cuda_k_pad(k: int, name: str) -> int:
@@ -95,17 +209,14 @@ def distance_topk(q, x, k: int, metric: str = "l2", *, n_valid: int | None = Non
     else:
         metric_k = metric
 
-    if dev.type == "cpu":
+    if _plain(q):
         return ref.distance_topk_blocked(q, x, k, metric_k, n_valid=nv)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"distance_topk: unsupported device {dev}")
     k_pad = _cuda_k_pad(k, "distance_topk")
     if B == 0:
         return _empty_topk(0, k, dev)
-    out_d, out_i = distance_topk_cuda(
-        q.contiguous(), x.contiguous(), k_pad=k_pad, n_valid=nv, metric=metric_k
-    )
-    KERNEL_LAUNCHES["distance_topk"] += 1
+    out_d, out_i = _k1_op(q.contiguous(), x.contiguous(), k_pad, nv, metric_k)
     out_d, out_i = out_d[:, :k], out_i[:, :k]
     if metric == "l2":
         qn = (q * q).sum(-1, keepdim=True)
@@ -133,10 +244,10 @@ def distance_topk_q8_codes(q_codes, x_codes, q_scale, norms2, k: int, metric: st
     nv = N if n_valid is None else min(int(n_valid), N)
     if nv == 0:
         return _empty_topk(B, k, dev)
-    if dev.type == "cpu":
+    if _plain(q_codes):
         return ref.distance_topk_q8_blocked(q_codes, x_codes, q_scale, norms2, k, metric,
                                             n_valid=nv)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"distance_topk_q8: unsupported device {dev}")
     k_pad = _cuda_k_pad(k, "distance_topk_q8")
     if B == 0:
@@ -144,11 +255,8 @@ def distance_topk_q8_codes(q_codes, x_codes, q_scale, norms2, k: int, metric: st
     if D % 4:  # zero columns leave every integer dot unchanged
         q_codes = torch.nn.functional.pad(q_codes, (0, 4 - D % 4))
         x_codes = torch.nn.functional.pad(x_codes, (0, 4 - D % 4))
-    out_d, out_i = distance_topk_q8_cuda(
-        q_codes.contiguous(), x_codes.contiguous(), q_scale.contiguous(), norms2.contiguous(),
-        k_pad=k_pad, n_valid=nv, metric=metric,
-    )
-    KERNEL_LAUNCHES["distance_topk_q8"] += 1
+    out_d, out_i = _k2_op(q_codes.contiguous(), x_codes.contiguous(), q_scale.contiguous(),
+                          norms2.contiguous(), k_pad, nv, metric)
     return out_d[:, :k], out_i[:, :k]
 
 
@@ -205,22 +313,22 @@ def distance_topk_q8(q, qc, k: int, metric: str = "l2", *, n_valid: int | None =
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and starting on a 16-byte boundary, copied if need be."""
+    from torch._subclasses.fake_tensor import is_fake
+
     t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
+    return t.clone() if not is_fake(t) and t.data_ptr() % 16 else t
 
 
 def _flash_forward(q, k, v, causal: bool, scale: float, with_lse: bool):
     """K3 on CUDA tensors, its plain version on CPU tensors: the output,
     and with ``with_lse`` (out, lse)."""
     dev = q.device
-    if dev.type == "cpu":
+    if _plain(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, with_lse=with_lse)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: unsupported device {dev}")
-    res = flash_attention_cuda(_aligned(q), _aligned(k), _aligned(v), causal=causal,
-                               scale=scale, with_lse=with_lse)
-    KERNEL_LAUNCHES["flash_attention"] += 1
-    return res
+    out, lse = _k3_op(_aligned(q), _aligned(k), _aligned(v), causal, float(scale), with_lse)
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, scale: float | None = None):
@@ -233,14 +341,12 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, scale: floa
     grid are copied first."""
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     dev = q.device
-    if dev.type == "cpu":
+    if _plain(q):
         return ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, scale=scale)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention_bwd: unsupported device {dev}")
-    grads = flash_attention_bwd_cuda(*(_aligned(t) for t in (q, k, v, o, do)), lse.contiguous(),
-                                     causal=causal, scale=scale)
-    KERNEL_LAUNCHES["flash_attention_bwd"] += 1
-    return grads
+    return _k3_bwd_op(*(_aligned(t) for t in (q, k, v, o, do)), lse.contiguous(), causal,
+                      float(scale))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -292,7 +398,36 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, scale: float | None = None):
     """:func:`flash_attention` over (B, S, H, D) tensors (v (B, S, H, Dv)),
     the layout of ``models/layers``: batch and heads fold into the first
-    dimension."""
+    dimension.  DTensors (a sharded model) run it on each rank's own batch
+    rows and heads through ``local_map``: q's shards of dims 0 and 2 are
+    kept, any other shard or partial sum is made whole first, and k and v
+    take q's placements."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _flash_bhsd_sharded(q, k, v, causal, scale)
+    return _flash_bhsd_local(q, k, v, causal, scale)
+
+
+def _flash_bhsd_sharded(q, k, v, causal, scale):
+    return local_heads(_flash_bhsd_local, q, k, v, causal, scale)
+
+
+def local_heads(fn, q, k, v, *args, **kw):
+    """``fn(q, k, v, *args, **kw)`` over DTensors q, k (B, S, H, D) and v
+    (B, S, H, Dv) on each rank's own batch rows and heads
+    (``local_map``): q's shards of dims 0 and 2 are kept, any other shard
+    or partial sum is made whole first, and k and v take q's placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in q.placements]
+    body = lambda q_, k_, v_: fn(q_, k_, v_, *args, **kw)
+    return local_map(body, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _flash_bhsd_local(q, k, v, causal, scale):
     B, S, H, _ = q.shape
     fold = lambda x: x.permute(0, 2, 1, 3).reshape(B * H, S, x.shape[-1])
     out = flash_attention(fold(q), fold(k), fold(v), causal=causal, scale=scale)

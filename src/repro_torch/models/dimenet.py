@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.utils import resolve_device
+from repro_torch.distributed.sharding_rules import NULL_CTX
 from repro_torch.models.layers import _init_dense
 from repro_torch.models.segment import FixedIndex, gather, segment_sum
 
@@ -232,7 +233,7 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ w.to(dt)
 
 
-def _block(m, node_out, bp, rbf, sbf, e_valid, t_valid, fi_ti, fi_to, fi_dst):
+def _block(m, node_out, bp, rbf, sbf, e_valid, t_valid, fi_ti, fi_to, fi_dst, ctx=NULL_CTX):
     """One interaction block (the reference's ``block``): directional
     message passing, then the block's output summed to the nodes."""
     gate = _mm(rbf, bp["rbf_gate"])  # (E, h)
@@ -250,6 +251,7 @@ def _block(m, node_out, bp, rbf, sbf, e_valid, t_valid, fi_ti, fi_to, fi_dst):
     mm = F.silu(_mm(mm, bp["w_update1"]))
     m_new = m + F.silu(_mm(mm, bp["w_update2"]))  # residual
     m_new = torch.where(e_valid[:, None], m_new, 0.0)
+    m_new = ctx.constrain(m_new, "batch", None)
     contrib = _mm(segment_sum(m_new * gate, fi_dst), bp["out_proj"])
     return m_new, node_out + contrib
 
@@ -265,6 +267,7 @@ def apply_batched(
     z=None,  # (B, n) species
     node_feat=None,  # (B, n, d_feat) when cfg.d_node_feat
     node_mask=None,  # (B, n) bool
+    ctx=NULL_CTX,
 ):
     """The reference's ``apply`` vmapped over B lanes (independent graphs of
     one padded shape), run as one disjoint graph: each lane's -1 entries
@@ -322,12 +325,13 @@ def apply_batched(
     m = F.silu(_mm(m, params["embed_msg"]["w1"]))
     m = F.silu(_mm(m, params["embed_msg"]["w2"]))  # (E, h)
     m = torch.where(e_valid[:, None], m, 0.0)
+    m = ctx.constrain(m, "batch", None)
 
     node_out = torch.zeros((N, cfg.d_hidden), dtype=m.dtype, device=dev)
     names = list(params["blocks"])
     for vals in zip(*(params["blocks"][k].unbind(0) for k in names)):
         m, node_out = checkpoint(_block, m, node_out, dict(zip(names, vals)), rbf, sbf, e_valid,
-                                 t_valid, fi_ti, fi_to, fi_dst, use_reentrant=False)
+                                 t_valid, fi_ti, fi_to, fi_dst, ctx, use_reentrant=False)
 
     h = F.silu(_mm(node_out, params["out_embed"]["w1"]))
     h = F.silu(_mm(h, params["out_embed"]["w2"]))
@@ -339,7 +343,7 @@ def apply_batched(
 
 
 def apply(params: dict, cfg: DimeNetConfig, *, positions, edge_index, t_in, t_out, z=None,
-          node_feat=None, node_mask=None):
+          node_feat=None, node_mask=None, ctx=NULL_CTX):
     """One graph: positions (n, 3), edge_index (2, E) and t_in / t_out (T,)
     -1 padded, z (n,) species or node_feat (n, d_feat), node_mask (n,)
     bool.  Returns (node_pred (n, out_dim), graph_pred (out_dim,)); padded
@@ -347,5 +351,6 @@ def apply(params: dict, cfg: DimeNetConfig, *, positions, edge_index, t_in, t_ou
     lane = lambda a: None if a is None else torch.as_tensor(a)[None]
     node_pred, graph_pred = apply_batched(
         params, cfg, positions=lane(positions), edge_index=lane(edge_index), t_in=lane(t_in),
-        t_out=lane(t_out), z=lane(z), node_feat=lane(node_feat), node_mask=lane(node_mask))
+        t_out=lane(t_out), z=lane(z), node_feat=lane(node_feat), node_mask=lane(node_mask),
+        ctx=ctx)
     return node_pred[0], graph_pred[0]

@@ -70,6 +70,23 @@ class AttentionConfig:
     kv_chunk: int = 1024
 
 
+def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    """(B, S, n_heads * hd) -> (B, S, n_heads, hd).  A DTensor whose last
+    dim is sharded over more ranks than there are heads (qwen2-72b's 8 KV
+    heads on 16-way TP) is made whole on those mesh dims first, as GSPMD
+    replicates such a head axis."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    B, S = x.shape[:2]
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == 2 and n_heads % mesh.size(i)
+              else p for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(B, S, n_heads, hd)
+
+
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(B, S, KV, hd) -> (B, S, KV*n_rep, hd) by head repetition (GQA)."""
     if n_rep == 1:
@@ -86,7 +103,14 @@ def _causal_mask(sq: int, skv: int, q_offset, device) -> torch.Tensor:
 
 
 def dot_attention(q, k, v, *, causal: bool, q_offset=0, scale=None):
-    """q (B, Sq, H, hd), k/v (B, Skv, H, hd) -> (B, Sq, H, hd).  f32 softmax."""
+    """q (B, Sq, H, hd), k/v (B, Skv, H, hd) -> (B, Sq, H, hd).  f32 softmax.
+    DTensors (a sharded model) run it on each rank's own batch rows and
+    heads, as K3 does (``ops.flash_attention_bhsd``)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return ops.local_heads(dot_attention, q, k, v, causal=causal, q_offset=q_offset,
+                               scale=scale)
     hd = q.shape[-1]
     scale = scale or (1.0 / math.sqrt(hd))
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
@@ -114,7 +138,11 @@ def _write_cache(cache: dict, new: dict, off, B: int, S: int, device) -> torch.T
     """Write each ``new[name]`` (B, S, ...) into ``cache[name]`` IN PLACE at
     ``off``: an int, a 0-d tensor, or a (B,) tensor of per-row offsets
     (slots).  Returns the new tokens' positions (B, S)."""
+    from torch.distributed.tensor import DTensor
+
     ar = torch.arange(S, device=device)
+    if isinstance(next(iter(cache.values())), DTensor):
+        return _write_cache_sharded(cache, new, int(off), B, S, ar)
     if isinstance(off, torch.Tensor) and off.ndim == 1:
         rows = torch.arange(B, device=device)[:, None]
         cols = off.to(device=device, dtype=torch.long)[:, None] + ar[None, :]
@@ -124,6 +152,31 @@ def _write_cache(cache: dict, new: dict, off, B: int, S: int, device) -> torch.T
     o = int(off)
     for name, t in new.items():
         cache[name][:, o: o + S] = t.to(cache[name].dtype)
+    return (o + ar)[None, :].expand(B, S)
+
+
+def _write_cache_sharded(cache: dict, new: dict, o: int, B: int, S: int, ar):
+    """:func:`_write_cache` into DTensor caches sharded by sequence (and by
+    batch): each rank writes the new rows that fall in its own sequence
+    shard, from the new values gathered over the sequence axes (their
+    heads made whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding_rules import shard_start
+
+    for name, t in new.items():
+        c = cache[name]
+        mesh = c.device_mesh
+        names = tuple(mesh.mesh_dim_names)
+        pl = [Shard(0) if p == Shard(0) else Replicate() for p in c.placements]
+        t_loc = t.redistribute(mesh, pl).to_local() if hasattr(t, "redistribute") else t
+        c_loc = c.to_local()
+        n_loc = c_loc.shape[1]
+        s0 = shard_start(mesh, [a for a, p in zip(names, c.placements) if p == Shard(1)],
+                         c.shape[1])
+        lo, hi = max(o, s0), min(o + S, s0 + n_loc)
+        if lo < hi:
+            c_loc[:, lo - s0: hi - s0] = t_loc[:, lo - o: hi - o].to(c_loc.dtype)
     return (o + ar)[None, :].expand(B, S)
 
 
@@ -164,9 +217,9 @@ def attention_apply(params, cfg: AttentionConfig, x, *, positions, causal: bool 
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, S, KV, hd)
+    q = apply_rope(_split_heads(q, H, hd), positions, cfg.rope_theta)
+    k = apply_rope(_split_heads(k, KV, hd), positions, cfg.rope_theta)
+    v = _split_heads(v, KV, hd)
 
     if kv_cache is None:
         out = _self_attention(cfg, q, k, v, causal)
@@ -180,16 +233,79 @@ def attention_apply(params, cfg: AttentionConfig, x, *, positions, causal: bool 
         out = _self_attention(cfg, q, k, v, causal)
         return out.reshape(B, S, H * hd) @ params["wo"], kv_cache
     ck, cv = kv_cache["k"], kv_cache["v"]
-    ok = _cache_mask(q_pos, ck.shape[1], causal)
-    # grouped einsum: the repeated KV is never materialized
-    G = H // KV
-    qg = q.reshape(B, S, KV, G, hd)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, ck.to(x.dtype)).to(torch.float32)
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(ck, DTensor):
+        out = _cached_attention_sharded(q, ck, cv, q_pos, causal, KV, x.dtype)
+    else:
+        out = _cached_attention(q, ck, cv, q_pos, causal, KV, x.dtype)
+    return out @ params["wo"], kv_cache
+
+
+def _cached_attention(q, ck, cv, q_pos, causal: bool, KV: int, dtype, s0: int = 0):
+    """GQA attention of q (B, S, H, hd) over a cache ck / cv (B, S_kv, KV,
+    hd) whose first row is position ``s0``: (B, S, H * hd), by a grouped
+    einsum (the repeated KV is never materialized)."""
+    B, S, H, hd = q.shape
+    kv_pos = s0 + torch.arange(ck.shape[1], device=q_pos.device)
+    ok = kv_pos[None, None, :] <= (q_pos[:, :, None] if causal else q_pos[:, -1:, None])
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, ck.to(dtype)).to(torch.float32)
     logits = logits / math.sqrt(hd)
     logits = torch.where(ok[:, None, None], logits, float("-inf"))
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, cv.to(x.dtype)).reshape(B, S, H * hd)
-    return out @ params["wo"], kv_cache
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bkgst,btkd->bskgd", probs, cv.to(dtype)).reshape(B, S, H * hd)
+
+
+def _cached_attention_sharded(q, ck, cv, q_pos, causal: bool, KV: int, dtype):
+    """:func:`_cached_attention` on DTensors whose cache is sharded by
+    sequence (the decode cells' layout) under ``local_map``: q's heads are
+    gathered (one token a row), each rank scores its own cache rows, and
+    the partial softmaxes merge across the sequence shards (flash
+    decoding: the rows' max, then the rescaled sums, all-reduced), the
+    merge GSPMD derives for the reference.  A cache sharded over no mesh
+    dim of more than one rank takes the one-device arithmetic."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding_rules import psum, shard_start
+
+    mesh = ck.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    big = lambda a: mesh.size(names.index(a)) > 1
+    seq_axes = [a for a, p in zip(names, ck.placements) if p == Shard(1) and big(a)]
+    b_axes = [a for a, p in zip(names, ck.placements) if p == Shard(0) and big(a)]
+    c_pl = [Shard(1) if a in seq_axes else Shard(0) if a in b_axes else Replicate()
+            for a in names]
+    q_pl = [Shard(0) if a in b_axes else Replicate() for a in names]
+    S_kv = ck.shape[1]
+
+    def local(q_l, k_l, v_l, pos):
+        b0 = shard_start(mesh, b_axes, pos.shape[0])
+        pos = pos[b0:b0 + q_l.shape[0]]
+        if not seq_axes:
+            return _cached_attention(q_l, k_l, v_l, pos, causal, KV, dtype)
+        s0 = shard_start(mesh, seq_axes, S_kv)
+        B, S, H, hd = q_l.shape
+        kv_pos = s0 + torch.arange(k_l.shape[1], device=pos.device)
+        ok = kv_pos[None, None, :] <= (pos[:, :, None] if causal else pos[:, -1:, None])
+        qg = q_l.reshape(B, S, KV, H // KV, hd)
+        logits = torch.einsum("bskgd,btkd->bkgst", qg, k_l.to(dtype)).to(torch.float32)
+        logits = torch.where(ok[:, None, None], logits / math.sqrt(hd), float("-inf"))
+        m = logits.amax(-1)
+        for a in seq_axes:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+        p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        den = psum(p.sum(-1), mesh, seq_axes)  # (B, KV, G, S)
+        num = psum(torch.einsum("bkgst,btkd->bskgd", p.to(dtype), v_l.to(dtype))
+                   .to(torch.float32), mesh, seq_axes)
+        out = num / den.permute(0, 3, 1, 2)[..., None]
+        return out.to(dtype).reshape(B, S, H * hd)
+
+    fn = local_map(local, out_placements=q_pl, in_placements=(q_pl, c_pl, c_pl, None),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, ck, cv, q_pos)
 
 
 # ---------------------------------------------------------------------------

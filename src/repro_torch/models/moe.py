@@ -26,9 +26,15 @@ are the same bits every run.  Grads reach the router through its softmax,
 the kept gates (``prob_buf``) and the load-balance loss's mean
 probabilities; the top-1 fractions carry none, as in the reference.
 
-Only the reference's local path (``_moe_apply_local``) is ported: on one
-device ``moe_apply`` is that path.  The expert-parallel ``shard_map`` path
-comes with the sharding rules (ROADMAP §1 item 10.4).
+On one device (``NULL_CTX``) ``moe_apply`` is the reference's local path
+(``_moe_apply_local``).  On a mesh it is the reference's expert-parallel
+schedule (``_moe_routed_shard_map``) under ``local_map``: each rank routes
+its batch shard's tokens (routing is replicated over the expert axes),
+runs :func:`_routed_core` for its own experts ``[e0, e0 + E_loc)`` only,
+sums the expert partials over the expert axes (``sharding_rules.psum``, an
+all-reduce that carries the gradient), averages over the remaining axes,
+and averages aux over the batch axes; the shared experts run outside, on
+DTensors.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding_rules import NULL_CTX, mesh_shape, pmean, psum, scale_grad
 from repro_torch.models.layers import _init_dense, mlp_apply
 
 
@@ -161,15 +168,17 @@ class _Combine(torch.autograd.Function):
         return _gather_slots(g, tok_buf), None, None, None
 
 
-def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, *, capacity_factor: float = 0.0):
-    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar).
-
-    ``capacity_factor`` overrides the config's (0 = the config's; < 0 =
-    dropless, as decode runs).  An assignment past its expert's capacity
-    is dropped: its token keeps its other top-k routes and the shared
-    experts."""
+def _routed_core(params, cfg: MoEConfig, x: torch.Tensor, capacity_factor: float, *,
+                 e0: int = 0, E_loc: int | None = None):
+    """Routing, dispatch and the expert FFNs of the experts ``[e0, e0 +
+    E_loc)`` (all of them by default) for x (B, S, d), whose ``w_gate`` /
+    ``w_up`` / ``w_down`` hold those experts only.  Returns (the routed
+    output (T, d) — those experts' contributions alone —, aux): the
+    reference's ``_routed_core``, and with every expert its local path
+    without the shared experts."""
     B, S, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    E_loc = E if E_loc is None else E_loc
     T = B * S
     C = capacity(cfg, T, capacity_factor)
     xf = x.reshape(T, d)
@@ -177,28 +186,109 @@ def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, *, capacity_factor: float
 
     probs, top_p, top_e = route(params, cfg, xf)
     # the Switch load-balance loss: mean router prob x top-1 fraction per expert
-    ce = torch.bincount(top_e[:, 0], minlength=E).to(torch.float32) / T
+    # (the top-1 counts by an integer index_add: bincount's counts, of a
+    # size known before the data, as a traced step needs)
+    top1 = torch.zeros(E, dtype=torch.long, device=dev).index_add_(
+        0, top_e[:, 0], torch.ones_like(top_e[:, 0]))
+    ce = top1.to(torch.float32) / T
     aux = cfg.aux_loss_weight * E * torch.sum(probs.mean(dim=0) * ce)
 
-    # dispatch: slot e * C + rank, or the dump slot E * C past capacity
+    # dispatch: slot (e - e0) * C + rank, or the dump slot E_loc * C past
+    # capacity or outside this rank's experts
     flat_e = top_e.reshape(T * K)
     flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
     rank = _ranks_within_expert(flat_e, E)
-    slot = torch.where(rank < C, flat_e * C + rank, E * C)
-    tok_buf = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    local_e = flat_e - e0
+    keep = (rank < C) & (local_e >= 0) & (local_e < E_loc)
+    slot = torch.where(keep, local_e * C + rank, E_loc * C)
+    tok_buf = torch.full((E_loc * C + 1,), T, dtype=torch.long, device=dev)
     tok_buf[slot] = flat_tok
-    prob_buf = torch.zeros(E * C + 1, dtype=torch.float32, device=dev)
+    prob_buf = torch.zeros(E_loc * C + 1, dtype=torch.float32, device=dev)
     prob_buf[slot] = top_p.reshape(T * K)
-    xe = _Dispatch.apply(xf, tok_buf[:E * C], slot, K).reshape(E, C, d)
+    xe = _Dispatch.apply(xf, tok_buf[:E_loc * C], slot, K).reshape(E_loc, C, d)
 
     g = torch.bmm(xe, params["w_gate"])
     u = torch.bmm(xe, params["w_up"])
     ye = torch.bmm(torch.nn.functional.silu(g) * u, params["w_down"])
-    ye = ye * prob_buf[:E * C].reshape(E, C, 1).to(ye.dtype)
+    ye = ye * prob_buf[:E_loc * C].reshape(E_loc, C, 1).to(ye.dtype)
 
     # combine: each assignment's slot row (the dump slot reads zeros), summed over k
-    y = _Combine.apply(ye.reshape(E * C, d), tok_buf[:E * C], slot, K)
+    return _Combine.apply(ye.reshape(E_loc * C, d), tok_buf[:E_loc * C], slot, K), aux
 
+
+def moe_apply(params, cfg: MoEConfig, x: torch.Tensor, *, ctx=NULL_CTX,
+              capacity_factor: float = 0.0):
+    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar).
+
+    ``capacity_factor`` overrides the config's (0 = the config's; < 0 =
+    dropless, as decode runs).  An assignment past its expert's capacity
+    is dropped: its token keeps its other top-k routes and the shared
+    experts.  On a mesh (``ctx.mesh``, DTensor params and x) the routed
+    experts take the expert-parallel path (:func:`_moe_routed_sharded`)."""
+    if ctx.mesh is not None:
+        routed, aux = _moe_routed_sharded(params, cfg, x, ctx, capacity_factor)
+        if "shared" in params:
+            routed = routed + mlp_apply(params["shared"], x)
+        return routed, aux
+    B, S, d = x.shape
+    y, aux = _routed_core(params, cfg, x, capacity_factor)
     if "shared" in params:
-        y = y + mlp_apply(params["shared"], xf)
+        y = y + mlp_apply(params["shared"], x.reshape(B * S, d))
     return y.reshape(B, S, d), aux
+
+
+def _moe_routed_sharded(params, cfg: MoEConfig, x, ctx, capacity_factor: float):
+    """The expert-parallel routed experts (the reference's
+    ``_moe_routed_shard_map``) on DTensors: ``local_map`` hands each rank
+    its batch shard of x (replicated over the other axes), the router whole
+    and its experts' weights (sharded by expert over the 'expert' axes).
+    Each rank's grads are its share of the total over the axes it does not
+    shard, so they come back as partial sums there (``in_grad_placements``);
+    aux, which the ranks of one batch shard compute alike, has its gradient
+    divided among them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ctx.mesh
+    shape = mesh_shape(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    expert_axes = tuple(a for a in ctx.rules.get("expert", ()) if a in shape)
+    batch_axes = tuple(a for a in ctx.rules.get("batch", ()) if a in shape)
+    if x.shape[0] % ctx.axis_size(*batch_axes):
+        batch_axes = ()  # tiny batch (long-decode B=1): replicate tokens
+    other_axes = tuple(a for a in names if a not in expert_axes + batch_axes)
+    ep = ctx.axis_size(*expert_axes)
+    n_other = ctx.axis_size(*other_axes)
+    if cfg.num_experts % ep:
+        raise ValueError(f"{cfg.num_experts} experts do not split over {ep} expert ranks")
+    E_loc = cfg.num_experts // ep
+
+    def on(axes, inside, outside):
+        return [inside if a in axes else outside for a in names]
+
+    x_pl = on(batch_axes, Shard(0), Replicate())
+    w_pl = on(expert_axes, Shard(0), Replicate())
+    rep = [Replicate()] * len(names)
+
+    def local(router, w_gate, w_up, w_down, x_loc):
+        e0, stride = 0, E_loc
+        for a in reversed(expert_axes):
+            e0 += mesh.get_local_rank(a) * stride
+            stride *= shape[a]
+        p = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+        out, aux = _routed_core(p, cfg, x_loc, capacity_factor, e0=e0, E_loc=E_loc)
+        out = psum(out, mesh, expert_axes)  # combine expert partials
+        out = pmean(out, mesh, other_axes)
+        aux = pmean(scale_grad(aux, 1.0 / (ep * n_other)), mesh, batch_axes)
+        return out.reshape(x_loc.shape), aux
+
+    fn = local_map(
+        local, out_placements=(x_pl, rep),
+        in_placements=(rep, w_pl, w_pl, w_pl, x_pl),
+        in_grad_placements=([Partial()] * len(names), on(expert_axes, Shard(0), Partial()),
+                            on(expert_axes, Shard(0), Partial()),
+                            on(expert_axes, Shard(0), Partial()),
+                            on(batch_axes, Shard(0), Partial())),
+        device_mesh=mesh, redistribute_inputs=True,
+    )
+    return fn(params["router"], params["w_gate"], params["w_up"], params["w_down"], x)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.utils import resolve_device
+from repro_torch.distributed.sharding_rules import NULL_CTX, psum
 from repro_torch.models.layers import _init_dense
 from repro_torch.models.segment import FixedIndex, gather, segment_sum
 
@@ -60,10 +61,44 @@ def embedding_table_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch
     return _init_dense(gen, (vocab, dim), dtype, scale=0.01)
 
 
-def embedding_lookup(table: torch.Tensor, ids) -> torch.Tensor:
+def _lookup_rows(table: torch.Tensor, flat_ids: torch.Tensor, ctx) -> torch.Tensor:
+    """``table[flat_ids]`` by the fixed-order gather.  Inside a sharded
+    step's ``local_map`` body, where ``ctx.rows`` names ``table`` as a
+    rank's row shard (``(mesh, axes, first row)``), the ids outside the
+    shard are masked, the rest looked up locally, and the rows summed over
+    the shard axes: the row-sharded table of the reference (LANNS's
+    level-1 sharding applied to tables)."""
+    shard = ctx.rows.get(id(table))
+    if shard is None:
+        return gather(table, FixedIndex(flat_ids, table.shape[0]))
+    mesh, axes, r0 = shard
+    rel = flat_ids - r0
+    mine = (rel >= 0) & (rel < table.shape[0])
+    rows = gather(table, FixedIndex(torch.where(mine, rel, 0), table.shape[0]))
+    return psum(torch.where(mine[:, None], rows, 0.0).to(table.dtype), mesh, axes)
+
+
+def row_shard_ctx(local_leaves, placements, n_rows, mesh):
+    """The ctx of a ``local_map`` body (``ShardingCtx.rows``): for each of
+    this rank's leaves sharded by row (``Shard(0)`` on some mesh axes, of
+    ``n_rows`` rows whole), its axes and first row."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding_rules import ShardingCtx, shard_start
+
+    names = tuple(mesh.mesh_dim_names)
+    rows = {}
+    for t, pls, n in zip(local_leaves, placements, n_rows):
+        axes = [a for a, pl in zip(names, pls) if pl == Shard(0)]
+        if axes:
+            rows[id(t)] = (mesh, axes, shard_start(mesh, axes, n))
+    return ShardingCtx(rows=rows)
+
+
+def embedding_lookup(table: torch.Tensor, ids, ctx=NULL_CTX) -> torch.Tensor:
     """Single-hot lookup: ids (...,) -> (..., dim); id -1 gives zeros."""
     ids = _on(ids, table.device)
-    out = gather(table, FixedIndex(ids.reshape(-1).clamp(min=0), table.shape[0]))
+    out = _lookup_rows(table, ids.reshape(-1).clamp(min=0), ctx)
     return torch.where((ids >= 0)[..., None], out.reshape(*ids.shape, table.shape[1]), 0.0)
 
 
@@ -96,7 +131,7 @@ def field_offsets(vocab_sizes) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(vocab_sizes)[:-1]]).astype(np.int32)
 
 
-def multi_field_lookup(tables: dict, sparse_ids, vocab_sizes) -> torch.Tensor:
+def multi_field_lookup(tables: dict, sparse_ids, vocab_sizes, ctx=NULL_CTX) -> torch.Tensor:
     """Per-field single-hot lookup: sparse_ids (B, F) against one fused table
     (total_rows, dim) with per-field row offsets — one gather instead of F.
 
@@ -105,7 +140,7 @@ def multi_field_lookup(tables: dict, sparse_ids, vocab_sizes) -> torch.Tensor:
     table = tables["table"]
     ids = _on(sparse_ids, table.device)
     flat = ids + _on(field_offsets(vocab_sizes), table.device)[None, :]
-    out = gather(table, FixedIndex(flat.reshape(-1).clamp(min=0), table.shape[0]))
+    out = _lookup_rows(table, flat.reshape(-1).clamp(min=0), ctx)
     return torch.where((ids >= 0)[..., None], out.reshape(*ids.shape, table.shape[1]), 0.0)
 
 
@@ -175,9 +210,10 @@ def autoint_init(gen: torch.Generator, cfg: AutoIntConfig) -> dict:
     return params
 
 
-def autoint_apply(params: dict, cfg: AutoIntConfig, sparse_ids) -> torch.Tensor:
+def autoint_apply(params: dict, cfg: AutoIntConfig, sparse_ids, ctx=NULL_CTX) -> torch.Tensor:
     """sparse_ids (B, F) -> logits (B,)."""
-    x = multi_field_lookup(params["tables"], sparse_ids, cfg.vocab_sizes)  # (B, F, d)
+    x = multi_field_lookup(params["tables"], sparse_ids, cfg.vocab_sizes, ctx)  # (B, F, d)
+    x = ctx.constrain(x, "batch", None, None)
     H, da = cfg.n_heads, cfg.d_attn
     for lp in params["attn_layers"]:
         B, F, _ = x.shape
@@ -234,15 +270,16 @@ def din_init(gen: torch.Generator, cfg: DINConfig) -> dict:
 
 
 def din_apply(params: dict, cfg: DINConfig, *, history, hist_len, target_item,
-              context_ids) -> torch.Tensor:
+              context_ids, ctx=NULL_CTX) -> torch.Tensor:
     """history (B, T) item ids; hist_len (B,); target_item (B,);
     context_ids (B, n_context) -> logits (B,).  Target attention:
     a(h, t) = MLP([h, t, h-t, h*t]), softmax over the first hist_len
     positions (the reference keeps softmax masking where the paper uses
     un-normalized sigmoid weights)."""
     table = params["item_table"]
-    h = embedding_lookup(table, history)  # (B, T, d)
-    t = embedding_lookup(table, target_item)  # (B, d)
+    h = embedding_lookup(table, history, ctx)  # (B, T, d)
+    t = embedding_lookup(table, target_item, ctx)  # (B, d)
+    h = ctx.constrain(h, "batch", None, None)
     tb = t[:, None, :].expand_as(h)
     feats = torch.cat([h, tb, h - tb, h * tb], dim=-1)
     scores = _mlp_apply(params["att_mlp"], feats, act=torch.sigmoid)[..., 0]
@@ -252,7 +289,7 @@ def din_apply(params: dict, cfg: DINConfig, *, history, hist_len, target_item,
     w = torch.softmax(scores, dim=-1).to(h.dtype)
     user = torch.einsum("bt,btd->bd", w, h)
     c = multi_field_lookup(params["ctx_tables"], context_ids,
-                           [cfg.context_vocab] * cfg.n_context)  # (B, C, d)
+                           [cfg.context_vocab] * cfg.n_context, ctx)  # (B, C, d)
     feat = torch.cat([user, t, c.reshape(user.shape[0], -1)], dim=-1)
     return _mlp_apply(params["mlp"], feat)[:, 0]
 
@@ -305,7 +342,7 @@ def _ln(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return ((xf - mu) * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
 
 
-def sasrec_encode(params: dict, cfg: SASRecConfig, item_seq) -> torch.Tensor:
+def sasrec_encode(params: dict, cfg: SASRecConfig, item_seq, ctx=NULL_CTX) -> torch.Tensor:
     """item_seq (B, T), -1 = padding -> hidden (B, T, d), zero at padding.
     Causal self-attention; a query row whose keys are all masked attends to
     nothing (the softmax's NaN becomes 0, as in the reference)."""
@@ -315,8 +352,9 @@ def sasrec_encode(params: dict, cfg: SASRecConfig, item_seq) -> torch.Tensor:
     B, T = item_seq.shape
     # the reference's ``x * np.sqrt(d)`` promotes to float32 (at least)
     dt = torch.promote_types(table.dtype, torch.float32)
-    x = (embedding_lookup(table, item_seq).to(dt) * math.sqrt(cfg.embed_dim)
+    x = (embedding_lookup(table, item_seq, ctx).to(dt) * math.sqrt(cfg.embed_dim)
          + params["pos_table"][:T].to(dt)[None])
+    x = ctx.constrain(x, "batch", None, None)
     H, d = cfg.n_heads, cfg.embed_dim
     dh = d // H
     pos = torch.arange(T, device=dev)
@@ -340,31 +378,32 @@ def sasrec_encode(params: dict, cfg: SASRecConfig, item_seq) -> torch.Tensor:
     return torch.where(pad[..., None], x, 0.0)
 
 
-def sasrec_apply(params: dict, cfg: SASRecConfig, item_seq) -> torch.Tensor:
+def sasrec_apply(params: dict, cfg: SASRecConfig, item_seq, ctx=NULL_CTX) -> torch.Tensor:
     """Full-vocab logits for every position, (B, T, n_items): only for
     small-vocab evaluation (training at 10M items uses
     ``sasrec_sampled_logits``)."""
-    hidden = sasrec_encode(params, cfg, item_seq)
-    return hidden @ params["item_table"].to(hidden.dtype).T
+    hidden = sasrec_encode(params, cfg, item_seq, ctx)
+    logits = hidden @ params["item_table"].to(hidden.dtype).T
+    return ctx.constrain(logits, "batch", None, "vocab")
 
 
 def sasrec_sampled_logits(params: dict, cfg: SASRecConfig, item_seq, pos_items,
-                          neg_items) -> tuple[torch.Tensor, torch.Tensor]:
+                          neg_items, ctx=NULL_CTX) -> tuple[torch.Tensor, torch.Tensor]:
     """SASRec's training objective (paper eq. 6): the scores of the positive
     next item and of one sampled negative per position, (B, T) each."""
-    hidden = sasrec_encode(params, cfg, item_seq)
-    pe = embedding_lookup(params["item_table"], pos_items)
-    ne = embedding_lookup(params["item_table"], neg_items)
+    hidden = sasrec_encode(params, cfg, item_seq, ctx)
+    pe = embedding_lookup(params["item_table"], pos_items, ctx)
+    ne = embedding_lookup(params["item_table"], neg_items, ctx)
     return (hidden * pe).sum(-1), (hidden * ne).sum(-1)
 
 
 def sasrec_score_candidates(params: dict, cfg: SASRecConfig, item_seq,
-                            candidates) -> torch.Tensor:
+                            candidates, ctx=NULL_CTX) -> torch.Tensor:
     """Scores of (n_cand,) or (B, n_cand) candidate items against the final
     hidden state: a batched dot.  The retrieval_cand cell's 1M-candidate scan
     goes through K1 instead (``serve.recsys.retrieval_step``)."""
-    last = sasrec_encode(params, cfg, item_seq)[:, -1]  # (B, d)
-    cand = embedding_lookup(params["item_table"], candidates).to(last.dtype)
+    last = sasrec_encode(params, cfg, item_seq, ctx)[:, -1]  # (B, d)
+    cand = embedding_lookup(params["item_table"], candidates, ctx).to(last.dtype)
     if cand.dim() == 2:
         return last @ cand.T
     return torch.einsum("bd,bcd->bc", last, cand)
@@ -418,15 +457,16 @@ def xdeepfm_init(gen: torch.Generator, cfg: XDeepFMConfig) -> dict:
     return params
 
 
-def xdeepfm_apply(params: dict, cfg: XDeepFMConfig, sparse_ids) -> torch.Tensor:
+def xdeepfm_apply(params: dict, cfg: XDeepFMConfig, sparse_ids, ctx=NULL_CTX) -> torch.Tensor:
     """sparse_ids (B, F) -> logits (B,): linear + CIN + deep MLP.
 
     CIN layer k: X^k_h = sum_{i,j} W^k_{h,i,j} (X^{k-1}_i * X^0_j), the
     outer product over feature maps contracted against the compress
     weights, in the reference's two einsums."""
-    x0 = multi_field_lookup(params["tables"], sparse_ids, cfg.vocab_sizes)  # (B, F, D)
+    x0 = multi_field_lookup(params["tables"], sparse_ids, cfg.vocab_sizes, ctx)  # (B, F, D)
+    x0 = ctx.constrain(x0, "batch", None, None)
     B, F, _ = x0.shape
-    lin = multi_field_lookup(params["linear"], sparse_ids, cfg.vocab_sizes)  # (B, F, 1)
+    lin = multi_field_lookup(params["linear"], sparse_ids, cfg.vocab_sizes, ctx)  # (B, F, 1)
     logit = lin.sum(dim=(1, 2))
     xk, cin_outs = x0, []
     for w in params["cin"]:
@@ -454,17 +494,18 @@ def init(cfg, seed: int = 0, device=None) -> dict:
     return _INIT[type(cfg)](gen, cfg)
 
 
-def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
+def forward(params: dict, cfg, batch: dict, ctx=NULL_CTX) -> torch.Tensor:
     """The serving forward of a cell (the reference's ``_forward_fn``): the
     logits (B,) of AutoInt, DIN and xDeepFM, SASRec's last hidden state
     (B, d), from a batch of the reference's keys."""
     if isinstance(cfg, AutoIntConfig):
-        return autoint_apply(params, cfg, batch["sparse_ids"])
+        return autoint_apply(params, cfg, batch["sparse_ids"], ctx)
     if isinstance(cfg, DINConfig):
         return din_apply(params, cfg, history=batch["history"], hist_len=batch["hist_len"],
-                         target_item=batch["target_item"], context_ids=batch["context_ids"])
+                         target_item=batch["target_item"], context_ids=batch["context_ids"],
+                         ctx=ctx)
     if isinstance(cfg, SASRecConfig):
-        return sasrec_encode(params, cfg, batch["item_seq"])[:, -1]
+        return sasrec_encode(params, cfg, batch["item_seq"], ctx)[:, -1]
     if isinstance(cfg, XDeepFMConfig):
-        return xdeepfm_apply(params, cfg, batch["sparse_ids"])
+        return xdeepfm_apply(params, cfg, batch["sparse_ids"], ctx)
     raise TypeError(type(cfg))

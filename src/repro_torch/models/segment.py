@@ -91,3 +91,48 @@ def segment_sum(x: torch.Tensor, fi: FixedIndex) -> torch.Tensor:
     """``jax.ops.segment_sum(x, fi.idx, num_segments=fi.n)`` in a fixed
     order; its backward is a gather."""
     return _SegmentSum.apply(x, fi)
+
+
+def sharded_lookup(table, ids):
+    """``table[ids]`` (ids >= 0; rows, then the ids' shape) for a DTensor
+    ``table`` sharded by row over some mesh axes (or replicated) and
+    DTensor ``ids`` sharded over others, through ``local_map``: each rank
+    masks the ids outside its rows, looks the rest up in its shard with the
+    fixed-order :func:`gather` and sums the shards' rows over the table's
+    axes (``sharding_rules.psum``).  The result is sharded as the ids are.
+    The table's gradient is its rows' share on each rank (a partial sum
+    over the ids' axes).  A table sharded over no mesh dim of more than
+    one rank is looked up whole (``table[ids]``, as on one device)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding_rules import psum, shard_start
+
+    mesh = table.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    t_axes = [a for a, p in zip(names, table.placements)
+              if isinstance(p, Shard) and mesh.size(names.index(a)) > 1]
+    if any(p != Shard(0) for p in table.placements if isinstance(p, Shard)):
+        raise ValueError(f"sharded_lookup: table placements {table.placements}; rows only")
+    ids_pl = [p if isinstance(p, Shard) and a not in t_axes else Replicate()
+              for a, p in zip(names, ids.placements)]
+    id_axes = [a for a, p in zip(names, ids_pl) if isinstance(p, Shard)]
+    t_pl = [Shard(0) if a in t_axes else Replicate() for a in names]
+    t_grad = [Shard(0) if a in t_axes else Partial() if a in id_axes else Replicate()
+              for a in names]
+    n_rows = table.shape[0]
+
+    def local(t_loc, ids_loc):
+        if not t_axes:  # the rows whole on this rank: one device's lookup
+            return t_loc[ids_loc.long()]
+        rel = ids_loc.reshape(-1).long() - shard_start(mesh, t_axes, n_rows)
+        mine = (rel >= 0) & (rel < t_loc.shape[0])
+        rows = gather(t_loc, FixedIndex(torch.where(mine, rel, 0), t_loc.shape[0]))
+        rows = torch.where(mine[:, None], rows, 0.0).to(t_loc.dtype)
+        out = psum(rows, mesh, t_axes)
+        return out.reshape(*ids_loc.shape, t_loc.shape[1])
+
+    fn = local_map(local, out_placements=ids_pl, in_placements=(t_pl, ids_pl),
+                   in_grad_placements=(t_grad, ids_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(table, ids)

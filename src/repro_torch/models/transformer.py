@@ -23,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.utils import resolve_device
+from repro_torch.distributed.sharding_rules import NULL_CTX
 from repro_torch.models import moe
 from repro_torch.models.layers import (
     AttentionConfig,
@@ -236,10 +237,137 @@ def init(cfg: TransformerConfig, seed: int = 0, device=None) -> Transformer:
     return Transformer(embed, ones(d), blocks, lm_head, dense_blocks)
 
 
-def _block_apply(cfg: TransformerConfig, bp, x, positions, cache, cache_offset):
+# ---------------------------------------------------------------------------
+# parameter specs (consumed by configs/families.py and the dry run)
+# ---------------------------------------------------------------------------
+
+
+def _spec_for(names: list, nd: int, M, D):
+    """The reference's spec of one leaf (its ``param_specs`` table): names
+    the leaf's path, nd its rank in the reference's layout (stacked block
+    leaves one more than here)."""
+    name = names[-1]
+    stacked = "blocks" in names[0]
+    lead = (None,) if stacked else ()
+    mk = lambda *tail: lead + tail
+    if name in ("wq", "wk", "wv", "w_gate", "w_up"):
+        if nd - len(lead) == 3:  # expert-stacked (E, d, f)
+            return mk(M, D, None)
+        return mk(D, M)
+    if name in ("wo", "w_down"):
+        if nd - len(lead) == 3:  # (E, f, d)
+            return mk(M, D, None)
+        return mk(M, D)
+    if name in ("bq", "bk", "bv"):
+        return mk(M)
+    if name == "embed":
+        # no-TP: shard the vocab rows, not d
+        return (M, D) if M is not None else (D, None)
+    if name == "lm_head":
+        return (D, M)
+    if name == "w_dkv":
+        return mk(D, None)  # latent down-proj: small, fsdp only
+    if name == "w_krope":
+        return mk(None, None)
+    if name in ("w_uk", "w_uv"):
+        return mk(D, M)  # up-proj column = heads
+    if name == "router":
+        return mk(None, None)
+    return mk(*([None] * (nd - len(lead))))
+
+
+def param_specs(params, cfg: TransformerConfig, ctx, *, fsdp: bool = True) -> dict:
+    """The reference's spec tree (``transformer.param_specs``) of an LM's
+    params, in the reference's layout: ``blocks`` / ``dense_blocks`` one
+    dict of stacked leaves, each spec with a ``None`` lead for the layer
+    axis.  A spec is a tuple (one entry a dim: None, a mesh axis or a tuple
+    of axes).
+
+    TP (Megatron): wq/wk/wv/w_gate/w_up column-sharded on 'model'; wo/w_down
+    row-sharded; embed/lm_head vocab-sharded; experts sharded on E.
+    FSDP: the other matrix dim additionally shards over the 'fsdp' axes
+    ('data').  ``params`` is a ``Transformer`` (or its ``param_tree``);
+    :func:`layer_specs` gives the specs of its own per-layer leaves.
+    """
+    M = ctx.spec("model")[0]  # mesh axis name (or None off-mesh)
+    D = ctx.spec("fsdp")[0] if fsdp else None  # weight-sharding axis
+    tree = param_tree(params) if isinstance(params, Transformer) else params
+
+    def walk(t, names, stacked_extra):
+        if isinstance(t, dict):
+            return {k: walk(v, names + [k], stacked_extra) for k, v in t.items()}
+        return _spec_for(names, t.ndim + stacked_extra, M, D)
+
+    out = {}
+    for key, sub in tree.items():
+        if key in ("blocks", "dense_blocks"):
+            out[key] = walk(sub[0], [key], 1)  # one layer's leaves, stacked there
+        else:
+            out[key] = walk(sub, [key], 0)
+    return out
+
+
+def layer_specs(params, cfg: TransformerConfig, ctx, *, fsdp: bool = True) -> dict:
+    """:func:`param_specs` on the port's own layout, a tree of
+    ``param_tree(params)``'s structure: each layer of ``blocks`` /
+    ``dense_blocks`` takes the stacked spec without its layer lead."""
+    tree = param_tree(params) if isinstance(params, Transformer) else params
+    specs = param_specs(tree, cfg, ctx, fsdp=fsdp)
+
+    def drop_lead(s):
+        return {k: drop_lead(v) for k, v in s.items()} if isinstance(s, dict) else s[1:]
+
+    out = dict(specs)
+    for key in ("blocks", "dense_blocks"):
+        if key in tree:
+            out[key] = [drop_lead(specs[key]) for _ in tree[key]]
+    return out
+
+
+def map_params(params: Transformer, fn) -> Transformer:
+    """Replace every parameter ``p`` of ``params`` (named by its path in
+    ``param_tree``, ``blocks/3/attn/wq``) with ``fn(name, p)``, a tensor
+    (a DTensor, to shard the model), in place; returns ``params``."""
+    for mod_name, mod in params.named_modules():
+        for key, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            name = (f"{mod_name}.{key}" if mod_name else key).replace(".", "/")
+            new = fn(name, p)
+            mod._parameters[key] = nn.Parameter(new, requires_grad=p.requires_grad)
+    return params
+
+
+def gather_fsdp(group, ctx):
+    """A block's params with their 'fsdp' mesh axes gathered (Shard ->
+    Replicate; the TP shards stay): the FSDP all-gather of a layer before
+    its use, which the reference leaves to GSPMD.  Its backward is the
+    grads' reduce-scatter.  Off a mesh, or on plain tensors, ``group``
+    itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if ctx.mesh is None:
+        return group
+    fsdp = set(ctx.rules.get("fsdp", ()))
+    names = ctx.mesh.mesh_dim_names
+
+    def gather(t):
+        if hasattr(t, "items"):  # a dict or a ParameterDict
+            return {k: gather(v) for k, v in t.items()}
+        if not isinstance(t, DTensor):
+            return t
+        target = [Replicate() if names[i] in fsdp else pl for i, pl in enumerate(t.placements)]
+        return t if target == list(t.placements) else t.redistribute(ctx.mesh, target)
+
+    return gather(group)
+
+
+def _block_apply(cfg: TransformerConfig, bp, x, positions, cache, cache_offset, ctx=NULL_CTX):
     """One transformer block -> (x, aux): aux the MoE layer's load-balance
     loss (float32), None for a dense MLP.  cache: this layer's slice of
-    every cache entry, or None."""
+    every cache entry, or None.  On a mesh the block's params are gathered
+    over the FSDP axes first (:func:`gather_fsdp`)."""
+    bp = gather_fsdp(bp, ctx)
     h = rms_norm(bp["attn_norm"], x)
     if cfg.attention == "mla":
         attn_out, _ = mla_apply(bp["attn"], cfg.mla_config, h, positions=positions,
@@ -248,34 +376,47 @@ def _block_apply(cfg: TransformerConfig, bp, x, positions, cache, cache_offset):
         attn_out, _ = attention_apply(bp["attn"], cfg.attn_config, h, positions=positions,
                                       kv_cache=cache, cache_offset=cache_offset)
     x = x + attn_out
+    x = ctx.constrain(x, "batch", None, None)
     h = rms_norm(bp["mlp_norm"], x)
     if "moe" in bp:
         # decode (one token against a cache) runs dropless, as the
         # reference does: capacity drops would part decode from prefill
         dropless = cache is not None and x.shape[1] == 1
+        on_mesh = {} if ctx.mesh is None else {"ctx": ctx}
         ff, aux = moe.moe_apply(bp["moe"], cfg.moe, h,
-                                capacity_factor=-1.0 if dropless else 0.0)
-        return x + ff, aux
-    return x + mlp_apply(bp["mlp"], h), None
+                                capacity_factor=-1.0 if dropless else 0.0, **on_mesh)
+        return ctx.constrain(x + ff, "batch", None, None), aux
+    return ctx.constrain(x + mlp_apply(bp["mlp"], h), "batch", None, None), None
 
 
-def _blocks_apply(cfg: TransformerConfig, blocks, x, positions, aux):
+def _blocks_apply(cfg: TransformerConfig, blocks, x, positions, aux, ctx=NULL_CTX):
     """Blocks in order over fresh tokens (no cache), each checkpointed when
     ``cfg.remat``: the reference's scan body under ``jax.checkpoint``.
     Returns (x, aux + the blocks' aux)."""
     for bp in blocks:
         if cfg.remat:
-            x, a = checkpoint(_block_apply, cfg, bp, x, positions, None, None,
+            x, a = checkpoint(_block_apply, cfg, bp, x, positions, None, None, ctx,
                               use_reentrant=False)
         else:
-            x, a = _block_apply(cfg, bp, x, positions, None, None)
+            x, a = _block_apply(cfg, bp, x, positions, None, None, ctx)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
+def _embed(params: Transformer, tokens, ctx):
+    """The token rows of ``embed``; on a mesh the rows of the
+    vocab-sharded (FSDP-gathered) table, each rank's own rows looked up
+    there and summed over the vocab shards (``segment.sharded_lookup``)."""
+    if ctx.mesh is None:
+        return params.embed[tokens]
+    from repro_torch.models.segment import sharded_lookup
+
+    return sharded_lookup(gather_fsdp({"e": params.embed}, ctx)["e"], tokens)
+
+
 def forward(params: Transformer, cfg: TransformerConfig, tokens, *, positions=None, cache=None,
-            cache_offset=None):
+            cache_offset=None, ctx=NULL_CTX):
     """tokens (B, S) integer -> (logits (B, S, V), cache, aux_loss), with
     gradients where autograd records.
 
@@ -288,9 +429,28 @@ def forward(params: Transformer, cfg: TransformerConfig, tokens, *, positions=No
     groups of K of them as well (the reference's two-level scan: only group
     boundaries are saved, and a group's backward recomputes it with its
     blocks checkpointed once more).
+
+    ``ctx`` (``distributed.sharding_rules``): on a mesh the params are
+    DTensors (``families.LMArch.build_cell`` places them by
+    :func:`layer_specs`), tokens a DTensor sharded over the batch axes, and
+    the activations are constrained where the reference constrains them;
+    with ``NULL_CTX`` (the default) nothing changes.
     """
+    if ctx.mesh is not None:
+        from torch.distributed.tensor import DTensor
+        from repro_torch.distributed.sharding_rules import implicit_replication
+
+        if not isinstance(tokens, DTensor):
+            raise ValueError("forward on a mesh takes tokens as a DTensor")
+        with implicit_replication():
+            return _forward(params, cfg, tokens, positions, cache, cache_offset, ctx,
+                            tokens.device)
     dev = params.embed.device
     tokens = torch.as_tensor(tokens).to(device=dev, dtype=torch.long)
+    return _forward(params, cfg, tokens, positions, cache, cache_offset, ctx, dev)
+
+
+def _forward(params, cfg, tokens, positions, cache, cache_offset, ctx, dev):
     S = tokens.shape[1]
     compute_dtype = getattr(torch, cfg.compute_dtype)
     if positions is None:
@@ -300,37 +460,40 @@ def forward(params: Transformer, cfg: TransformerConfig, tokens, *, positions=No
             positions = start.to(dev)[:, None] + ar[None, :]
         else:
             positions = int(start) + ar
-    x = params.embed[tokens].to(compute_dtype)
+    x = _embed(params, tokens, ctx).to(compute_dtype)
+    x = ctx.constrain(x, "batch", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     blocks = list(params.dense_blocks) + list(params.blocks)
     K = cfg.remat_group
     if cache is not None:
         for l, bp in enumerate(blocks):
             layer_cache = {name: c[l] for name, c in cache.items()}
-            x, a = _block_apply(cfg, bp, x, positions, layer_cache, cache_offset)
+            x, a = _block_apply(cfg, bp, x, positions, layer_cache, cache_offset, ctx)
             if a is not None:
                 aux = aux + a
     elif cfg.remat and K > 1 and len(params.blocks) % K == 0:
         n_dense = len(params.dense_blocks)
-        x, aux = _blocks_apply(cfg, blocks[:n_dense], x, positions, aux)
+        x, aux = _blocks_apply(cfg, blocks[:n_dense], x, positions, aux, ctx)
         for g in range(n_dense, len(blocks), K):
-            x, aux = checkpoint(_blocks_apply, cfg, blocks[g:g + K], x, positions, aux,
+            x, aux = checkpoint(_blocks_apply, cfg, blocks[g:g + K], x, positions, aux, ctx,
                                 use_reentrant=False)
     else:
-        x, aux = _blocks_apply(cfg, blocks, x, positions, aux)
-    x = rms_norm(params.final_norm, x)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = x @ head.to(compute_dtype)
+        x, aux = _blocks_apply(cfg, blocks, x, positions, aux, ctx)
+    top = gather_fsdp({"norm": params.final_norm,
+                       "head": params.embed.T if cfg.tie_embeddings else params.lm_head}, ctx)
+    x = rms_norm(top["norm"], x)
+    logits = x @ top["head"].to(compute_dtype)
+    logits = ctx.constrain(logits, "batch", None, "vocab")
     return logits, cache, aux
 
 
 @torch.no_grad()
 def apply(params: Transformer, cfg: TransformerConfig, tokens, *, positions=None, cache=None,
-          cache_offset=None):
+          cache_offset=None, ctx=NULL_CTX):
     """:func:`forward` without gradients: the serving entry
     (``ServeEngine``)."""
     return forward(params, cfg, tokens, positions=positions, cache=cache,
-                   cache_offset=cache_offset)
+                   cache_offset=cache_offset, ctx=ctx)
 
 
 def make_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=torch.bfloat16,

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.utils import next_pow2
+from repro_torch.distributed.sharding_rules import NULL_CTX
 from repro_torch.models import transformer as tf
 
 
@@ -47,11 +48,13 @@ class Request:
     done: bool = False
 
 
-def make_prefill_fn(cfg: tf.TransformerConfig):
-    """(params, tokens (B, S), cache) -> (next_token_logits (B, V), cache)."""
+def make_prefill_fn(cfg: tf.TransformerConfig, ctx=NULL_CTX):
+    """(params, tokens (B, S), cache) -> (next_token_logits (B, V), cache).
+    ``ctx``: the sharding rules of a mesh (``distributed.sharding_rules``;
+    DTensor params and tokens), as ``transformer.forward`` takes them."""
 
     def prefill(params, tokens, cache):
-        logits, cache, _ = tf.apply(params, cfg, tokens, cache=cache, cache_offset=0)
+        logits, cache, _ = tf.apply(params, cfg, tokens, cache=cache, cache_offset=0, ctx=ctx)
         return logits[:, -1], cache
 
     return prefill
@@ -73,12 +76,14 @@ def make_bucketed_prefill_fn(cfg: tf.TransformerConfig):
     return prefill
 
 
-def make_decode_fn(cfg: tf.TransformerConfig):
+def make_decode_fn(cfg: tf.TransformerConfig, ctx=NULL_CTX):
     """(params, token (B, 1), cache, offset) -> (logits (B, V), cache): one
-    new token per row against a KV cache of length ``offset``."""
+    new token per row against a KV cache of length ``offset``; ``ctx`` as
+    :func:`make_prefill_fn` takes it."""
 
     def decode(params, token, cache, offset):
-        logits, cache, _ = tf.apply(params, cfg, token, cache=cache, cache_offset=offset)
+        logits, cache, _ = tf.apply(params, cfg, token, cache=cache, cache_offset=offset,
+                                    ctx=ctx)
         return logits[:, -1], cache
 
     return decode

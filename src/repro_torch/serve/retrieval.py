@@ -253,7 +253,12 @@ def _segment_scan_topk(q_seg, x_seg, ids_seg, xn_seg, k, metric, block_n=2048,
     if (x_seg.dtype == torch.int8) != (scale is not None):
         raise ValueError("an int8 corpus needs its scale, and only it takes one")
     if x_seg.dtype == torch.float32:
-        counts = (ids_seg >= 0).sum(-1).tolist()  # one host read a call
+        from torch._subclasses.fake_tensor import is_fake
+
+        if is_fake(ids_seg):  # a traced step (the dry run): every row counts
+            counts = [x_seg.shape[1]] * m
+        else:
+            counts = (ids_seg >= 0).sum(-1).tolist()  # one host read a call
         out_d, out_i = [], []
         for g in range(m):
             d, r = ops.distance_topk(q_seg[g], x_seg[g], k, metric, n_valid=counts[g])

@@ -57,10 +57,18 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init_state(params) -> dict:
     """{"step": int32 0, "m": zeros, "v": zeros}, the moments float32 and
-    shaped like the param tree, on the params' devices."""
+    shaped like the param tree, on the params' devices (DTensors placed as
+    the params where they are DTensors)."""
+    from torch.distributed.tensor import DTensor
+
     tree = tree_of(params)
-    zeros = lambda: unflatten(tree, [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                                     for p in leaves(tree)])
+
+    def zero(p):  # a sharded param's moments are sharded alike
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    zeros = lambda: unflatten(tree, [zero(p) for p in leaves(tree)])
     dev = leaves(tree)[0].device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev), "m": zeros(), "v": zeros()}
 
