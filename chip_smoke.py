@@ -159,6 +159,22 @@ Phases, each printed as JSON records; any failure exits non-zero:
    one saved state: params and moments bit-equal (the lookups' backward
    sums in a fixed order, ``models.segment``).  Then (f)
    ``examples/recsys_retrieval_torch.py`` on the card: its R@50.
+3h. the checkers (``repro_torch.analysis``): (a) right after 3e,
+   ``runtime.race_stress`` (8 submitter threads, ~6 s, seed 0) over 3e's
+   loaded paper scan index (1M x 128, 2 shards x 4 segments) with phase
+   3's queries: seeded submit / stop / drain churn of instrumented
+   ``AsyncAnnFrontend`` + ``SLOController`` pairs, K1 in every formed
+   batch; it fails unless the report is ok (no lock-order cycle, no
+   guarded-attribute violation, counters and publication consistent) and
+   K1 launched; cycles, submitted, completed, cancelled, degrades and the
+   lock edges observed are printed.  (b) ``python -m repro_torch.analysis
+   --strict`` over the port in a host process started beside phases 5-6d:
+   its exit code (it fails on any other than 0), findings by code and the
+   suppressions.  (c) after 4b, the footprint model
+   (``scalecheck.footprint_report``) at each measured cell's own dims (3,
+   3b, 4, 4b: resident scan bytes; 3c, 3d: ``hnsw_resident_bytes``):
+   predicted, measured and their ratio; it fails where measured exceeds
+   predicted (the model is a bound).
 5. LM prefill at the reference's prefill_32k shape: smollm-360m at full
    width and depth, ``serving_config(..., "prefill")`` (bf16, q_chunk 1024),
    bf16 cache, S = 32,768, B = 1 (cut from 32): seconds, tokens/s, K3
@@ -294,7 +310,7 @@ Phases, each printed as JSON records; any failure exits non-zero:
    kernel launches, device busy time and idle share, the top kernels by
    device time.
 8. the kernels line: launches on the main path (K1: phases 3, 3c's ground
-   truth, 3e, 3f, 4 and 3g; K2: 3b and 4b; K3: 5, 6, 6b's, 6d's and 6f's
+   truth, 3e, 3h (a), 3f, 4 and 3g; K2: 3b and 4b; K3: 5, 6, 6b's, 6d's and 6f's
    forward launches and 6c; K3-bwd: 6b's, 6d's and 6f's steps and their
    card-vs-CPU checks; the HNSW beam and DimeNet's training (6e, 6f) are torch ops and
    launch none of them, which the line's ``not_launched_by`` says), max
@@ -793,6 +809,7 @@ def phase_paper(n: int = 1_000_000, n_queries: int = 10_000, batch: int = 1024,
     t0 = time.perf_counter()
     idx.build(corpus)
     build_s = time.perf_counter() - t0
+    resident = sum(p.vectors.numel() * 4 + p.keys.numel() * 8 for p in idx.partitions.values())
     idx.query(queries[:batch], topk)  # warm-up: allocator, first launch
 
     ops.reset_launches()
@@ -826,7 +843,7 @@ def phase_paper(n: int = 1_000_000, n_queries: int = 10_000, batch: int = 1024,
           "k1_launches_per_batch": launches_query / -(-len(queries) // batch),
           "split_ms": split,
           "recall": {f"R@{k}": v for k, v in rec.items()},
-          "cpu_overlap_256": ov})
+          "resident_scan_bytes": resident, "cpu_overlap_256": ov})
     if ov < 0.999:
         raise AssertionError(f"GPU vs CPU id-set overlap {ov} < 0.999")
     if rec[100] < 0.5:
@@ -843,6 +860,7 @@ def phase_paper(n: int = 1_000_000, n_queries: int = 10_000, batch: int = 1024,
     time_kernel(torch.from_numpy(queries[:4096]).cuda(), torch.from_numpy(corpus).cuda(),
                 topk, "paper: brute-force query block")
     return {"launches": launches, "timing": timing, "index": idx,
+            "footprint": footprint_record(idx, "fp32_scan", resident),
             "data": (corpus, queries, gt_i, i_all)}
 
 
@@ -907,7 +925,8 @@ def phase_paper_q8(corpus, queries, gt_i, fp32_ids, batch: int = 1024, topk: int
     timing = time_q8_kernel(ex.parts[(0, 0)], q_sel, cfg.rerank_factor * plan.pstk,
                             "paper q8: partition (0,0), first batch")
     time_q8_kernel(ex.parts[(0, 0)], q_sel, 400, "paper q8: partition (0,0), k_pad 512")
-    return {"launches": launches["distance_topk_q8"], "timing": timing}
+    return {"launches": launches["distance_topk_q8"], "timing": timing,
+            "footprint": footprint_record(idx, "q8_scan", ex.resident_bytes())}
 
 
 def device_profile(fn) -> dict:
@@ -1086,7 +1105,7 @@ def phase_paper_hnsw(corpus, queries, gt_i, scan_ids, batch: int = 1024, topk: i
     if rec[100] < 0.5:
         raise AssertionError(f"hnsw recall@100 {rec[100]} is implausibly low")
     return {"launches": k1_launches, "state": state, "ids": i_all, "index": idx,
-            "build_s": build_s}
+            "build_s": build_s, "footprint": footprint_record(idx, "fp32_hnsw", resident)}
 
 
 def phase_paper_hnsw_q8(state, queries, gt_i, hnsw_ids, n_corpus: int, batch: int = 1024,
@@ -1126,11 +1145,12 @@ def phase_paper_hnsw_q8(state, queries, gt_i, hnsw_ids, n_corpus: int, batch: in
     n_cpu = 256
     _, i_cpu = cpu.query(queries[:n_cpu], topk)
     ov = overlap(i_all[:n_cpu], i_cpu)
+    resident = idx.hnsw_resident_bytes()
     emit({"phase": "paper_hnsw_q8", "queries": len(queries),
           "config": "3c's graphs, q8 beam, rerank_factor 2, rerank_store auto "
                     f"({stack['store_mode']})",
           "topk": topk, "batch": batch, "carry_and_encode_s": carry_s,
-          "resident_device_bytes": idx.hnsw_resident_bytes(),
+          "resident_device_bytes": resident,
           "exact_store_device_bytes": sum(st.device_nbytes() for st in stack["stores"]),
           "qps": len(queries) / query_s,
           "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
@@ -1141,7 +1161,8 @@ def phase_paper_hnsw_q8(state, queries, gt_i, hnsw_ids, n_corpus: int, batch: in
         raise AssertionError(f"q8 hnsw recall relative to fp32 hnsw {rel} < 0.95")
     if ov < 0.99:
         raise AssertionError(f"q8 hnsw GPU vs CPU id-set overlap {ov} < 0.99")
-    return {"recall_rel": rel, "index": idx, "ids": i_all}
+    return {"recall_rel": rel, "index": idx, "ids": i_all,
+            "footprint": footprint_record(idx, "q8_hnsw", resident)}
 
 
 def dir_bytes(root: str) -> int:
@@ -1224,7 +1245,7 @@ def load_point_record(res) -> dict:
 
 
 def serve_online(idx, label: str, queries, gt_i, *, topk: int = 100, max_batch: int = 1024,
-                 sat_s: float = 3.0, point_s: float = 10.0, ab_s: float = 0.0,
+                 sat_s: float = 3.0, point_s: float = 7.0, ab_s: float = 0.0,
                  ladder=(80, 64)) -> dict:
     """(e) for one loaded index: the closed-loop saturation, Poisson points
     at 0.5x and 0.9x of it, 256 served requests against ``index.query``,
@@ -1320,7 +1341,7 @@ def beam_contention(idx, queries, topk: int = 100, reps: int = 5) -> dict:
 
 def phase_persist_serve(scan_idx, hnsw_idx, hnsw_q8_idx, corpus, queries, gt_i, scan_ids,
                         hnsw_ids, hnsw_q8_ids, hnsw_build_s: float, *, batch: int = 1024,
-                        topk: int = 100, sat_s: float = 3.0, point_s: float = 10.0,
+                        topk: int = 100, sat_s: float = 3.0, point_s: float = 7.0,
                         ab_s: float = 4.0) -> dict:
     """3e: persist and serve, on phase 3's data and 3c's / 3d's graphs
     (nothing is built at 1M again).  (a) save 3c's index and load it on the
@@ -1426,7 +1447,7 @@ def phase_persist_serve(scan_idx, hnsw_idx, hnsw_q8_idx, corpus, queries, gt_i, 
           **beam_contention(hnsw, queries, topk)})
     if k1 <= 0:
         raise AssertionError("3e: the scan served without launching K1")
-    return {"launches": k1}
+    return {"launches": k1, "scan_index": scan}
 
 
 def save_device_index(index, root: str) -> None:
@@ -1758,6 +1779,7 @@ def phase_deployment(n_full: int = 10_000_000, batch: int = 1024, topk: int = 10
     if r100 < 0.5:
         raise AssertionError(f"deployment recall@100 {r100} is implausibly low")
     return {"launches": launches, "timing": timing,
+            "footprint": footprint_record(idx, "fp32_scan", resident),
             "data": (corpus, queries, gt_i, i_r, n_full)}
 
 
@@ -1844,7 +1866,100 @@ def phase_deployment_q8(corpus, queries, gt_i, fp32_ids, n_full: int, batch: int
           "recall_at_100_1000q": r100, "recall_rel_fp32_at_100_1000q": rel})
     if r100 < 0.5:
         raise AssertionError(f"deployment q8 recall@100 {r100} is implausibly low")
-    return {"launches": launches, "timing": timing}
+    return {"launches": launches, "timing": timing,
+            "footprint": footprint_record(idx, "q8_scan", ex.resident_bytes())}
+
+# ------------------------------------------------------------ the checkers (3h)
+
+
+def footprint_record(idx, mode: str, measured: int) -> dict:
+    """A phase's resident device bytes and its index's own dims, for 3h
+    (c) to hold against the footprint model."""
+    from repro_torch.analysis.scalecheck import index_footprint_dims
+
+    return {"mode": mode, "dims": index_footprint_dims(idx), "measured_bytes": int(measured)}
+
+
+def phase_race_stress(scan_idx, queries, threads: int = 8, duration_s: float = 6.0,
+                      seed: int = 0) -> dict:
+    """3h (a): the seeded lifecycle churn of instrumented front ends over
+    3e's loaded paper scan index, on the card, with phase 3's queries."""
+    from repro_torch.analysis.runtime import race_stress
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    report = race_stress(threads=threads, duration_s=duration_s, seed=seed, index=scan_idx,
+                         queries=queries)
+    seconds = time.perf_counter() - t0
+    k1 = ops.KERNEL_LAUNCHES["distance_topk"]
+    rec = {"threads": threads, "duration_s": duration_s, "seed": seed, "seconds": seconds,
+           "cycles": report.cycles_run, "submitted": report.submitted,
+           "completed": report.completed, "cancelled": report.cancelled,
+           "controller_ticks": report.retunes, "degrades": report.degraded,
+           "lock_edges": sorted(f"{a}->{b}" for a, b in report.lock_edges),
+           "lock_cycles": report.lock_cycles, "violations": report.violations[:20],
+           "k1_launches": k1, "ok": report.ok}
+    emit({"phase": "checkers", "step": "a_race_stress", **rec})
+    if not report.ok:
+        raise AssertionError(f"3h (a): race stress failed:\n{report.render()}")
+    if k1 <= 0 or report.completed <= 0:
+        raise AssertionError(f"3h (a): K1 launched {k1} times, {report.completed} completed")
+    return {"launches": k1}
+
+
+def start_static_pass():
+    """3h (b)'s ``--strict`` pass over the port, in a host process (it needs
+    no card)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.analysis", "--strict"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_static_pass(proc) -> dict:
+    """3h (b): the pass's exit code, its findings by code and its
+    suppressions, read from the CLI's summary."""
+    import re
+
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=300)
+    summary = re.search(r"(\d+) finding\(s\), (\d+) suppressed", out)
+    active = {m.group(1): int(m.group(2))
+              for m in re.finditer(r"^  (LANNS\d+) \([\w-]+\): (\d+)$", out, re.M)}
+    suppressed = {}
+    for m in re.finditer(r"^  \S+:\d+: (LANNS\d+) -- ", out, re.M):
+        suppressed[m.group(1)] = suppressed.get(m.group(1), 0) + 1
+    rec = {"rc": proc.returncode, "wait_s": time.perf_counter() - t0,
+           "findings": int(summary.group(1)) if summary else None,
+           "findings_by_code": active,
+           "suppressed": int(summary.group(2)) if summary else None,
+           "suppressed_by_code": suppressed}
+    emit({"phase": "checkers", "step": "b_static_pass", **rec})
+    if proc.returncode != 0 or summary is None:
+        raise AssertionError(f"3h (b): --strict exited {proc.returncode}:\n{out[-3000:]}"
+                             f"\n{err[-2000:]}")
+    return rec
+
+
+def phase_footprint_calibration(records: dict) -> dict:
+    """3h (c): the footprint model at each measured cell's own dims against
+    the resident device bytes its phase measured; measured must not exceed
+    predicted (the model is a bound)."""
+    from repro_torch.analysis.scalecheck import footprint_report
+
+    cells = {}
+    for phase, rec in records.items():
+        predicted = footprint_report(rec["dims"])["metrics"][
+            f"footprint_{rec['mode']}_device_bytes"]
+        cells[phase] = {**rec, "predicted_bytes": int(predicted),
+                        "ratio": rec["measured_bytes"] / predicted}
+    emit({"phase": "checkers", "step": "c_footprint_calibration", "cells": cells})
+    over = {p: c for p, c in cells.items() if c["measured_bytes"] > c["predicted_bytes"]}
+    if over:
+        raise AssertionError(f"3h (c): measured bytes exceed the model: {over}")
+    return cells
+
 
 # ------------------------------------------------------------ recsys family
 
@@ -3955,6 +4070,7 @@ def main() -> int:
     persist = timed("3e", phase_persist_serve, paper.pop("index"), paper_hnsw.pop("index"),
                     paper_hnsw_q8.pop("index"), corpus, queries, gt_i, scan_ids, hnsw_ids,
                     paper_hnsw_q8.pop("ids"), paper_hnsw["build_s"])
+    race = timed("3h a", phase_race_stress, persist.pop("scan_index"), queries)
     serve_step = timed("3f", phase_serve_step, corpus, queries, gt_i)
     profile_batch = queries[1024:2048]
     del corpus, queries, gt_i, scan_ids, hnsw_ids
@@ -3962,15 +4078,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     deploy = timed("4", phase_deployment)
     deploy_q8 = timed("4b", phase_deployment_q8, *deploy.pop("data"))
+    timed("3h c", phase_footprint_calibration,
+          {phase: rec.pop("footprint") for phase, rec in (
+              ("3", paper), ("3b", paper_q8), ("3c", paper_hnsw), ("3d", paper_hnsw_q8),
+              ("4", deploy), ("4b", deploy_q8))})
     recsys = timed("3g", phase_recsys)
     # host work that needs no card runs beside the card's phases 5-6d: 6e's
-    # Reddit-sized graph and sampled lane, and 6f's dry runs
+    # Reddit-sized graph and sampled lane, 6f's dry runs and 3h (b)'s static
+    # pass
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     (ROOT / "build").mkdir(exist_ok=True)
     dry_path = str(ROOT / "build" / f"dryrun_6f_{os.getpid()}.json")
     dryrun = start_dryrun_jobs(dry_path, num_micro=4, global_batch=16, seq_len=4096)
+    static_pass = start_static_pass()
     lane_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
     try:
         lane = lane_pool.submit(gnn_minibatch_lane)
@@ -3983,8 +4105,12 @@ def main() -> int:
                                                  "full_graph_sm": gnn_full_graph_cell,
                                                  "minibatch_lg": lane.result})
         fam = timed("6f", phase_families, dryrun, dry_path)
+        timed("3h b", finish_static_pass, static_pass)
     finally:
         lane_pool.shutdown(cancel_futures=True)
+        if static_pass.poll() is None:
+            static_pass.kill()
+            static_pass.wait()
         if dryrun.poll() is None:
             dryrun.kill()
             dryrun.wait()
@@ -3994,7 +4120,7 @@ def main() -> int:
     del hnsw_state
     timed("6e profile", phase_gnn_profile, gnn)
     k1_scan_launches = (paper["launches"] + paper_hnsw["launches"] + persist["launches"]
-                        + serve_step["launches"] + deploy["launches"])
+                        + race["launches"] + serve_step["launches"] + deploy["launches"])
     k1_launches = k1_scan_launches + recsys["launches"]
     k2_launches = paper_q8["launches"] + deploy_q8["launches"]
     k3_launches = (prefill["launches"] + serve["launches"] + train["launches"]

@@ -583,7 +583,8 @@ class HNSWIndex:
     # Bulk insert (the wavefront build loop)
     # ------------------------------------------------------------------
 
-    def add_batch(
+    # lanns: dims[n<=180_000_000, d<=2048, C<=65536]
+    def add_batch(  # lanns: hotpath
         self,
         vectors: np.ndarray,
         keys: Optional[np.ndarray] = None,
@@ -837,7 +838,8 @@ class FrozenHNSW:
             self._device_cache[key] = torch.from_numpy(np.asarray(self.keys, np.int64)).to(device)
         return self._device_cache[key]
 
-    def search(self, queries, k: int, ef: Optional[int] = None, max_iters: int = 0, *,
+    # lanns: dims[B<=4096, k<=200, n<=33_554_432]
+    def search(self, queries, k: int, ef: Optional[int] = None, max_iters: int = 0, *,  # lanns: hotpath
                n_pad: Optional[int] = None, l_pad: Optional[int] = None, cached: bool = True,
                pad_queries: bool = True, device=None):
         """Batched beam search.  Returns (dists (B, k) float32, ids (B, k)
@@ -988,16 +990,16 @@ def _beam_search_lanes(arrs, queries, entry_rows, offsets, valid, *, k, ef, max_
         step = 0
         while True:
             nbrs, ok = _to_rows(adj[ep.clamp_min(0)], off)
-            nd = torch.where(ok, row_dist(q, nbrs.clamp_min(0)), inf)
+            nd = torch.where(ok, row_dist(q, nbrs.clamp_min(0)), inf)  # lanns: noqa[LANNS004] -- the beam's per-iteration launches: the known gap of ROADMAP §1 item 11 (the beam in one launch)
             j = nd.argmin(1, keepdim=True)
             bd = nd.gather(1, j)[:, 0]
             better = bd < ep_d
-            ep = torch.where(better, nbrs.gather(1, j)[:, 0], ep)
-            ep_d = torch.where(better, bd, ep_d)
+            ep = torch.where(better, nbrs.gather(1, j)[:, 0], ep)  # lanns: noqa[LANNS004] -- the beam's per-iteration launches: the known gap of ROADMAP §1 item 11 (the beam in one launch)
+            ep_d = torch.where(better, bd, ep_d)  # lanns: noqa[LANNS004] -- the beam's per-iteration launches: the known gap of ROADMAP §1 item 11 (the beam in one launch)
             step += 1
             if step % _UPPER_SYNC_EVERY == 0:
                 BEAM_COUNTERS["syncs"] += 1
-                if not bool(better.any()):
+                if not bool(better.any()):  # lanns: noqa[LANNS002] -- the upper walk's early exit, one sync every _UPPER_SYNC_EVERY steps (counted in BEAM_COUNTERS): ROADMAP §1 item 11
                     break
         BEAM_COUNTERS["upper_steps"] += step
 
@@ -1027,14 +1029,14 @@ def _beam_search_lanes(arrs, queries, entry_rows, offsets, valid, *, k, ef, max_
         # and its pick (the first slot: no slot is a frontier) clears a
         # flag that is already clear.  So stopped lanes keep their state
         # without a masked update.
-        b = torch.where(front, d, inf).argmin(1, keepdim=True)
+        b = torch.where(front, d, inf).argmin(1, keepdim=True)  # lanns: noqa[LANNS004] -- the beam's per-iteration launches: the known gap of ROADMAP §1 item 11 (the beam in one launch)
         nbrs, ok = _to_rows(adj0[ids.gather(1, b)[:, 0].clamp_min(0)], off)
         dup = (nbrs[:, :, None] == ids[:, None, :]).any(2)
         fresh = ok & ~dup & active[:, None]  # neighbours that enter the merge
-        nd = torch.where(fresh, row_dist(q, nbrs.clamp_min(0)), inf)
-        all_ids = torch.cat([ids, torch.where(fresh, nbrs, -1)], 1)
-        all_front = torch.cat([front.scatter(1, b, False), fresh], 1)
-        d, order = torch.sort(torch.cat([d, nd], 1), dim=1, stable=True)
+        nd = torch.where(fresh, row_dist(q, nbrs.clamp_min(0)), inf)  # lanns: noqa[LANNS004] -- the beam's per-iteration launches: the known gap of ROADMAP §1 item 11 (the beam in one launch)
+        all_ids = torch.cat([ids, torch.where(fresh, nbrs, -1)], 1)  # lanns: noqa[LANNS004] -- the beam's per-iteration launches: the known gap of ROADMAP §1 item 11 (the beam in one launch)
+        all_front = torch.cat([front.scatter(1, b, False), fresh], 1)  # lanns: noqa[LANNS004] -- the beam's per-iteration launches: the known gap of ROADMAP §1 item 11 (the beam in one launch)
+        d, order = torch.sort(torch.cat([d, nd], 1), dim=1, stable=True)  # lanns: noqa[LANNS004] -- the beam's per-iteration launches: the known gap of ROADMAP §1 item 11 (the beam in one launch)
         d, order = d[:, :ef], order[:, :ef]
         ids = all_ids.gather(1, order)
         front = all_front.gather(1, order)

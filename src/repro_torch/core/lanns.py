@@ -59,6 +59,10 @@ from repro_torch.quant.codec import Q8Corpus, quantize_q8
 from repro_torch.quant.rerank import ExactStore, resolve_store_mode
 from repro_torch.quant.twostage import QuantizedScanExecutor, _Q8Partition
 
+# Scale-safety contract (repro_torch.analysis.scalecheck): paper-scale
+# bounds — batches to 4096 queries, per-request topk <= 200, up to 4096
+# partitions of up to 2^25 pow2-padded rows each.
+# lanns: dims[B<=4096, k<=200, P<=4096, n_pad<=33_554_432]
 
 @dataclasses.dataclass(frozen=True)
 class LannsConfig:
@@ -215,6 +219,7 @@ class _Partition:
     def size(self) -> int:
         return self.n
 
+    # lanns: hotpath
     def search(self, queries: torch.Tensor, k: int):
         """(dists (B, k) float32, keys (B, k) int64) on the device; (inf, -1)
         past the partition's size.  fp32 partitions only: q8 partitions are
@@ -676,6 +681,7 @@ class LannsIndex:
             torch.cuda.synchronize(self.device)
         return self
 
+    # lanns: hotpath
     def query(self, queries, topk, *, ef=None, return_stats: bool = False,
               hnsw_mode: str = "stacked"):
         """Two-level partitioned search with perShardTopK (paper §5.3).
@@ -724,7 +730,7 @@ class LannsIndex:
         group_stats = []
         for tk, efv, rows in groups:
             res = self._query_group(
-                q_dev.index_select(0, torch.from_numpy(rows).to(self.device)), tk, efv,
+                q_dev.index_select(0, torch.from_numpy(rows).to(self.device)), tk, efv,  # lanns: noqa[LANNS004] -- one row-index upload per (topk, ef) knob group, not per query; the reference uploads each group's queries the same way
                 return_stats, hnsw_mode,
             )
             if return_stats:
@@ -752,7 +758,7 @@ class LannsIndex:
                 )
             return out_d, out_i
         out_d, out_i, plan = self._exec.execute(queries, topk, ef, hnsw_mode)
-        out_d, out_i = out_d.cpu().numpy(), out_i.cpu().numpy()  # the results' one sync
+        out_d, out_i = out_d.cpu().numpy(), out_i.cpu().numpy()  # lanns: noqa[LANNS003] -- the results' one designed host sync per executed (topk, ef) group
         self._exec.report(plan)  # the stage marks, now complete (telemetry only)
         if return_stats:
             return out_d, out_i, query_stats(pstk, plan.segments_visited, plan.merge_path)

@@ -78,6 +78,7 @@ def _stable_order(keys: torch.Tensor, order=None) -> torch.Tensor:
     return idx if order is None else torch.gather(order, -1, idx)
 
 
+# lanns: dims[C<=16_384, k<=200]
 def merge_topk_vec(dists: torch.Tensor, ids: torch.Tensor, k: int):
     """Dedup merge: semantics of ``merge_topk_np``, as tensor ops.
 
@@ -171,6 +172,7 @@ def _merge_topk_vec_np(dists: np.ndarray, ids: np.ndarray, k: int):
     return out_d.reshape(*lead, k), out_i.reshape(*lead, k)
 
 
+# lanns: dims[C<=16_384, k<=200]
 def merge_topk_disjoint_np(dists: np.ndarray, ids: np.ndarray, k: int):
     """Dedup-FREE top-k merge in numpy: one introselect + one partial sort
     per row.  Valid only when candidate ids are disjoint across the merged
@@ -192,6 +194,7 @@ def merge_topk_disjoint_np(dists: np.ndarray, ids: np.ndarray, k: int):
     return out_d.reshape(*lead, k), out_i.reshape(*lead, k)
 
 
+# lanns: dims[S<=64, m<=64, B<=4096, c<=1024, topk<=200]
 def two_level_merge_np(seg_dists: np.ndarray, seg_ids: np.ndarray, topk: int,
                        confidence: float = 0.95):
     """The full two-level merge of the offline path (paper §5.3.2).

@@ -45,6 +45,11 @@ from repro_torch.core.hnsw import beam_search_flat
 from repro_torch.core.merge import merge_topk_disjoint, merge_topk_vec, per_shard_topk
 from repro_torch.quant.rerank import exact_candidate_distances
 
+# Scale-safety contract for the beam-lane assembly (checked statically by
+# repro_torch.analysis.scalecheck at these bounds): up to 4096 partitions
+# of up to 2^25 pow2-padded rows each, 2048-d vectors, <=16k routed lanes
+# per batch, per-request topk <= 200.
+# lanns: dims[n_pad<=33_554_432, pi<=4095, T<=16_384, dim<=2048, pstk<=200]
 #: the flat HNSW row lattice (lane offsets, adjacency entries) is int32 on
 #: the device: every flattened row must stay below this
 _INT32_MAX = np.iinfo(np.int32).max
@@ -210,7 +215,7 @@ class QueryPlanExecutor:
         S = cfg.num_shards
         pstk = per_shard_topk(topk, S, cfg.topk_confidence)
         seg_mask = index.partitioner.route_queries(queries)  # (B, m)
-        mask_h = seg_mask.cpu().numpy()  # the host's one read of the routing
+        mask_h = seg_mask.cpu().numpy()  # lanns: noqa[LANNS003] -- the plan's one designed host read of the (B, m) routing mask: it sizes the per-segment launches and the beam's lanes
         segments_visited = mask_h.sum(axis=1)
         slot = torch.cumsum(seg_mask.to(torch.int64), dim=1) - 1
         max_routes = max(int(segments_visited.max()), 1)
@@ -404,13 +409,13 @@ class QueryPlanExecutor:
                                            mode=stack["store_mode"])
             if t_rr is not None:
                 timer.rerank.append((t_rr, timer.mark()))
-            ex = torch.where(invalid, float("inf"), ex)
+            ex = torch.where(invalid, float("inf"), ex)  # lanns: noqa[LANNS004] -- one exact re-rank per partition store (P iterations, not per query); the reference loops over the partitions the same way
             if kk < C:
-                order = torch.sort(ex, dim=1, stable=True).indices[:, :kk]
+                order = torch.sort(ex, dim=1, stable=True).indices[:, :kk]  # lanns: noqa[LANNS004] -- one exact re-rank per partition store (P iterations, not per query); the reference loops over the partitions the same way
                 d_lane, cand_sel = ex.gather(1, order), cand.gather(1, order)
             else:
                 d_lane, cand_sel = ex, cand
-            i_lane = torch.where(torch.isinf(d_lane), -1, stack["keys"][cand_sel + pi * n_pad])
+            i_lane = torch.where(torch.isinf(d_lane), -1, stack["keys"][cand_sel + pi * n_pad])  # lanns: noqa[LANNS004] -- one exact re-rank per partition store (P iterations, not per query); the reference loops over the partitions the same way
             sl = plan.slot[sel, g]
             plan.cand_d[sel, s, sl, :kk] = d_lane
             plan.cand_i[sel, s, sl, :kk] = i_lane
@@ -454,6 +459,7 @@ class QueryPlanExecutor:
             )
         return out_d, out_i
 
+    # lanns: hotpath
     def execute(self, queries: torch.Tensor, topk: int, ef: Optional[int] = None,
                 hnsw_mode: str = "stacked"):
         """route -> candidates -> merge for ONE (topk, ef) group; device

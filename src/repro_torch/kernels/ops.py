@@ -42,6 +42,14 @@ KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0, "flash_attention":
                    "flash_attention_bwd": 0}
 
 
+# Scale-safety contract (repro_torch.analysis.scalecheck): corpora arrive
+# padded to shared pow2 buckets of up to 2^25 rows; feature dims to 2048.
+# B and k are intentionally NOT declared here: k ranges over the
+# per-request knob set (bounded in core/lanns.py / core/plan.py where those
+# knobs are formed).
+# lanns: dims[N<=33_554_432, D<=2048]
+
+
 def reset_launches() -> None:
     for name in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[name] = 0
@@ -177,6 +185,7 @@ def _pad_topk(d: torch.Tensor, i: torch.Tensor, k: int):
     return torch.cat([d, pad_d], 1), torch.cat([i, pad_i], 1)
 
 
+# lanns: hotpath
 def distance_topk(q, x, k: int, metric: str = "l2", *, n_valid: int | None = None):
     """Top-k nearest rows of ``x`` for each row of ``q``.
 
@@ -260,6 +269,7 @@ def distance_topk_q8_codes(q_codes, x_codes, q_scale, norms2, k: int, metric: st
     return out_d[:, :k], out_i[:, :k]
 
 
+# lanns: hotpath
 def distance_topk_q8(q, qc, k: int, metric: str = "l2", *, n_valid: int | None = None):
     """Quantized top-k: rank the int8 corpus ``qc`` for each row of ``q``.
 

@@ -98,7 +98,7 @@ def q8_score_matrix(
     once — the same value as the reference's int32 -> float32 rounding.
     Then ONE float32 rescale, and the metric term, in the reference's order.
     """
-    dots = (q_codes.to(torch.float64) @ x_codes.to(torch.float64).T).to(torch.float32)
+    dots = (q_codes.to(torch.float64) @ x_codes.to(torch.float64).T).to(torch.float32)  # lanns: noqa[LANNS020] -- the plain version's exact int8 dot: float64 holds every int32 partial sum exactly; not a kernel, it runs only in tests and on the CPU
     qx = dots * q_scale[:, None]
     if metric == "l2":
         return norms2[None, :] - 2.0 * qx

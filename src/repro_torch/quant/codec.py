@@ -149,6 +149,7 @@ def quantize_queries_q8_t(q: torch.Tensor, scales: torch.Tensor):
     return q_codes, q_scale
 
 
+# lanns: dims[B<=4096, N<=33_554_432, D<=2048]
 def q8_scores_np(q: np.ndarray, qc: Q8Corpus, metric: str = "l2"):
     """Reference stage-1 scores (B, N), lower is better.
 

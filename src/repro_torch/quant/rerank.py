@@ -100,7 +100,8 @@ def _host_distances(q: np.ndarray, cand: np.ndarray, store: ExactStore, metric: 
     return exact_from_dots(dots, np.take(n2, cand), metric)
 
 
-def exact_candidate_distances(q, cand, store: ExactStore, metric: str, *, mode: str = "host"):
+# lanns: dims[b<=16_384, C<=1024, l_pad<=16_384]
+def exact_candidate_distances(q, cand, store: ExactStore, metric: str, *, mode: str = "host"):  # lanns: hotpath
     """Exact distances (b, C) for candidate rows ``cand`` (b, C) of ``store``.
 
     ``q`` (b, d) must already be metric-prepped (normalized for 'cos',
@@ -120,7 +121,7 @@ def exact_candidate_distances(q, cand, store: ExactStore, metric: str, *, mode: 
         return exact_from_dots(dots, n2[idx], metric)
     if mode != "host":
         raise ValueError(f"mode={mode!r} — expected 'host' or 'device'")
-    q_h = q.detach().cpu().numpy().astype(np.float32, copy=False)
-    c_h = cand.detach().cpu().numpy()
+    q_h = q.detach().cpu().numpy().astype(np.float32, copy=False)  # lanns: noqa[LANNS003] -- mode='host' re-ranks against the host store by design (the originals stay off the device); mode='device' reads nothing back
+    c_h = cand.detach().cpu().numpy()  # lanns: noqa[LANNS003] -- mode='host' re-ranks against the host store by design (the originals stay off the device); mode='device' reads nothing back
     ex = _host_distances(q_h, c_h, store, metric)
     return torch.from_numpy(np.ascontiguousarray(ex, dtype=np.float32)).to(dev)

@@ -33,7 +33,10 @@ class _Q8Partition:
     for l2, zeros for ip — resident on the device; the fp32 originals in an
     ``ExactStore``."""
 
-    def __init__(self, qc: Q8Corpus, vectors: np.ndarray, keys: torch.Tensor, metric: str,
+    # the paper's q8 deployment point — 10M rows (12.5M with slack) x 512d
+    # codes must fit a single 8 GiB device alongside headroom.
+    # lanns: dims[n_pad<=12_500_000, dim<=512]
+    def __init__(self, qc: Q8Corpus, vectors: np.ndarray, keys: torch.Tensor, metric: str,  # lanns: budget[device<=8GiB]
                  device: torch.device):
         self.n = qc.size
         self.dim = qc.dim
@@ -91,6 +94,7 @@ class QuantizedScanExecutor:
     def exact_store_device_bytes(self) -> int:
         return sum(p.store.device_nbytes() for p in self.parts.values())
 
+    # lanns: hotpath
     def run(self, queries: torch.Tensor, sels, slot: torch.Tensor, cand_d: torch.Tensor,
             cand_i: torch.Tensor, pstk: int, *, lane_width=None, timer=None):
         """Search every quantized partition; returns the handled set.
@@ -122,7 +126,7 @@ class QuantizedScanExecutor:
             if C < part.n:
                 cand = part.stage1(q_lane, C)
             else:  # C == n: every row is a candidate
-                cand = torch.arange(C, dtype=torch.int32, device=q_lane.device).expand(b, C)
+                cand = torch.arange(C, dtype=torch.int32, device=q_lane.device).expand(b, C)  # lanns: noqa[LANNS004] -- per-partition dispatch is the design: one K2 launch and one exact re-rank per routed partition (P iterations, not per query)
             t_rr = None if timer is None else timer.mark()
             ex = exact_candidate_distances(q_lane, cand, part.store, self.metric,
                                            mode=self.rerank_store)
@@ -130,8 +134,8 @@ class QuantizedScanExecutor:
                 timer.rerank.append((t_rr, timer.mark()))
             kk = min(W, C)
             if kk < C:
-                d_lane, loc = torch.topk(ex, kk, dim=1, largest=False)
-                rows = torch.gather(cand, 1, loc)
+                d_lane, loc = torch.topk(ex, kk, dim=1, largest=False)  # lanns: noqa[LANNS004] -- per-partition dispatch is the design: one K2 launch and one exact re-rank per routed partition (P iterations, not per query)
+                rows = torch.gather(cand, 1, loc)  # lanns: noqa[LANNS004] -- per-partition dispatch is the design: one K2 launch and one exact re-rank per routed partition (P iterations, not per query)
             else:
                 d_lane, rows = ex, cand
             i_lane = part.keys[rows.to(torch.int64)]

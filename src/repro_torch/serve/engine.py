@@ -484,7 +484,8 @@ class AnnFrontend:
             return out
         return out[len(out) - min(int(n), len(out)):] if n > 0 else []
 
-    def _execute(self, batch: list[AnnRequest], kind: str) -> list[AnnRequest]:
+    # lanns: dims[B<=4096, topk<=200, ef<=1024]
+    def _execute(self, batch: list[AnnRequest], kind: str) -> list[AnnRequest]:  # lanns: hotpath
         t_start = self.clock()
         q = np.stack([r.query for r in batch])
         # deadline-aware degrade: the controller may hand back per-request
@@ -727,6 +728,7 @@ class AsyncAnnFrontend(AnnFrontend):
 
     # -- batcher thread ------------------------------------------------------
 
+    # lanns: holds[_cond]
     def _take(self, kind: str) -> tuple[list[AnnRequest], str]:
         batch = self.pending[: self.max_batch]
         del self.pending[: self.max_batch]
