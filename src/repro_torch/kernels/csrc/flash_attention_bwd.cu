@@ -154,13 +154,13 @@ constexpr int BLOCK_THREADS = WG_THREADS * (1 + CONSUMERS);
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 
-// a matrix of D columns as panels of one swizzle row each
-template <int D>
-struct Panels {
-  static constexpr int CW = D < 64 ? D : 64;  // columns of a panel
-  static constexpr int NP = D / CW;           // panels
-  static constexpr int RB = 2 * CW;           // bytes of a panel row
-};
+// a bf16 matrix as panels, its TMA loads and tensor maps, and the split of
+// an accumulator tile into hi and lo A fragments: csrc/wgmma.cuh, shared
+// with K3's forward
+using wg::load_rows_tma;
+using wg::Panels;
+using wg::split_frags;
+using wg::tensor_map;
 
 // a block's tiles: owned BR rows, walked tiles of BT rows.  A pair of
 // matrices is (a, b): a of DQK columns (k or q), b of DV columns (v or dO).
@@ -205,18 +205,6 @@ __global__ void __launch_bounds__(256)
     l2 = lse[(size_t)blockIdx.y * S + r] * LOG2E;
   }
   if (lane == 0) rows[(size_t)blockIdx.y * S_pad + r] = make_float2(l2, s);
-}
-
-// a 64 x KR float32 tile in the accumulator layout -> bf16 hi and lo A
-// fragments, one per 16 columns
-template <int KR>
-__device__ __forceinline__ void split_frags(const float (&x)[KR / 2], uint32_t (&hi)[KR / 16][4],
-                                            uint32_t (&lo)[KR / 16][4]) {
-#pragma unroll
-  for (int c = 0; c < KR / 16; ++c)
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-      split_bf16(x[8 * c + 2 * f], x[8 * c + 2 * f + 1], hi[c][f], lo[c][f]);
 }
 
 // acc (64 x D) += x tile, x (64 x KR) given as its hi and lo fragments,
@@ -329,17 +317,6 @@ struct Ring {
     wg::mbar_fence_init();
   }
 };
-
-// the producer's loads of one matrix's rows [row0, row0 + rows) at batch-head
-// bh into a tile of `rows` rows at dst (panels P), one box of BOX rows and
-// P::CW columns at a time
-template <typename P, int BOX>
-__device__ __forceinline__ void load_rows_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int row0, int rows, int bh) {
-  for (int p = 0; p < P::NP; ++p)
-    for (int r = 0; r < rows; r += BOX)
-      wg::tma_load_3d(dst + (p * rows + r) * P::RB, map, bar, p * P::CW, row0 + r, bh);
-}
 
 // dk, dv: a block owns BR kv rows of one batch-head, each consumer
 // warpgroup 64 of them, and walks the q tiles that see them (causal: from
@@ -1167,53 +1144,6 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime so that the
-// library links no libcuda; null where it is missing
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a 3-D map over (BH, S, D) elements of `type` (D the columns of panels P)
-// with boxes of BOX rows and P::CW columns, swizzled as wide as a box row
-// (P::RB bytes); rows at or past S zero-fill inside a batch-head, and never
-// reach the next one's rows
-template <typename P, int BOX>
-bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S, CUtensorMapDataType type) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  constexpr int ES = P::RB / P::CW;  // bytes of an element
-  constexpr int D = P::NP * P::CW;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * ES, (cuuint64_t)S * D * ES};
-  const cuuint32_t box[3] = {(cuuint32_t)P::CW, (cuuint32_t)BOX, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = P::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : P::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // q, k (panels PA) and v, dO's (panels PB) maps
 template <typename PA, typename PB, int BOX>

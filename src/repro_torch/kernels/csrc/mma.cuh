@@ -1,8 +1,9 @@
-// The bfloat16 tensor-core pieces shared by K3 (flash_attention.cu) and its
-// gradient (flash_attention_bwd.cu): cp.async copies, ldmatrix, mma.sync
-// m16n8k16 with a float32 accumulator, the base-2 exponent, the split of a
-// float32 pair into two bf16 terms, and the 4-lane row reductions of the
-// m16n8 accumulator layout.
+// The pieces shared by K3 (flash_attention.cu), its gradient
+// (flash_attention_bwd.cu) and csrc/wgmma.cuh: cp.async copies, ldmatrix,
+// the base-2 exponent, the split of a float32 pair into two bf16 terms, the
+// 4-lane row reductions of the m16n8 accumulator layout (also each warp's
+// quarter of a wgmma accumulator), and the dynamic shared memory a kernel
+// may take.
 
 #pragma once
 
@@ -37,23 +38,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x; 0 for -inf

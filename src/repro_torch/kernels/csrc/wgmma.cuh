@@ -1,9 +1,11 @@
-// The Hopper pieces of K3-bwd (flash_attention_bwd.cu): mbarriers, TMA
-// tile loads, the shared-memory matrix descriptors that match the TMA box's
-// swizzle, and warpgroup MMAs with A from shared memory or registers:
-// m64nNk16 f32 += bf16 x bf16 (the bfloat16 path) and m64nNk8 f32 += tf32 x
-// tf32 (the float32 path's 3xTF32 products).  Written in inline PTX, as
-// mma.cuh and scan.cuh are; sm_90a only.
+// The Hopper pieces of K3 (flash_attention.cu, its bfloat16 forward) and
+// K3-bwd (flash_attention_bwd.cu): mbarriers, TMA tile loads and the tensor
+// maps behind them, the shared-memory matrix descriptors that match the TMA
+// box's swizzle, warpgroup MMAs with A from shared memory or registers:
+// m64nNk16 f32 += bf16 x bf16 (the bfloat16 paths) and m64nNk8 f32 += tf32
+// x tf32 (K3-bwd's float32 path's 3xTF32 products), setmaxnreg and named
+// barriers.  Written in inline PTX, as mma.cuh and scan.cuh are; sm_90a
+// only.
 //
 // Layout.  A matrix tile of R rows and D columns is stored as panels of
 // one swizzle row each (RB = 128, 64 or 32 bytes: CW = RB / 2 bf16 or
@@ -18,12 +20,15 @@
 // boundary.
 //
 // scan.cuh has its own mbarrier helpers (for cp.async arrivals); these
-// are kept apart so that an edit here rebuilds K3-bwd alone.
+// are kept apart so that an edit here rebuilds K3 and K3-bwd alone.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace wg {
 
@@ -180,7 +185,8 @@ __device__ __forceinline__ void fence_operand(uint32_t (&r)[N][4]) {
 // 8 j + 2 (lane % 4) + e % 2.
 template <int N, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  static_assert(N == 16 || N == 32 || N == 64, "m64n16k16, m64n32k16 or m64n64k16");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "m64n16k16, m64n32k16, m64n64k16 or m64n128k16");
   if constexpr (N == 16) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
@@ -216,7 +222,28 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(acc), "n"(TB));
   }
-
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
 }
 
 // d (64 x N, f32) += A B, A (64 x 16) from registers in the accumulator
@@ -345,6 +372,18 @@ __device__ __forceinline__ void mma_rs_tf32(float (&d)[N / 2], const uint32_t (&
   }
 }
 
+// a 64 x KR float32 tile in the accumulator layout -> bf16 hi and lo A
+// fragments of mma_rs, one per 16 columns: hi = bf16(x), lo = bf16(x - hi)
+template <int KR>
+__device__ __forceinline__ void split_frags(const float (&x)[KR / 2], uint32_t (&hi)[KR / 16][4],
+                                            uint32_t (&lo)[KR / 16][4]) {
+#pragma unroll
+  for (int c = 0; c < KR / 16; ++c)
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      mma::split_bf16(x[8 * c + 2 * f], x[8 * c + 2 * f + 1], hi[c][f], lo[c][f]);
+}
+
 // ------------------------------------------------- warp-specialised blocks
 
 template <int REGS>
@@ -367,6 +406,80 @@ __device__ __forceinline__ void fence_proxy_async() {
 template <int ID, int COUNT>
 __device__ __forceinline__ void bar_sync() {
   asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+}
+
+// this warp's arrival at named barrier ID, without waiting for the others
+template <int ID, int COUNT>
+__device__ __forceinline__ void bar_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+}
+
+// ------------------------------------------------------- tiles and tensor maps
+
+// a bf16 matrix of D columns as panels of one swizzle row each
+template <int D>
+struct Panels {
+  static constexpr int CW = D < 64 ? D : 64;  // columns of a panel
+  static constexpr int NP = D / CW;           // panels
+  static constexpr int RB = 2 * CW;           // bytes of a panel row
+};
+
+// the loads of one matrix's rows [row0, row0 + rows) at batch-head bh into
+// a tile of `rows` rows at dst (panels P, bf16 or float32), one box of BOX
+// rows and P::CW columns at a time; their bytes complete on `bar`
+template <typename P, int BOX>
+__device__ __forceinline__ void load_rows_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row0, int rows, int bh) {
+  for (int p = 0; p < P::NP; ++p)
+    for (int r = 0; r < rows; r += BOX)
+      tma_load_3d(dst + (p * rows + r) * P::RB, map, bar, p * P::CW, row0 + r, bh);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime so that the
+// library links no libcuda; null where it is missing
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 3-D map over (BH, S, D) elements of `type` (D the columns of panels P)
+// with boxes of BOX rows and P::CW columns, swizzled as wide as a box row
+// (P::RB bytes); rows at or past S zero-fill inside a batch-head, and never
+// reach the next one's rows
+template <typename P, int BOX>
+bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S, CUtensorMapDataType type) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  constexpr int ES = P::RB / P::CW;  // bytes of an element
+  constexpr int D = P::NP * P::CW;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * ES, (cuuint64_t)S * D * ES};
+  const cuuint32_t box[3] = {(cuuint32_t)P::CW, (cuuint32_t)BOX, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = P::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : P::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace wg

@@ -2,10 +2,14 @@
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::_flash_fwd_kernel``.  Both dtypes run
-on the tensor cores with ``mma.sync`` at float32 grade: bfloat16 with p
-split into two bf16 terms, float32 as a 3xTF32 split of every operand.
-This module checks the inputs, allocates the output and launches on
-PyTorch's current stream.
+on the tensor cores at float32 grade.  bfloat16 runs Hopper's warpgroup
+MMAs (``wgmma``) in a warp-specialised block: a producer warpgroup streams
+k and v tiles by TMA through a ring of shared-memory stages, two consumer
+warpgroups of 64 q rows each take turns on the tensor cores, and p @ v
+splits p into two bf16 terms (hi + lo) from the score accumulators.
+float32 runs ``mma.sync`` as a 3xTF32 split of every operand.  This module
+checks the inputs, allocates the output and launches on PyTorch's current
+stream.
 Nothing here runs at import: the library is built and loaded at the first
 launch.
 """
@@ -68,7 +72,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, c
         raise ValueError(f"flash_attention_cuda: BH={BH}, S={S}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: q, k and v must be 16-byte aligned "
-                         "(the kernel copies rows in 16-byte pieces)")
+                         "(the kernel copies rows in 16-byte pieces, or by TMA)")
     out = q.new_empty((BH, S, Dv))
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -402,6 +402,67 @@ def test_k3_float32_launches_are_bit_equal(cuda, BH, S, D, causal):
     assert torch.equal(a, b)
 
 
+# K3's bfloat16 instances ((D, Dv): D = Dv in 16-128 and MLA's (192, 128))
+K3_BF16_INSTANCES = [(16, 16), (32, 32), (64, 64), (128, 128), (192, 128)]
+
+
+def _k3_bf16_inputs(cuda, BH, S, D, Dv, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (torch.randn(BH, S, D, generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    return q, k, torch.randn(BH, S, Dv, generator=g, device=cuda).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", K3_BF16_INSTANCES)
+@pytest.mark.parametrize("BH,S,causal", [(15, 2048, True), (7, 1000, False), (3, 65, True)])
+def test_k3_bf16_launches_are_bit_equal(cuda, D, Dv, BH, S, causal):
+    """bfloat16 at every instance: two launches on the same inputs give the
+    same bits (no atomics, no split over kv: each output row is one
+    warpgroup's work in a fixed order)."""
+    q, k, v = _k3_bf16_inputs(cuda, BH, S, D, Dv, seed=S + D)
+    a = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5)
+    b = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", K3_BF16_INSTANCES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_k3_bf16_output_with_lse_is_bit_equal_to_output_without(cuda, D, Dv, causal):
+    """The lse instance only adds the store: its output is the other
+    instance's bit for bit, and its lse is the plain version's."""
+    q, k, v = _k3_bf16_inputs(cuda, 5, 1000, D, Dv, seed=D + Dv)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5, with_lse=True)
+    bare = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5)
+    _, lse_plain = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                                           with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    assert float((lse - lse_plain).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", K3_BF16_INSTANCES)
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 4097])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k3_bf16_tile_edges_match_plain(cuda, D, Dv, S, causal):
+    """bfloat16 at the edges of the kv tiles (128 rows up to Dv = 64, 64 past
+    it) and of the 128-row blocks (a block's two warpgroups of 64 q rows)
+    and past 4096, at every instance:
+    within 3e-2 of the plain version and ``ref.bf16_agreement`` <= 1
+    against it in float32, in one launch."""
+    q, k, v = _k3_bf16_inputs(cuda, 3, S, D, Dv, seed=S * D + Dv)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.KERNEL_LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (3, S, Dv)
+    assert float((out.float() - want).abs().max()) <= 3e-2
+    assert ref.bf16_agreement(out, want) <= 1.0
+
+
 @pytest.mark.cuda
 def test_card_lm_engine_matches_cpu(cuda):
     """A small LM served on the card (prefill through K3) and on the CPU:

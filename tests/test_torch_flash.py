@@ -4,9 +4,11 @@ kernel ``flash_attention_bhsd`` in interpret mode, the jnp
 ``chunked_attention`` and ``dot_attention``.  Limits are the reference's own
 (``tests/test_flash_attention.py``): max abs error 3e-5 in float32, 3e-2 in
 bfloat16.  ``ref.bf16_agreement``, the stricter bf16 check against the
-float32 function, is tested here too, and so is the 3xTF32 arithmetic of
-K3's float32 path, through an emulation.  K3 itself is held against its
-plain version on the card in ``test_torch_cuda.py``."""
+float32 function, is tested here too, and so is the arithmetic of K3's two
+paths, through emulations: the 3xTF32 products of float32, and bfloat16's
+p split into hi + lo with each kv tile folded by one rounded multiply-add.
+K3 itself is held against its plain version on the card in
+``test_torch_cuda.py``."""
 
 import math
 
@@ -16,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention import flash_attention_bhsd as jax_flash_bhsd
 from repro.models.layers import chunked_attention as jax_chunked
 from repro.models.layers import dot_attention as jax_dot
@@ -267,3 +270,84 @@ def test_tf32_emulation_keeps_ten_mantissa_bits():
     # hi + lo keeps 22 of float32's 24 significant bits; hi alone 11
     assert float(((hi + lo - x) / x).abs().max()) <= 2.0**-22
     assert float(((hi - x) / x).abs().max()) > 2.0**-13
+
+
+# K3's bfloat16 path (csrc/flash_attention.cu, wgmma) keeps the TPU
+# kernel's float32 arithmetic: q . k^T of bf16 values into float32 (exact
+# products), p split into two bf16 terms, p_hi = bf16(p) and p_lo = bf16(p -
+# p_hi), each kv tile's p @ v started from zero (the p_lo and then the p_hi
+# product of each k-step into one float32 sum) and folded into acc with one
+# rounded multiply-add, acc * corr + tile.  Emulated here at its kv tiles
+# (128 rows up to Dv = 64, 64 past it); the multiply-add is exact in float64
+# before its one rounding to float32.  The Pallas kernel takes v of q's head dim only, so MLA's (192,
+# 128) runs it with v padded by zero columns (attention is linear in each
+# column of v).
+def k3_bf16_block_k(Dv: int) -> int:
+    """Rows of K3's bfloat16 kv tile (``Tiles::BK``)."""
+    return 128 if Dv <= 64 else 64
+
+
+def _round_bf16(a: torch.Tensor) -> torch.Tensor:
+    return a.bfloat16().float()
+
+
+def _emulated_k3_bf16(q, k, v, causal, split=True):
+    """K3's bfloat16 arithmetic over (BH, S, D) q, k and (BH, S, Dv) v, float32
+    tensors of bf16 values; the output in bf16.  ``split=False`` keeps p_hi
+    alone (a bf16 p)."""
+    BH, S, D = q.shape
+    block_k = k3_bf16_block_k(v.shape[-1])
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
+    rows = torch.arange(S)[:, None]
+    m = torch.full((BH, S), -math.inf)
+    l, acc = torch.zeros(BH, S), torch.zeros(BH, S, v.shape[-1])
+    for k0 in range(0, S, block_k):
+        kt, vt = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        s = (q @ kt.transpose(1, 2)) * scale_log2
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[1])[None, :] > rows, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp2(m - m_safe), 0.0)
+        p = torch.exp2(s - m_safe[..., None])
+        l = l * corr + p.sum(-1)
+        hi = _round_bf16(p)
+        tile = _round_bf16(p - hi) @ vt + hi @ vt if split else hi @ vt
+        acc = (acc.double() * corr.double()[..., None] + tile.double()).float()
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).bfloat16()
+
+
+def _k3_bf16_vs_pallas(BH, S, D, Dv, causal, q_scale, split):
+    """``bf16_agreement`` of the emulation against the Pallas kernel in
+    interpret mode in float32 on the same bf16-valued inputs."""
+    rng = np.random.default_rng(BH * S + D + Dv)
+    q, k = (_round_bf16(torch.from_numpy(rng.standard_normal((BH, S, D)).astype(np.float32)))
+            for _ in range(2))
+    v = _round_bf16(torch.from_numpy(rng.standard_normal((BH, S, Dv)).astype(np.float32)))
+    q = _round_bf16(q * q_scale)
+    v_pad = torch.nn.functional.pad(v, (0, D - Dv))
+    want = np.asarray(jax_flash(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                jnp.asarray(v_pad.numpy()), causal=causal, interpret=True))
+    got = _emulated_k3_bf16(q, k, v, causal, split=split)
+    return ref.bf16_agreement(got, torch.from_numpy(np.array(want[..., :Dv])))
+
+
+# the edges of the 64- and 128-row kv tiles at every head dim, MLA's (192,
+# 128), and q scaled by 4 (a peaky softmax)
+K3_BF16_CASES = [(2, S, D, D, causal, 1.0) for D in (16, 32, 64, 128)
+                 for S in (1, 63, 65, 127, 129) for causal in (True, False)] + [
+    (2, S, 192, 128, causal, 1.0) for S in (65, 200) for causal in (True, False)] + [
+    (2, 129, 64, 64, True, 4.0), (2, 200, 192, 128, False, 4.0)]
+
+
+@pytest.mark.parametrize("BH,S,D,Dv,causal,q_scale", K3_BF16_CASES)
+def test_k3_bf16_emulation_matches_pallas_interpret(BH, S, D, Dv, causal, q_scale):
+    assert _k3_bf16_vs_pallas(BH, S, D, Dv, causal, q_scale, split=True) <= 1.0
+
+
+@pytest.mark.parametrize("BH,S,D,Dv,causal,q_scale", [
+    (2, 129, 64, 64, True, 1.0), (2, 200, 192, 128, False, 4.0), (2, 129, 128, 128, False, 1.0)])
+def test_k3_bf16_p_without_its_low_term_misses_the_agreement(BH, S, D, Dv, causal, q_scale):
+    """The same tiles with p rounded to bf16 (p_hi alone): why p is split."""
+    assert _k3_bf16_vs_pallas(BH, S, D, Dv, causal, q_scale, split=False) > 1.0
