@@ -11,18 +11,21 @@ Phases, each printed as JSON records; any failure exits non-zero:
 2. K1 vs plain: ``ops.distance_topk`` on CUDA tensors against
    ``ref.distance_topk_blocked`` on the same tensors, for l2/ip/cos,
    k in {10, 100, 200, 400} (k_pad 128/256/512), D in {50, 128, 960, 2048},
-   ragged B and N, n_valid < N, k > N and N == 0; the scan's tile edges
-   (B = 63 and 65 queries, N = 63 and 65 rows, a corpus chunk that ends
-   one row past or short of a whole chunk, at each k_pad) and D in {1, 7,
-   9, 33}.  rtol = atol = 3e-4; ids equal up to one swap per row between
-   near-equal distances at the k-th place.
+   ragged B and N, n_valid < N, k > N and N == 0; the batched scan's tile
+   edges (B = 127 and 129 queries, N = 63 and 65 rows, a corpus chunk that
+   ends one row past or short of a whole chunk, at each k_pad) and D in
+   {1, 7, 9, 33}; the batch edges (B in {1, 2, B_SMALL, B_SMALL + 1, 63,
+   65}: the small-batch scan, its threshold, a warpgroup's 64 queries) at
+   D in {7, 18, 50, 128, 512}, n_valid < N, each k_pad.  rtol = atol =
+   3e-4; ids equal up to one swap per row between near-equal distances at
+   the k-th place; every case launched twice, bit-equal.
 2b. K2 vs plain: ``ops.distance_topk_q8`` (int8 codes on the card) against
    ``ref.distance_topk_q8_blocked`` on the same tensors, for l2/ip/cos,
    k in {10, 38, 120, 228, 400}, D in {50, 128, 512, 960, 2048}, ragged B
    and N, n_valid < N, k > N and N == 0; phase 2's tile edges and D in
-   {31, 33} codes.  Scores BIT-EQUAL; ids equal up to
-   swaps between equal scores at the k-th place, and every returned id
-   carries its own plain score.  The torch query codes are bit-equal to the
+   {31, 33} codes, and phase 2's batch edges.  Scores BIT-EQUAL; ids equal
+   up to swaps between equal scores at the k-th place, and every returned
+   id carries its own plain score; every case launched twice, bit-equal.  The torch query codes are bit-equal to the
    numpy codec's.
 3. paper protocol: SIFT1M shape (paper Table 1), 2 shards x 4 RH segments,
    alpha 0.15, scan engine, l2, topk 100, batches of 1024: build seconds,
@@ -322,8 +325,11 @@ Phases, each printed as JSON records; any failure exits non-zero:
    buckets and its float32 checks, 6d's steps and checks, 6f's cell steps
    (6b's layer shape, timed there); K3-bwd's bf16 training steps (6b, 6d's
    GQA 128 and MLA (192, 128), 6f's) and their float32 checks; each with
-   its launches, times and bound).  Every phase's seconds are in the
-   ``total`` record's ``by_phase``.
+   its launches, times and bound; K2's at the paper and deployment q8
+   partitions).  Before it, K1's and K2's launches by (B, N = n_valid, D,
+   k_pad) over the same windows (``ops.LAUNCHES_BY_SHAPE``), summing to
+   the line's counts.  Every phase's seconds are in the ``total`` record's
+   ``by_phase``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 """
@@ -386,6 +392,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def shape_launches(name: str = "distance_topk") -> dict:
+    """K1's (or K2's) launches by shape since the last ``ops.reset_launches``:
+    {"B,N,D,k_pad": launches}, N the rows scanned (n_valid)."""
+    from repro_torch.kernels import ops
+
+    return {",".join(map(str, k)): n for k, n in ops.LAUNCHES_BY_SHAPE[name].items()}
+
+
+def add_shapes(*counts: dict) -> dict:
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
 
 
 def compare_topk(d_k, i_k, d_p, i_p, label: str, tol: float = TOL) -> tuple[float, int]:
@@ -472,6 +494,18 @@ def tile_edge_cases(k_pads=(128, 256, 512)) -> list:
     return cases
 
 
+def batch_edge_cases(metrics=("l2", "ip")) -> list:
+    """The scans' batch edges, as (metric, k, D, B, N, n_valid): B around
+    the small-batch threshold (1, 2, B_SMALL, B_SMALL + 1) and the
+    warpgroup's 64 queries (63, 65), at ragged and whole D, n_valid < N,
+    each k_pad."""
+    from repro_torch.kernels.distance_topk import B_SMALL
+
+    return [(metrics[(i + j) % len(metrics)], k, D, B, 5003, 4001)
+            for i, B in enumerate((1, 2, B_SMALL, B_SMALL + 1, 63, 65))
+            for j, D in enumerate((7, 18, 50, 128, 512)) for k in (100, 200, 400)]
+
+
 def phase_kernel_vs_plain() -> float:
     from repro_torch.kernels import ops, ref
 
@@ -491,12 +525,16 @@ def phase_kernel_vs_plain() -> float:
     ]
     cases += tile_edge_cases()
     cases += [(m, 100, D, 37, 5003, None) for D in (1, 7, 9, 33) for m in ("l2", "ip")]
+    cases += batch_edge_cases()
     max_err, swaps = 0.0, 0
     for metric, k, D, B, N, nv in cases:
         q = torch.randn(B, D, generator=gen, device="cuda")
         x = torch.randn(N, D, generator=gen, device="cuda")
         d_k, i_k = ops.distance_topk(q, x, k, metric, n_valid=nv)
+        d_2, i_2 = ops.distance_topk(q, x, k, metric, n_valid=nv)
         torch.cuda.synchronize()
+        if not (torch.equal(d_k, d_2) and torch.equal(i_k, i_2)):
+            raise AssertionError(f"{metric} k={k} D={D} B={B} N={N}: two runs differ")
         if N == 0:
             if not (torch.isinf(d_k).all() and (i_k == -1).all()):
                 raise AssertionError("N == 0 must give (inf, -1)")
@@ -505,7 +543,7 @@ def phase_kernel_vs_plain() -> float:
         err, sw = compare_topk(d_k, i_k, d_p, i_p, f"{metric} k={k} D={D} B={B} N={N} nv={nv}")
         max_err, swaps = max(max_err, err), swaps + sw
     emit({"phase": "kernel_vs_plain", "cases": len(cases), "max_abs_err": max_err,
-          "tie_swaps": swaps, "rtol": TOL, "atol": TOL})
+          "tie_swaps": swaps, "rtol": TOL, "atol": TOL, "repeat": "bit-equal"})
     return max_err
 
 
@@ -623,6 +661,7 @@ def phase_q8_kernel_vs_plain() -> float:
     ]
     cases += tile_edge_cases()
     cases += [(m, 100, D, 37, 5003, None) for D in (31, 33) for m in ("l2", "ip")]
+    cases += batch_edge_cases(("l2", "ip", "cos"))
     max_err, swaps = 0.0, 0
     for metric, k, D, B, N, nv in cases:
         label = f"q8 {metric} k={k} D={D} B={B} N={N} nv={nv}"
@@ -640,6 +679,10 @@ def phase_q8_kernel_vs_plain() -> float:
         metric_k = "l2" if metric == "l2" else "ip"
         d_k, i_k = ops.distance_topk_q8_codes(q_codes, codes, q_scale, norms2, k, metric_k,
                                               n_valid=nv)
+        d_2, i_2 = ops.distance_topk_q8_codes(q_codes, codes, q_scale, norms2, k, metric_k,
+                                              n_valid=nv)
+        if not (torch.equal(d_k, d_2) and torch.equal(i_k, i_2)):
+            raise AssertionError(f"{label}: two runs differ")
         d_p, i_p = ref.distance_topk_q8_blocked(q_codes, codes, q_scale, norms2, k, metric_k,
                                                 n_valid=nv)
 
@@ -656,7 +699,7 @@ def phase_q8_kernel_vs_plain() -> float:
             if set(r_w) - {-1} != set(r_k) - {-1}:
                 raise AssertionError(f"{label}: wrapper ids differ from the kernel's")
     emit({"phase": "q8_kernel_vs_plain", "cases": len(cases), "scores": "bit-equal",
-          "max_abs_err": max_err, "tie_swaps": swaps})
+          "max_abs_err": max_err, "tie_swaps": swaps, "repeat": "bit-equal"})
     return max_err
 
 
@@ -824,6 +867,7 @@ def phase_paper(n: int = 1_000_000, n_queries: int = 10_000, batch: int = 1024,
     launches_query = ops.KERNEL_LAUNCHES["distance_topk"]
     _, gt_i = brute_force_topk(queries, corpus, topk)
     launches = ops.KERNEL_LAUNCHES["distance_topk"]
+    by_shape = shape_launches()
     d_all, i_all = np.concatenate(dists), np.concatenate(ids)
     check_results(d_all, i_all, len(queries), topk, len(corpus), "paper")
     split = stage_split(
@@ -859,7 +903,7 @@ def phase_paper(n: int = 1_000_000, n_queries: int = 10_000, batch: int = 1024,
     # and the ground truth's shape: one 4096-query block over the corpus
     time_kernel(torch.from_numpy(queries[:4096]).cuda(), torch.from_numpy(corpus).cuda(),
                 topk, "paper: brute-force query block")
-    return {"launches": launches, "timing": timing, "index": idx,
+    return {"launches": launches, "by_shape": by_shape, "timing": timing, "index": idx,
             "footprint": footprint_record(idx, "fp32_scan", resident),
             "data": (corpus, queries, gt_i, i_all)}
 
@@ -887,6 +931,7 @@ def phase_paper_q8(corpus, queries, gt_i, fp32_ids, batch: int = 1024, topk: int
         ids.append(i)
     query_s = time.perf_counter() - t0
     launches = dict(ops.KERNEL_LAUNCHES)
+    by_shape = shape_launches("distance_topk_q8")
     if launches["distance_topk_q8"] <= 0 or launches["distance_topk"] != 0:
         raise AssertionError(f"paper q8: launches {launches}")
     d_all, i_all = np.concatenate(dists), np.concatenate(ids)
@@ -925,7 +970,7 @@ def phase_paper_q8(corpus, queries, gt_i, fp32_ids, batch: int = 1024, topk: int
     timing = time_q8_kernel(ex.parts[(0, 0)], q_sel, cfg.rerank_factor * plan.pstk,
                             "paper q8: partition (0,0), first batch")
     time_q8_kernel(ex.parts[(0, 0)], q_sel, 400, "paper q8: partition (0,0), k_pad 512")
-    return {"launches": launches["distance_topk_q8"], "timing": timing,
+    return {"launches": launches["distance_topk_q8"], "by_shape": by_shape, "timing": timing,
             "footprint": footprint_record(idx, "q8_scan", ex.resident_bytes())}
 
 
@@ -1066,6 +1111,7 @@ def phase_paper_hnsw(corpus, queries, gt_i, scan_ids, batch: int = 1024, topk: i
     ops.reset_launches()
     _, gt_sw = brute_force_topk(queries[:n_sw], corpus, topk)
     k1_launches = ops.KERNEL_LAUNCHES["distance_topk"]
+    by_shape = shape_launches()
     if k1_launches <= 0 or not np.array_equal(gt_sw, gt_i[:n_sw]):
         raise AssertionError("paper hnsw: the K1 ground truth differs from phase 3's")
     sweep = []
@@ -1104,7 +1150,8 @@ def phase_paper_hnsw(corpus, queries, gt_i, scan_ids, batch: int = 1024, topk: i
         raise AssertionError(f"hnsw GPU vs CPU id-set overlap {ov} < 0.99")
     if rec[100] < 0.5:
         raise AssertionError(f"hnsw recall@100 {rec[100]} is implausibly low")
-    return {"launches": k1_launches, "state": state, "ids": i_all, "index": idx,
+    return {"launches": k1_launches, "by_shape": by_shape, "state": state, "ids": i_all,
+            "index": idx,
             "build_s": build_s, "footprint": footprint_record(idx, "fp32_hnsw", resident)}
 
 
@@ -1434,6 +1481,7 @@ def phase_persist_serve(scan_idx, hnsw_idx, hnsw_q8_idx, corpus, queries, gt_i, 
                                            ab_s=ab, ladder=ladder)})
     stalls = window.deltas()
     k1 = ops.KERNEL_LAUNCHES["distance_topk"]
+    by_shape = shape_launches()
     emit({"phase": "persist_serve", "step": "e_window", "warm_traces_s": warm,
           "time_to_serve_s": {"hnsw": a["load_s"] + warm["hnsw"],
                               "scan": dd["load_s"] + warm["scan"]},
@@ -1447,7 +1495,7 @@ def phase_persist_serve(scan_idx, hnsw_idx, hnsw_q8_idx, corpus, queries, gt_i, 
           **beam_contention(hnsw, queries, topk)})
     if k1 <= 0:
         raise AssertionError("3e: the scan served without launching K1")
-    return {"launches": k1, "scan_index": scan}
+    return {"launches": k1, "by_shape": by_shape, "scan_index": scan}
 
 
 def save_device_index(index, root: str) -> None:
@@ -1531,6 +1579,7 @@ def serve_step_rank(mesh, jobs, queries, batch: int, topk: int) -> dict:
         out[label] = {"dists": np.concatenate(dists), "ids": np.concatenate(ids),
                       "seconds": seconds, "batch_ms": lat, "overflow": ovf,
                       "k1_launches": ops.KERNEL_LAUNCHES["distance_topk"],
+                      "k1_by_shape": shape_launches(),
                       "resident_bytes": resident, "per_shard_topk": info["per_shard_topk"],
                       "capacity": info["capacity"], "shard": info["shard"]}
         del arrays
@@ -1651,7 +1700,9 @@ def phase_serve_step(corpus, queries, gt_i, batch: int = 1024, topk: int = 100,
         if got != segments * n_batches:
             raise AssertionError(f"3f: K1 launched {got} times for {segments} segments x "
                                  f"{n_batches} batches")
-    return {"launches": sum(got for got, _ in launches)}
+    by_shape = add_shapes(a["full"]["k1_by_shape"], a["routed"]["k1_by_shape"],
+                          *(r["paper"]["k1_by_shape"] for r in b))
+    return {"launches": sum(got for got, _ in launches), "by_shape": by_shape}
 
 
 def phase_beam_profile(state, batch_queries: np.ndarray, topk: int = 100) -> dict:
@@ -1746,6 +1797,7 @@ def phase_deployment(n_full: int = 10_000_000, batch: int = 1024, topk: int = 10
             lat.append(start.elapsed_time(end))
     check_results(d_b, i_b, batch, topk, n, "deployment")
     launches_query = ops.KERNEL_LAUNCHES["distance_topk"]
+    by_shape = shape_launches()
 
     split = stage_split(idx, batches, topk)
     plan = idx._exec.plan(torch.from_numpy(batches[0]).cuda(), topk)
@@ -1760,6 +1812,7 @@ def phase_deployment(n_full: int = 10_000_000, batch: int = 1024, topk: int = 10
     _, i_r = idx.query(queries[:n_rec], topk)
     _, gt_i = brute_force_topk(queries[:n_rec], corpus, topk)
     launches = launches_query + ops.KERNEL_LAUNCHES["distance_topk"]
+    by_shape = add_shapes(by_shape, shape_launches())
     if ops.KERNEL_LAUNCHES["distance_topk_q8"] != 0:
         raise AssertionError("the fp32 path launched K2")
     r100 = recall_at_k(i_r, gt_i, topk)
@@ -1778,7 +1831,7 @@ def phase_deployment(n_full: int = 10_000_000, batch: int = 1024, topk: int = 10
           "recall_at_100_1000q": r100})
     if r100 < 0.5:
         raise AssertionError(f"deployment recall@100 {r100} is implausibly low")
-    return {"launches": launches, "timing": timing,
+    return {"launches": launches, "by_shape": by_shape, "timing": timing,
             "footprint": footprint_record(idx, "fp32_scan", resident),
             "data": (corpus, queries, gt_i, i_r, n_full)}
 
@@ -1816,6 +1869,7 @@ def phase_deployment_q8(corpus, queries, gt_i, fp32_ids, n_full: int, batch: int
             end.synchronize()
             lat.append(start.elapsed_time(end))
     launches_timed = ops.KERNEL_LAUNCHES["distance_topk_q8"]
+    by_shape = shape_launches("distance_topk_q8")
     if launches_timed <= 0 or ops.KERNEL_LAUNCHES["distance_topk"] != 0:
         raise AssertionError(f"deployment q8: launches {dict(ops.KERNEL_LAUNCHES)}")
     check_results(d_b, i_b, batch, topk, n, "deployment q8")
@@ -1846,6 +1900,7 @@ def phase_deployment_q8(corpus, queries, gt_i, fp32_ids, n_full: int, batch: int
     ops.reset_launches()
     _, i_r = idx.query(queries[:n_rec], topk)
     launches = launches_timed + ops.KERNEL_LAUNCHES["distance_topk_q8"]
+    by_shape = add_shapes(by_shape, shape_launches("distance_topk_q8"))
     r100 = recall_at_k(i_r, gt_i, topk)
     rel = recall_at_k(i_r, fp32_ids, topk)
     lat = np.asarray(lat)
@@ -1866,7 +1921,7 @@ def phase_deployment_q8(corpus, queries, gt_i, fp32_ids, n_full: int, batch: int
           "recall_at_100_1000q": r100, "recall_rel_fp32_at_100_1000q": rel})
     if r100 < 0.5:
         raise AssertionError(f"deployment q8 recall@100 {r100} is implausibly low")
-    return {"launches": launches, "timing": timing,
+    return {"launches": launches, "by_shape": by_shape, "timing": timing,
             "footprint": footprint_record(idx, "q8_scan", ex.resident_bytes())}
 
 # ------------------------------------------------------------ the checkers (3h)
@@ -1893,6 +1948,7 @@ def phase_race_stress(scan_idx, queries, threads: int = 8, duration_s: float = 6
                          queries=queries)
     seconds = time.perf_counter() - t0
     k1 = ops.KERNEL_LAUNCHES["distance_topk"]
+    by_shape = shape_launches()
     rec = {"threads": threads, "duration_s": duration_s, "seed": seed, "seconds": seconds,
            "cycles": report.cycles_run, "submitted": report.submitted,
            "completed": report.completed, "cancelled": report.cancelled,
@@ -1905,7 +1961,7 @@ def phase_race_stress(scan_idx, queries, threads: int = 8, duration_s: float = 6
         raise AssertionError(f"3h (a): race stress failed:\n{report.render()}")
     if k1 <= 0 or report.completed <= 0:
         raise AssertionError(f"3h (a): K1 launched {k1} times, {report.completed} completed")
-    return {"launches": k1}
+    return {"launches": k1, "by_shape": by_shape}
 
 
 def start_static_pass():
@@ -2036,7 +2092,7 @@ def phase_recsys(n_cand: int = 1_000_000, serve_batch: int = 512, train_batch: i
     torch.cuda.empty_cache()
     n_pad = padded_candidates(n_cand)
     gen = torch.Generator(device="cuda").manual_seed(21)
-    launches, archs, k1_shape = 0, {}, None
+    launches, archs, k1_shape, by_shape = 0, {}, None, {}
     for a_i, arch in enumerate(RECSYS_ARCH_IDS):
         t_arch = time.perf_counter()
         cfg = get_config(arch)
@@ -2082,6 +2138,7 @@ def phase_recsys(n_cand: int = 1_000_000, serve_batch: int = 512, train_batch: i
         if step_launches != 1:
             raise AssertionError(f"3g {arch}: {step_launches} K1 launches in a retrieval step")
         launches += step_launches
+        by_shape = add_shapes(by_shape, shape_launches())
         u = user_vector(p16, cfg16, user, proj)
         d_p, i_p = ref.distance_topk_blocked(u, cand32, 100, "ip", n_valid=n_cand)
         err, swaps = compare_topk(-scores, ids, d_p, i_p, f"3g {arch} retrieval_cand")
@@ -2121,6 +2178,7 @@ def phase_recsys(n_cand: int = 1_000_000, serve_batch: int = 512, train_batch: i
                 raise AssertionError(f"3g sasrec: {req_launches} K1 launches in {requests} "
                                      "requests")
             launches += req_launches
+            by_shape = add_shapes(by_shape, shape_launches())
             one = {"item_seq": seqs["item_seq"][:1]}
             tower_ms = event_ms(lambda: user_vector(p16, cfg16, one, proj), 50)
             k1_shape = time_kernel(u.contiguous(), cand32, 100,
@@ -2186,11 +2244,12 @@ def phase_recsys(n_cand: int = 1_000_000, serve_batch: int = 512, train_batch: i
     if ex_launches <= 0 or not 0.5 <= r50 <= 1.0:
         raise AssertionError(f"3g example: R@50 {r50}, K1 launches {ex_launches}")
     launches += ex_launches
+    by_shape = add_shapes(by_shape, shape_launches())
     emit({"phase": "recsys_summary", "n_cand": n_cand,
           "reduced": {"train_batch": f"{RECSYS_CELLS['train_batch']['global_batch']} -> "
                                      f"{train_batch}"},
           "example_r_at_50": r50, "example_k1_launches": ex_launches, "k1_launches": launches})
-    return {"launches": launches, "timing": k1_shape, "archs": archs}
+    return {"launches": launches, "by_shape": by_shape, "timing": k1_shape, "archs": archs}
 
 
 def k3_case(q, k, v, causal: bool, label: str, v_scale: float = 1.0) -> dict:
@@ -4130,6 +4189,13 @@ def main() -> int:
     if min(k1_launches, k2_launches, k3_launches, k3_bwd_launches) <= 0:
         raise AssertionError(f"a kernel of the main path was not launched: K1 {k1_launches}, "
                              f"K2 {k2_launches}, K3 {k3_launches}, K3-bwd {k3_bwd_launches}")
+    # K1's and K2's launches by (B, N, D, k_pad), the same windows as the counts
+    k1_by_shape = add_shapes(*(r["by_shape"] for r in (paper, paper_hnsw, persist, race,
+                                                        serve_step, deploy, recsys)))
+    k2_by_shape = add_shapes(paper_q8["by_shape"], deploy_q8["by_shape"])
+    if (sum(k1_by_shape.values()), sum(k2_by_shape.values())) != (k1_launches, k2_launches):
+        raise AssertionError(f"launches by shape {sum(k1_by_shape.values())} / "
+                             f"{sum(k2_by_shape.values())} != {k1_launches} / {k2_launches}")
     t1, t2 = paper["timing"], paper_q8["timing"]
     k3_instances = [
         {key: rec[key] for key in ("dtype", "BH", "S", "D", "Dv", "causal", "launches",
@@ -4148,6 +4214,11 @@ def main() -> int:
     k1_instances = [{key: rec[key] for key in k1_keys}
                     for rec in ({**t1, "launches": k1_scan_launches},
                                 {**recsys["timing"], "launches": recsys["launches"]})]
+    # K2's: 3b's launches timed at the paper q8 partition, 4b's at the deployment one
+    k2_keys = tuple(key for key in k1_keys if key != "metric")
+    k2_instances = [{key: rec[key] for key in k2_keys}
+                    for rec in ({**t2, "launches": paper_q8["launches"]},
+                                {**deploy_q8["timing"], "launches": deploy_q8["launches"]})]
     bwd_keys = ("shape", "dtype", "BH", "S", "D", "Dv", "causal", "launches", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend")
     # 6b's timed steps (bf16, timed in 2d), then 6b's card-vs-CPU check
@@ -4159,6 +4230,11 @@ def main() -> int:
     bwd_recs.append({**t4, "launches": fam["bwd_launches"]})  # 6f's steps, 6b's shape
     k3_bwd_instances = [{key: rec[key] for key in bwd_keys} for rec in bwd_recs]
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "by_phase": seconds})
+    emit({"launches_by_shape": {
+        name: [[*map(int, key.split(",")), n]
+               for key, n in sorted(counts.items(), key=lambda kv: -kv[1])]
+        for name, counts in (("distance_topk", k1_by_shape), ("distance_topk_q8", k2_by_shape))},
+        "key": ["B", "N", "D", "k_pad", "launches"]})
     emit({"kernels": [
         {"name": "distance_topk", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": k1_launches,
@@ -4171,7 +4247,8 @@ def main() -> int:
          "replaces": K2_REPLACES, "launches": k2_launches,
          "max_abs_err": max(max_err_q8, t2["max_abs_err"], deploy_q8["timing"]["max_abs_err"]),
          "ms": t2["ms"], "plain_ms": t2["plain_ms"], "bound_ms": t2["bound_ms"],
-         "bound_by": t2["bound_by"], "library_ms": t2["library_ms"]},
+         "bound_by": t2["bound_by"], "library_ms": t2["library_ms"],
+         "instances": k2_instances},
         {"name": "flash_attention", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": k3_launches,
          "max_abs_err": max(max_err_k3["f32"], max_err_k3["bf16"], prefill["max_abs_err"],

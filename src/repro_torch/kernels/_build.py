@@ -4,8 +4,8 @@ Each source compiles with ``nvcc`` into its own library with a plain C
 interface, loaded with ``ctypes``: one ``nvcc -c`` per translation unit,
 all of every source started together, then one link a library.  A source
 is one unit unless ``UNITS`` lists several, each with its own defines:
-K1's and K2's three k_pad instances and K3's two dtypes, the longest
-compiles, each build alone.  A library's file name carries a hash of its source, of the headers
+K1's six (k_pad, path) instances, K2's three k_pad instances and K3's two
+dtypes, the longest compiles, each built alone.  A library's file name carries a hash of its source, of the headers
 it includes (``#include "..."``, followed transitively), of the flags and
 of its units, so an edited source or header rebuilds the libraries that
 include it and no other.  Libraries go to
@@ -37,11 +37,15 @@ NVCC_FLAGS = (
 SOURCES = ("distance_topk.cu", "distance_topk_q8.cu", "flash_attention.cu",
            "flash_attention_bwd.cu")
 #: the translation units of a source built as several (the extra defines of
-#: each); a source not listed is one unit.  K1 and K2: the C entry, and each
-#: k_pad instance behind ``REPRO_K``.  K3: the C entry, the bfloat16
-#: instances (``REPRO_K3_BF16``) and the float32 ones (``REPRO_K3_F32``).
+#: each); a source not listed is one unit.  K2: the C entry, and each k_pad
+#: instance behind ``REPRO_K``; K1: the C entry, and each (k_pad, path)
+#: instance behind ``REPRO_K`` and ``REPRO_PATH`` (the batched scan 0, the
+#: small-batch scan 1).  K3: the C entry, the bfloat16 instances
+#: (``REPRO_K3_BF16``) and the float32 ones (``REPRO_K3_F32``).
 _K_UNITS = ((), ("-DREPRO_K=128",), ("-DREPRO_K=256",), ("-DREPRO_K=512",))
-UNITS = {"distance_topk.cu": _K_UNITS, "distance_topk_q8.cu": _K_UNITS,
+UNITS = {"distance_topk.cu": ((),) + tuple((f"-DREPRO_K={k}", f"-DREPRO_PATH={path}")
+                                           for k in (128, 256, 512) for path in (0, 1)),
+         "distance_topk_q8.cu": _K_UNITS,
          "flash_attention.cu": ((), ("-DREPRO_K3_BF16",), ("-DREPRO_K3_F32",))}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)

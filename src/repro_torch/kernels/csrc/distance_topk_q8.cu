@@ -1,5 +1,5 @@
 // K2: fused int8 distance + streaming top-k for Hopper (sm_90a), int8
-// tensor cores.
+// warpgroup MMAs.
 //
 // Replaces src/repro/kernels/distance_topk_q8.py::_distance_topk_q8_kernel,
 // the Pallas TPU kernel behind ops.distance_topk_q8: stage 1 of the
@@ -10,11 +10,11 @@
 //   l2: norms2[n] - 2 * qx   (the caller adds ||q||^2 back)
 //   ip: -qx                  (cos is ip over rows the caller normalized)
 //
-// Arithmetic: the dot is an exact int32 sum of int8 products from
-// mma.sync m16n8k32 s8.s8 -> s32 (|dot| <= 2048 * 127^2 fits int32 easily).
-// The rescale and the metric term are __fmul_rn / __fsub_rn, which the
-// compiler never contracts into an FMA, so every score rounds exactly where
-// the plain version (ref.q8_score_matrix) rounds: once at the int -> float
+// Arithmetic: the dot is an exact int32 sum of int8 products from wgmma
+// m64n64k32 s8.s8 -> s32 (|dot| <= 2048 * 127^2 fits int32 easily).  The
+// rescale and the metric term are __fmul_rn / __fsub_rn, which the compiler
+// never contracts into an FMA, so every score rounds exactly where the
+// plain version (ref.q8_score_matrix) rounds: once at the int -> float
 // conversion, once at the rescale, once at the subtraction.  Scores are
 // bit-equal to it at every D.
 //
@@ -22,25 +22,27 @@
 // 156,773 rows x 512) the work is 2*B*N*D = 5.5e10 int8 operations, 0.028
 // ms at the 1,979 TOP/s dense int8 tensor-core peak, against N*D + 4N + B*D
 // + 4B + 8*B*k_pad = 81 MB of traffic, 0.024 ms at 3.35 TB/s: both sides
-// come to ~0.03 ms.
+// come to ~0.03 ms.  The products themselves are a small part of the time:
+// what holds K2 back is the selection around them (PERF.md), which it
+// shares with K1.
 //
-// Design: K1's (csrc/scan.cuh, csrc/topk.cuh), with int8 MMAs in place of
-// the 3xTF32 split.  The m16n8k32 fragments sit on the same 32-bit words as
-// K1's m16n8k8 tf32 ones, so the ring, the ldmatrix reads and the top-k are
-// one code.  Against the dp4a version: (1) the tensor cores in place of the
-// SIMT integer pipe; (2) scores filtered in registers, no score tile; (3) a
-// producer warp and an mbarrier ring in place of block barriers; (4) lists
-// in the partial output, so k_pad 512 keeps the 64-query tile; (5) a
-// cp.async ring of q and x slices (and each tile's norms2); and chunks
-// prune each other with published bounds.  Rows are given as int words:
-// codes are zero-padded along D to a multiple of 4 by the caller, and a D
-// that is not a multiple of 32 codes zero-fills the last k-slice, which
-// leaves every dot exact.  n_valid is a runtime argument: rows >= n_valid
-// are neither read nor ranked.
+// Design: the batched scan of csrc/scan.cuh (see its note), with int8
+// wgmmas in place of K1's 3xTF32 products.  Codes need no split, so the
+// corpus slice that TMA lands is the wgmma's B as it is, and the block's q
+// slice its A (both K-major under the 128-byte swizzle, 32 bytes a k-step):
+// 4 m64n64k32 a slice, issued without waiting, each slice's stage released
+// once the next slice's wgmmas are issued and the previous ones are done.
+// With D <= 512 codes the q slices stay resident for the whole chunk.  The
+// producer brings each tile's norms2 with its last slice.  Rows are given
+// as int words: codes are zero-padded along D to a multiple of 4 by the
+// caller, and a D that is not a multiple of 128 codes zero-fills the last
+// slice, which leaves every dot exact.  n_valid is a runtime argument:
+// rows >= n_valid are neither read nor ranked.
 //
 // Interface: a plain C function for ctypes.  It launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,17 +52,12 @@ namespace {
 
 using scan::NJ;
 
-// c += a (16 x 32, row) . b (32 x 8, col), s8 in, exact s32 accumulate
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// the batched scan's operation: exact int8 dots of the q and corpus slices
 struct Q8Op {
+  static constexpr bool SPLIT = false;    // the slices are the operands as they land
+  static constexpr bool PIPELINED = true;  // shared-memory operands only
+  static constexpr int ELEM = 1;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   struct Args {
     const float* q_scale;
     const float* norms2;
@@ -71,9 +68,8 @@ struct Q8Op {
     float n2[NJ][2];  // norms2 of rows 8 j + 2 t, + 1 of the current tile
   };
   struct Acc {
-    int c[NJ][4];
+    int c[32];
   };
-  static constexpr bool AUX = true;
   __device__ static const float* aux_ptr(const Args& a) { return a.norms2; }
   __device__ static void init_lane(Lane& l, const Args& a, int h, int b) {
     l.qsc[h] = __ldg(a.q_scale + b);
@@ -86,28 +82,33 @@ struct Q8Op {
       l.n2[j][1] = v.y;
     }
   }
-
   __device__ static void zero(Acc& acc) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc.c[j][e] = 0;
+    for (int i = 0; i < 32; ++i) acc.c[i] = 0;
+    wg::fence_operand(acc.c);
   }
-
-  __device__ static void kstep(Acc& acc, Lane&, const uint32_t (&a)[4],
-                               const uint32_t (&bf)[NJ / 2][4]) {
+  __device__ static void fence(Acc& acc) { wg::fence_operand(acc.c); }
+  // one slice: warpgroup c's 64 query rows (A) against the tile's slice (B),
+  // 4 k-steps of 32 codes, issued and committed
+  __device__ static void slice(Acc& acc, const unsigned char*, uint32_t qs, uint32_t xs, int c,
+                               int, int, bool accumulate) {
+    const uint64_t a = wg::rows_desc<scan::SB>(qs) + ((64 * c * scan::SB) >> 4);
+    const uint64_t b = wg::rows_desc<scan::SB>(xs);
+    wg::fence_operand(acc.c);
+    wg::fence();
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      mma_s8(acc.c[j], a, bf[j / 2][2 * (j % 2)], bf[j / 2][2 * (j % 2) + 1]);
+    for (int kk = 0; kk < scan::KSTEPS; ++kk)
+      wg::mma_ss_s8(acc.c, a + 2 * kk, b + 2 * kk, accumulate || kk > 0);
+    wg::commit();
   }
 
   __device__ static void scores(float (&s)[NJ][4], const Acc& acc, const Lane& l,
-                                const Args& args, int) {
+                                const Args& args) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float qx = __fmul_rn(__int2float_rn(acc.c[j][e]), l.qsc[e >> 1]);
+        const float qx = __fmul_rn(__int2float_rn(acc.c[4 * j + e]), l.qsc[e >> 1]);
         s[j][e] = args.metric == 0 ? __fsub_rn(l.n2[j][e & 1], __fmul_rn(2.f, qx)) : -qx;
       }
   }
@@ -127,10 +128,8 @@ template <int K>
 cudaError_t k2_launch(const int* q, const int* x, const float* q_scale, const float* norms2,
                       float* part_d, int* part_i, float* out_d, int* out_i, int B, int D4,
                       int n_valid, int metric, int nsplit, int chunk, cudaStream_t stream) {
-  return scan::launch<Q8Op, K>(reinterpret_cast<const uint32_t*>(q),
-                               reinterpret_cast<const uint32_t*>(x),
-                               Q8Op::Args{q_scale, norms2, metric}, part_d, part_i, out_d, out_i,
-                               B, D4, n_valid, nsplit, chunk, stream);
+  return scan::launch<Q8Op, K>(q, x, Q8Op::Args{q_scale, norms2, metric}, part_d, part_i, out_d,
+                               out_i, B, D4, n_valid, nsplit, chunk, stream);
 }
 
 template cudaError_t k2_launch<REPRO_K>(const int*, const int*, const float*, const float*,

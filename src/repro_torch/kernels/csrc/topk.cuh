@@ -1,7 +1,13 @@
 // Top-k machinery shared by K1 (distance_topk.cu) and K2
 // (distance_topk_q8.cu): warp-level sorts and merges of (dist, id) lists
 // held in registers, the per-query flush of a candidate buffer into a
-// running list, and the kernel that merges per-chunk partial lists.
+// running list, and the kernel that merges per-chunk lists.
+//
+// What bounds the selection is latency: a flush or a sort is a chain of
+// dependent shuffles and device-memory round trips on one warp, and a warp
+// owns 16 queries.  The scans' time split (PERF.md) put 40-60% of K2 and
+// 30-50% of K1 in the chunk end and the merge, where every (query, chunk)
+// list was sorted, padded to K, written, and then merged list by list.
 //
 // A running list is a query's k_pad best (dist, id) pairs of one corpus
 // chunk.  It lives in device memory, in the chunk's own slot of the partial
@@ -15,8 +21,11 @@
 //  * merge: the list is loaded into registers, its last 32 slots take the
 //    elementwise min against the reversed candidates (a bitonic sequence
 //    that holds the K best), and one bitonic cleaner sorts it.
-// A list that never filled is sorted once at the end of the chunk, over the
-// smallest power-of-two prefix that holds it.
+// At the end of a chunk a list is left sorted (a list of several pieces is
+// sorted there; one piece, or a full list, is already) and unpadded: the
+// scan writes its count, and the chunk merge takes from each list only the
+// prefix at or below the query's bound, K entries at a time.  With one
+// chunk the list is the answer, so it is sorted and padded where it lies.
 
 #pragma once
 
@@ -44,27 +53,6 @@ __device__ __forceinline__ void cmp_swap(float* d, int* id, int i, int j, bool a
     int t = id[i];
     id[i] = id[j];
     id[j] = t;
-  }
-}
-
-// run <- the K smallest of run U buf, ascending; both inputs ascending.
-template <int K>
-__device__ void warp_merge(float* rd, int* ri, const float* bd, const int* bi, int lane) {
-  for (int i = lane; i < K; i += 32) {
-    float b = bd[K - 1 - i];
-    if (before(b, bi[K - 1 - i], rd[i], ri[i])) {
-      rd[i] = b;
-      ri[i] = bi[K - 1 - i];
-    }
-  }
-  __syncwarp();
-  // min(ascending, descending) is bitonic: one half-cleaner cascade sorts it
-  for (int stride = K >> 1; stride > 0; stride >>= 1) {
-    for (int t = lane; t < K / 2; t += 32) {
-      int i = 2 * t - (t & (stride - 1));
-      cmp_swap(rd, ri, i, i + stride, true);
-    }
-    __syncwarp();
   }
 }
 
@@ -215,7 +203,7 @@ __device__ __forceinline__ Flushed flush(const float* bd, const int* bi, int c, 
 }
 
 // Sort the first n pairs of a list in place and pad it to K with (inf, -1):
-// a sort of the smallest E * 32 >= n slots, then the padding.
+// a sort of E * 32 >= n slots, then the padding.
 template <int E>
 __device__ __forceinline__ void sort_prefix(float* ld, int* li, int n, int K, int lane) {
   float lv[E];
@@ -233,17 +221,74 @@ __device__ __forceinline__ void sort_prefix(float* ld, int* li, int n, int K, in
 
 template <int K>
 __device__ __forceinline__ void finish_list(float* ld, int* li, int n, int lane) {
-  if (n <= 128)
-    sort_prefix<4>(ld, li, n, K, lane);
-  else if (K >= 256 && n <= 256)
-    sort_prefix<(K >= 256 ? 8 : 4)>(ld, li, n, K, lane);
-  else
+  if (n <= 32) {  // none, or one piece that its flush sorted: pad the rest
+    for (int i = n + lane; i < K; i += 32) {
+      ld[i] = inf_f();
+      li[i] = -1;
+    }
+    __syncwarp();
+  } else {
     sort_prefix<K / 32>(ld, li, n, K, lane);
+  }
 }
 
-// Merge nsplit ascending top-K lists per query into one.  Warp w owns query
-// blockIdx.x * MW + w; MW warps per block keep the static shared memory
-// under 48 KB at K = 512.
+// The first n (a multiple of 32, at most E * 32) entries of a list sorted
+// in place: a sort of E * 32 slots, those past n (inf, -1) in registers
+// only.
+template <int E>
+__device__ __forceinline__ void sort_in_place(float* ld, int* li, int n, int lane) {
+  float lv[E];
+  int lid[E];
+  load_list<E>(lv, lid, ld, li, n, lane);
+  __syncwarp();
+  reg_sort<E>(lv, lid, lane);
+#pragma unroll
+  for (int r = 0; r < E; ++r)
+    if (r * 32 + lane < n) {
+      ld[r * 32 + lane] = lv[r];
+      li[r * 32 + lane] = lid[r];
+    }
+  __syncwarp();
+}
+
+// The end of a chunk's list of n entries.  With counts (nsplit > 1) the
+// list is left sorted and its count written at counts[slot]: a full list
+// and one piece are sorted already, several pieces are sorted here (a
+// flush's piece of 32 is sorted; the append that fills a list sorts it).
+// Without counts (one chunk: the list is the answer) it is sorted and
+// padded to K.
+template <int K>
+__device__ __forceinline__ void end_list(float* ld, int* li, int n, int* counts, size_t slot,
+                                         int lane) {
+  if (counts == nullptr) {
+    if (n < K) finish_list<K>(ld, li, n, lane);
+    return;
+  }
+  if (n > 32 && n < K) {  // the smallest sort that holds the list
+    if (n <= 64)
+      sort_in_place<2>(ld, li, n, lane);
+    else if (n <= 128)
+      sort_in_place<4>(ld, li, n, lane);
+    else if (n <= 256)
+      sort_in_place<(K >= 256 ? 8 : 4)>(ld, li, n, lane);
+    else
+      sort_in_place<K / 32>(ld, li, n, lane);
+  }
+  if (lane == 0) counts[slot] = n;
+}
+
+// Merge the nsplit chunk lists of each query into its top K.  Chunk s's
+// list is sorted and holds counts[b * K + s] entries (count slots in out_i,
+// written by the scans, end_list).  The chunks' bounds are still in out_d:
+// their largest over chunks 0 .. nsplit - 2, T, is at or above the query's
+// K-th best, so only entries at or below T can be in it, a prefix of each
+// list.  Warp w owns query blockIdx.x * MW + w: its lanes walk 32 lists at a
+// time (16 bytes a load) to count each list's prefix, then take the
+// prefixes K entries at a time (lane-parallel loads, a binary search of the
+// prefix sums finding each entry's list), sort each batch in registers and
+// merge it into the running K best with one bitonic cleaner.  With the
+// bounds a list gives a few entries, so a query is a few batches, whatever
+// nsplit.
 template <int K>
 struct MergeWarps {
   static constexpr int value = K >= 512 ? 4 : 8;
@@ -254,39 +299,90 @@ __global__ void __launch_bounds__(32 * MergeWarps<K>::value)
 merge_partials_kernel(const float* __restrict__ pd, const int* __restrict__ pi,
                       float* __restrict__ out_d, int* __restrict__ out_i, int B, int nsplit) {
   constexpr int MW = MergeWarps<K>::value;
-  __shared__ float rd_s[MW][K];
-  __shared__ int ri_s[MW][K];
-  __shared__ float bd_s[MW][K];
-  __shared__ int bi_s[MW][K];
+  constexpr int E = K / 32;
+  __shared__ int pre_s[MW][K + 1];  // prefix sums of the entries each list gives
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int b = blockIdx.x * MW + w;
   if (b >= B) return;  // only warp-level barriers below
-  float* rd = rd_s[w];
-  int* ri = ri_s[w];
-  float* bd = bd_s[w];
-  int* bi = bi_s[w];
+  int* pre = pre_s[w];
   const float* src_d = pd + (size_t)b * nsplit * K;
   const int* src_i = pi + (size_t)b * nsplit * K;
-  for (int i = lane; i < K; i += 32) {
-    rd[i] = src_d[i];
-    ri[i] = src_i[i];
-  }
-  __syncwarp();
-  for (int s = 1; s < nsplit; ++s) {
-    if (!before(src_d[(size_t)s * K], src_i[(size_t)s * K], rd[K - 1], ri[K - 1]))
-      continue;  // cannot improve
-    for (int i = lane; i < K; i += 32) {
-      bd[i] = src_d[(size_t)s * K + i];
-      bi[i] = src_i[(size_t)s * K + i];
+  float T = -inf_f();
+  for (int s = lane; s < nsplit - 1; s += 32) T = fmaxf(T, out_d[(size_t)b * K + s]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) T = fmaxf(T, __shfl_xor_sync(FULL, T, o));
+  int carry = 0;
+  for (int s0 = 0; s0 < nsplit; s0 += 32) {
+    const int s = s0 + lane;
+    int v = 0;  // list s's entries at or below T
+    if (s < nsplit) {
+      const int n = out_i[(size_t)b * K + s];
+      for (int e = 0; e < n; e += 4) {
+        const float4 d = *reinterpret_cast<const float4*>(src_d + (size_t)s * K + e);
+        const int k = (d.x <= T) + (d.y <= T) + (d.z <= T) + (d.w <= T);
+        v += k;
+        if (k < 4) break;
+      }
     }
-    __syncwarp();
-    warp_merge<K>(rd, ri, bd, bi, lane);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, v, o);
+      if (lane >= o) v += y;
+    }
+    if (s < nsplit) pre[s + 1] = carry + v;
+    carry += __shfl_sync(FULL, v, 31);
   }
-  for (int i = lane; i < K; i += 32) {
-    out_d[(size_t)b * K + i] = rd[i];
-    out_i[(size_t)b * K + i] = ri[i];
+  if (lane == 0) pre[0] = 0;
+  __syncwarp();
+  const int total = carry;
+  float rv[E];
+  int rid[E];
+  for (int g0 = 0; g0 < total || g0 == 0; g0 += K) {
+    float v[E];
+    int id[E];
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const int g = g0 + r * 32 + lane;
+      v[r] = inf_f();
+      id[r] = -1;
+      if (g < total) {
+        int lo = 0, hi = nsplit;  // the list s with pre[s] <= g < pre[s + 1]
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (pre[mid] <= g)
+            lo = mid;
+          else
+            hi = mid;
+        }
+        const size_t at = (size_t)lo * K + g - pre[lo];
+        v[r] = src_d[at];
+        id[r] = src_i[at];
+      }
+    }
+    reg_sort<E>(v, id, lane);
+    if (g0 == 0) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        rv[r] = v[r];
+        rid[r] = id[r];
+      }
+      continue;
+    }
+    // min(running, reversed batch) is bitonic and holds the K best
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const float bv = __shfl_sync(FULL, v[E - 1 - r], 31 - lane);
+      const int bi = __shfl_sync(FULL, id[E - 1 - r], 31 - lane);
+      if (before(bv, bi, rv[r], rid[r])) {
+        rv[r] = bv;
+        rid[r] = bi;
+      }
+    }
+    stages<E, 2 * K, K / 2>(rv, rid, lane);
   }
+  __syncwarp();  // every count and bound was read before the output overwrites them
+  store_list<E>(rv, rid, out_d + (size_t)b * K, out_i + (size_t)b * K, lane);
 }
 
 template <int K>

@@ -1,11 +1,13 @@
-// The Hopper pieces of K3 (flash_attention.cu, its bfloat16 forward) and
-// K3-bwd (flash_attention_bwd.cu): mbarriers, TMA tile loads and the tensor
-// maps behind them, the shared-memory matrix descriptors that match the TMA
-// box's swizzle, warpgroup MMAs with A from shared memory or registers:
-// m64nNk16 f32 += bf16 x bf16 (the bfloat16 paths) and m64nNk8 f32 += tf32
-// x tf32 (K3-bwd's float32 path's 3xTF32 products), setmaxnreg and named
-// barriers.  Written in inline PTX, as mma.cuh and scan.cuh are; sm_90a
-// only.
+// The Hopper pieces of K3 (flash_attention.cu, its bfloat16 forward), K3-bwd
+// (flash_attention_bwd.cu) and the scan of K1 and K2 (scan.cuh):
+// mbarriers (arrivals by threads, by TMA's byte counts and by cp.async),
+// TMA tile loads and 1-D bulk copies, the tensor maps behind them, the
+// shared-memory matrix descriptors that match the TMA box's swizzle,
+// warpgroup MMAs with A from shared memory or registers: m64nNk16 f32 +=
+// bf16 x bf16 (the bfloat16 paths), m64nNk8 f32 += tf32 x tf32 (3xTF32
+// products: K3-bwd's float32 path, K1's scores) and m64nNk32 s32 += s8 x s8
+// (K2's exact int8 dots), setmaxnreg and named barriers.  Written in inline
+// PTX, as mma.cuh is; sm_90a only.
 //
 // Layout.  A matrix tile of R rows and D columns is stored as panels of
 // one swizzle row each (RB = 128, 64 or 32 bytes: CW = RB / 2 bf16 or
@@ -19,8 +21,9 @@
 // of K in both types (16 bf16, 8 tf32).  Every tile starts on a 1024-byte
 // boundary.
 //
-// scan.cuh has its own mbarrier helpers (for cp.async arrivals); these
-// are kept apart so that an edit here rebuilds K3 and K3-bwd alone.
+// The one set of mbarrier helpers of the package: an edit here rebuilds K1,
+// K2, K3 and K3-bwd (kernels/_build.py hashes the headers a source
+// includes).
 
 #pragma once
 
@@ -59,6 +62,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
           bar),
       "r"(bytes)
       : "memory");
+}
+
+// the arrival fires when this thread's earlier cp.async copies have landed
+// (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // returns once the phase of the given parity has completed
@@ -168,6 +177,12 @@ template <int N>
 __device__ __forceinline__ void fence_operand(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operand(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int N>
@@ -372,6 +387,24 @@ __device__ __forceinline__ void mma_rs_tf32(float (&d)[N / 2], const uint32_t (&
   }
 }
 
+// d (64 x 64, s32) = (acc ? d : 0) + A B, s8 operands, A (64 x 32) and B
+// (32 x 64) K-major in shared memory; exact integer sums.  The accumulator
+// layout is mma_ss's.
+__device__ __forceinline__ void mma_ss_s8(int (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // a 64 x KR float32 tile in the accumulator layout -> bf16 hi and lo A
 // fragments of mma_rs, one per 16 columns: hi = bf16(x), lo = bf16(x - hi)
 template <int KR>
@@ -480,6 +513,36 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int S, CUtensorMapDat
   return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 2-D map over a row-major (rows, cols) matrix of `elem` bytes an element
+// with boxes of `box_rows` rows and one 128-byte swizzle row (128 / elem
+// columns): rows at or past `rows` and columns at or past `cols` zero-fill.
+// The row stride (cols * elem bytes) must be a multiple of 16 and the base
+// 16-byte aligned, as TMA requires.
+inline bool matrix_map(CUtensorMap* map, const void* ptr, int rows, int cols, int elem,
+                       int box_rows, CUtensorMapDataType type) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the box at (c0, c1) (innermost first) of a 2-D tensor map into shared
+// memory; its bytes complete on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 }  // namespace wg

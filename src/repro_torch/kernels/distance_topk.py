@@ -2,9 +2,11 @@
 
 The kernel (``csrc/distance_topk.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/distance_topk.py::_distance_topk_kernel``.  This module
-checks the inputs, splits the corpus into per-block chunks, allocates the
-outputs and launches on PyTorch's current stream.  Nothing here runs at
-import: the library is built and loaded at the first launch.
+checks the inputs, chooses the kernel by the batch alone (the small-batch
+scan for ``B <= B_SMALL``, else the batched scan), splits the corpus into
+per-block chunks, allocates the outputs and launches on PyTorch's current
+stream.  Nothing here runs at import: the library is built and loaded at
+the first launch.
 """
 
 from __future__ import annotations
@@ -17,11 +19,22 @@ from repro_torch.kernels import _build
 
 TILE_N = 64  # corpus rows per tile (csrc/scan.cuh ``TN``)
 K_PADS = (128, 256, 512)
-#: queries per block (csrc/scan.cuh ``TQ``) at every k_pad: the running
-#: lists live in the partial output, so the tile does not shrink as k_pad grows
-TILE_Q = 64
-#: resident blocks per SM, as shared memory allows (109 KB a block)
-BLOCKS_PER_SM = 2
+#: queries per block of the batched scan (csrc/scan.cuh ``TQ``: two consumer
+#: warpgroups of 64) at every k_pad: the running lists live in the partial
+#: output, so the tile does not shrink as k_pad grows
+TILE_Q = 128
+#: resident blocks per SM, as shared memory allows (218 KB a block)
+BLOCKS_PER_SM = 1
+#: the largest batch the small-batch scan takes (csrc/distance_topk.cu
+#: ``small::QMAX``): the crossover with the batched scan, measured on the
+#: card between B = 4 and 8 (PERF.md)
+B_SMALL = 4
+#: the small-batch scan's chunks start on whole groups of rows (one 16-byte
+#: multiple of any D) and hold at least this many rows
+SMALL_GROUP = 4
+SMALL_MIN_ROWS = 256
+#: the widest row the small-batch scan stages (4 rows in its 32 KB stage)
+SMALL_D_MAX = 2048
 _METRIC = {"l2": 0, "ip": 1}
 _INT32_MAX = 2**31 - 1
 
@@ -32,10 +45,40 @@ def _kernel():
     fn = _FN.get("distance_topk")
     if fn is None:
         fn = _build.load("distance_topk.cu").repro_distance_topk
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN["distance_topk"] = fn
     return fn
+
+
+def small_batch(B: int) -> bool:
+    """Whether a batch of B queries takes the small-batch scan: by B alone."""
+    return B <= B_SMALL
+
+
+def small_plan(B: int, n_valid: int, sm_count: int, k_pad: int) -> tuple[int, int]:
+    """(nsplit, chunk) of the small-batch scan: one block a chunk, all B
+    queries in it.  One wave of one block a SM, at most k_pad chunks (their
+    bounds live in the first k_pad words of each output row until the
+    chunk merge writes it), at least ``SMALL_MIN_ROWS`` rows a chunk, and
+    every chunk starts on a multiple of ``SMALL_GROUP`` rows."""
+    nsplit = max(1, min(sm_count, k_pad, n_valid // SMALL_MIN_ROWS))
+    rows = -(-n_valid // nsplit)
+    chunk = -(-rows // SMALL_GROUP) * SMALL_GROUP
+    return -(-n_valid // chunk), chunk
+
+
+def launch_plan(B: int, D: int, n_valid: int, sm_count: int,
+                k_pad: int) -> tuple[int, int, int]:
+    """(nsplit, chunk, path) of one K1 launch: path 1, the small-batch scan
+    with ``small_plan``, for ``B <= B_SMALL``; path 0, the batched scan with
+    ``split_plan``, for any other B.  The batch alone decides; a row wider
+    than the small-batch scan's stage raises."""
+    if small_batch(B):
+        if D > SMALL_D_MAX:
+            raise ValueError(f"distance_topk_cuda: D={D} > {SMALL_D_MAX} at B={B} <= {B_SMALL}")
+        return (*small_plan(B, n_valid, sm_count, k_pad), 1)
+    return (*split_plan(B, n_valid, sm_count, k_pad), 0)
 
 
 def split_plan(B: int, n_valid: int, sm_count: int, k_pad: int) -> tuple[int, int]:
@@ -65,7 +108,9 @@ def distance_topk_cuda(
 
     q (B, D) and x (N, D) float32, contiguous, on one CUDA device.  Returns
     (dists (B, k_pad) ascending, ids (B, k_pad) int32), padded with
-    (inf, -1).  l2 scores omit ``||q||^2``; ip scores are ``-q.x``.
+    (inf, -1).  l2 scores omit ``||q||^2``; ip scores are ``-q.x``.  B <=
+    ``B_SMALL`` runs the small-batch scan (D <= ``SMALL_D_MAX``), any
+    other B the batched scan.
     """
     if not (q.is_cuda and x.is_cuda and q.device == x.device):
         raise ValueError("distance_topk_cuda: q and x must be on one CUDA device")
@@ -85,7 +130,7 @@ def distance_topk_cuda(
         raise ValueError(f"distance_topk_cuda: B={B}, N={N}, n_valid={n_valid}")
     dev = q.device
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    nsplit, chunk = split_plan(B, n_valid, sm_count, k_pad)
+    nsplit, chunk, path = launch_plan(B, D, n_valid, sm_count, k_pad)
     out_d = torch.empty((B, k_pad), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k_pad), dtype=torch.int32, device=dev)
     if nsplit > 1:
@@ -98,7 +143,7 @@ def distance_topk_cuda(
         rc = _kernel()(
             q.data_ptr(), x.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(),
-            B, D, n_valid, k_pad, _METRIC[metric], nsplit, chunk, stream,
+            B, D, n_valid, k_pad, _METRIC[metric], nsplit, chunk, path, stream,
         )
     if rc != 0:
         raise RuntimeError(f"distance_topk kernel launch failed: cudaError {rc}")

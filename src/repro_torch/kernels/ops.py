@@ -40,6 +40,10 @@ K_PAD_MAX = 512
 #: kernel launches by the wrappers of this module, by kernel name
 KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0, "flash_attention": 0,
                    "flash_attention_bwd": 0}
+#: K1's and K2's launches by shape: {kernel name: {(B, N, D, k_pad): launches}},
+#: N the rows scanned (n_valid); summed over shapes, KERNEL_LAUNCHES's counts
+LAUNCHES_BY_SHAPE: dict[str, dict[tuple[int, int, int, int], int]] = {
+    "distance_topk": {}, "distance_topk_q8": {}}
 
 
 # Scale-safety contract (repro_torch.analysis.scalecheck): corpora arrive
@@ -53,6 +57,16 @@ KERNEL_LAUNCHES = {"distance_topk": 0, "distance_topk_q8": 0, "flash_attention":
 def reset_launches() -> None:
     for name in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[name] = 0
+    for shapes in LAUNCHES_BY_SHAPE.values():
+        shapes.clear()
+
+
+def _count(name: str, shape: tuple[int, int, int, int] | None = None) -> None:
+    """One launch of kernel ``name``; K1 and K2 also count it by shape."""
+    KERNEL_LAUNCHES[name] += 1
+    if shape is not None:
+        shapes = LAUNCHES_BY_SHAPE[name]
+        shapes[shape] = shapes.get(shape, 0) + 1
 
 
 def _plain(t: torch.Tensor) -> bool:
@@ -64,12 +78,23 @@ def _plain(t: torch.Tensor) -> bool:
     return t.device.type == "cpu" and not is_fake(t)
 
 
+def _k1_launch(q, x, k_pad: int, n_valid: int, metric: str):
+    out = distance_topk_cuda(q, x, k_pad=k_pad, n_valid=n_valid, metric=metric)
+    _count("distance_topk", (q.shape[0], n_valid, q.shape[1], k_pad))
+    return out
+
+
+def _k2_launch(q_codes, x_codes, q_scale, norms2, k_pad: int, n_valid: int, metric: str):
+    out = distance_topk_q8_cuda(q_codes, x_codes, q_scale, norms2, k_pad=k_pad,
+                                n_valid=n_valid, metric=metric)
+    _count("distance_topk_q8", (q_codes.shape[0], n_valid, q_codes.shape[1], k_pad))
+    return out
+
+
 @torch.library.custom_op("repro_torch::distance_topk", mutates_args=(), device_types="cuda")
 def _k1_op(q: torch.Tensor, x: torch.Tensor, k_pad: int, n_valid: int,
            metric: str) -> tuple[torch.Tensor, torch.Tensor]:
-    out = distance_topk_cuda(q, x, k_pad=k_pad, n_valid=n_valid, metric=metric)
-    KERNEL_LAUNCHES["distance_topk"] += 1
-    return out
+    return _k1_launch(q, x, k_pad, n_valid, metric)
 
 
 @_k1_op.register_fake
@@ -83,10 +108,7 @@ def _(q, x, k_pad, n_valid, metric):
 def _k2_op(q_codes: torch.Tensor, x_codes: torch.Tensor, q_scale: torch.Tensor,
            norms2: torch.Tensor, k_pad: int, n_valid: int,
            metric: str) -> tuple[torch.Tensor, torch.Tensor]:
-    out = distance_topk_q8_cuda(q_codes, x_codes, q_scale, norms2, k_pad=k_pad,
-                                n_valid=n_valid, metric=metric)
-    KERNEL_LAUNCHES["distance_topk_q8"] += 1
-    return out
+    return _k2_launch(q_codes, x_codes, q_scale, norms2, k_pad, n_valid, metric)
 
 
 @_k2_op.register_fake
@@ -100,7 +122,7 @@ def _(q_codes, x_codes, q_scale, norms2, k_pad, n_valid, metric):
 def _k3_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
            with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
     res = flash_attention_cuda(q, k, v, causal=causal, scale=scale, with_lse=with_lse)
-    KERNEL_LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     return res if with_lse else (res, q.new_empty((0,), dtype=torch.float32))
 
 
@@ -117,7 +139,7 @@ def _k3_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tenso
                do: torch.Tensor, lse: torch.Tensor, causal: bool,
                scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal, scale=scale)
-    KERNEL_LAUNCHES["flash_attention_bwd"] += 1
+    _count("flash_attention_bwd")
     return grads
 
 

@@ -571,6 +571,30 @@ def test_ptx_accumulators_of_the_ports_kernels():
     assert _ptx_accumulators("mma.sync", "") is None  # prose: "mma.sync m16n8k8 takes ..."
 
 
+def test_the_scans_wgmma_strings_pass_the_accumulation_contract():
+    """K2's s8 warpgroup MMA (``csrc/wgmma.cuh``) accumulates in .s32 and
+    K1's tf32 ones in .f32; the scan's sources hold no mma.sync; an s8
+    wgmma into .s16 trips LANNS021; the launchers of the scan (the batched
+    and the small-batch K1, K2) check their shapes before they launch."""
+    from repro_torch.analysis.kernelcheck import _PTX_RE, _ptx_accumulators
+
+    csrc = PORT / "kernels" / "csrc"
+    wg = [m for m in _PTX_RE.finditer((csrc / "wgmma.cuh").read_text())
+          if _ptx_accumulators(m.group("op"), m.group("mods")) is not None]
+    s8 = [m.group(0) for m in wg if ".s8." in m.group(0)]
+    assert s8 == ["wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8"]
+    assert _ptx_accumulators("wgmma.mma_async", s8[0][len("wgmma.mma_async"):]) == ["s32"]
+    for name in ("scan.cuh", "topk.cuh", "distance_topk.cu", "distance_topk_q8.cu"):
+        text = (csrc / name).read_text()
+        assert not any(m.group("op") == "mma.sync" for m in _PTX_RE.finditer(text)), name
+        assert pairs(analyze_file(str(csrc / name), text)) == []
+    bad = 'asm("wgmma.mma_async.sync.aligned.m64n64k32.s16.s8.s8 {%0}, %1, %2, p;");\n'
+    assert [c for c, _ in pairs(analyze_file("kernels/csrc/bad_scan.cu", bad))] == ["LANNS021"]
+    for name in ("distance_topk.py", "distance_topk_q8.py"):
+        path = PORT / "kernels" / name
+        assert pairs(analyze_file(str(path), path.read_text())) == []
+
+
 def test_launcher_shape_checks_of_the_ports_launchers():
     """The four ctypes launchers check shapes before they launch; taking
     the check out of one trips LANNS024."""

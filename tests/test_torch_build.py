@@ -21,11 +21,13 @@ def test_every_source_exists_with_its_headers():
 
 
 def test_includes_are_followed_through_headers():
-    # K1 includes scan.cuh, which includes topk.cuh; K3 and K3-bwd the bf16
-    # MMA pieces, the split and Hopper's (TMA, wgmma), which include the bf16
-    # pieces too
-    assert _build.includes("distance_topk.cu") == ["scan.cuh", "tf32.cuh", "topk.cuh"]
-    assert _build.includes("distance_topk_q8.cu") == ["scan.cuh", "topk.cuh"]
+    # K1 includes scan.cuh, which includes topk.cuh and Hopper's pieces (TMA,
+    # wgmma, the one set of mbarrier helpers), which include the bf16 MMA
+    # pieces; K3 and K3-bwd the bf16 MMA pieces, the split and Hopper's
+    assert _build.includes("distance_topk.cu") == ["mma.cuh", "scan.cuh", "tf32.cuh",
+                                                   "topk.cuh", "wgmma.cuh"]
+    assert _build.includes("distance_topk_q8.cu") == ["mma.cuh", "scan.cuh", "topk.cuh",
+                                                      "wgmma.cuh"]
     assert _build.includes("flash_attention.cu") == ["mma.cuh", "tf32.cuh", "wgmma.cuh"]
     assert _build.includes("flash_attention_bwd.cu") == ["mma.cuh", "tf32.cuh", "wgmma.cuh"]
 
@@ -44,8 +46,8 @@ def _paths(csrc):
 @pytest.mark.parametrize("edited,rebuilt", [
     ("flash_attention.cu", {"flash_attention.cu"}),
     ("flash_attention_bwd.cu", {"flash_attention_bwd.cu"}),
-    ("mma.cuh", {"flash_attention.cu", "flash_attention_bwd.cu"}),
-    ("wgmma.cuh", {"flash_attention.cu", "flash_attention_bwd.cu"}),
+    ("mma.cuh", set(_build.SOURCES)),
+    ("wgmma.cuh", set(_build.SOURCES)),
     ("tf32.cuh", {"distance_topk.cu", "flash_attention.cu", "flash_attention_bwd.cu"}),
     ("topk.cuh", {"distance_topk.cu", "distance_topk_q8.cu"}),
     ("scan.cuh", {"distance_topk.cu", "distance_topk_q8.cu"}),
@@ -67,15 +69,19 @@ def test_a_new_unincluded_header_rebuilds_nothing(csrc):
 
 
 def test_k1_and_k2_build_each_k_pad_instance_as_its_own_unit(monkeypatch):
-    """K1 and K2 compile as four translation units each, the C entry and one
-    unit a k_pad instance (``-DREPRO_K``), so the build's longest compiles
-    run in parallel; K3-bwd's source is one unit.  The units are part of a
-    library's hash."""
-    for source in ("distance_topk.cu", "distance_topk_q8.cu"):
-        units = _build.UNITS[source]
-        assert units == ((), ("-DREPRO_K=128",), ("-DREPRO_K=256",), ("-DREPRO_K=512",))
-        text = (_build.CSRC / source).read_text()
-        assert "#ifdef REPRO_K" in text and "<REPRO_K>(" in text
+    """K2 compiles as four translation units, the C entry and one unit a
+    k_pad instance (``-DREPRO_K``); K1 as seven, the C entry and one unit a
+    (k_pad, path) instance (``-DREPRO_K``, ``-DREPRO_PATH``: its batched and
+    small-batch scans), so the build's longest compiles run in parallel;
+    K3-bwd's source is one unit.  The units are part of a library's hash."""
+    assert _build.UNITS["distance_topk_q8.cu"] == (
+        (), ("-DREPRO_K=128",), ("-DREPRO_K=256",), ("-DREPRO_K=512",))
+    assert _build.UNITS["distance_topk.cu"] == ((),) + tuple(
+        (f"-DREPRO_K={k}", f"-DREPRO_PATH={path}") for k in (128, 256, 512) for path in (0, 1))
+    text = (_build.CSRC / "distance_topk_q8.cu").read_text()
+    assert "#ifdef REPRO_K" in text and "<REPRO_K>(" in text
+    text = (_build.CSRC / "distance_topk.cu").read_text()
+    assert "#ifdef REPRO_K" in text and "<REPRO_K, REPRO_PATH>(" in text
     assert "flash_attention_bwd.cu" not in _build.UNITS
     before = _build.library_path("distance_topk.cu")
     monkeypatch.setitem(_build.UNITS, "distance_topk.cu", _build.UNITS["distance_topk.cu"][:2])
@@ -129,14 +135,17 @@ def test_build_all_compiles_every_unit_then_links_each_library(tmp_path, monkeyp
     logs = _build.build_all(("distance_topk.cu", "flash_attention.cu"))
     compiles = [c for c in fake.cmds if "-c" in c]
     links = [c for c in fake.cmds if "-c" not in c]
-    assert len(compiles) == 7 and len(links) == 2  # 4 units + 3, then one link a library
+    assert len(compiles) == 10 and len(links) == 2  # 7 units + 3, then one link a library
     assert all("-shared" not in c for c in compiles)
     assert sorted(d for c in compiles for d in c if d.startswith("-DREPRO_K")) == [
-        "-DREPRO_K3_BF16", "-DREPRO_K3_F32", "-DREPRO_K=128", "-DREPRO_K=256", "-DREPRO_K=512"]
+        "-DREPRO_K3_BF16", "-DREPRO_K3_F32", *(f"-DREPRO_K={k}" for k in (128, 128, 256, 256,
+                                                                          512, 512))]
+    assert sorted(d for c in compiles for d in c if d.startswith("-DREPRO_PATH")) == [
+        "-DREPRO_PATH=0"] * 3 + ["-DREPRO_PATH=1"] * 3
     k3_link = next(c for c in links if "flash_attention" in c[c.index("-o") + 1])
     assert len([a for a in k3_link if a.endswith(".o")]) == 3
     k1_link = next(c for c in links if "distance_topk" in c[c.index("-o") + 1])
-    assert len([a for a in k1_link if a.endswith(".o")]) == 4
+    assert len([a for a in k1_link if a.endswith(".o")]) == 7
     for source in ("distance_topk.cu", "flash_attention.cu"):
         assert _build.library_path(source).exists()
         assert "registers" in logs[source]

@@ -19,7 +19,7 @@ from repro_torch.convert import index_from_numpy_state, index_numpy_state
 from repro_torch.core import LannsConfig, LannsIndex, beam_search_flat
 from repro_torch.data.synthetic import sift_like
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.distance_topk import TILE_N, TILE_Q, split_plan
+from repro_torch.kernels.distance_topk import B_SMALL, TILE_N, TILE_Q, split_plan
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 
 
@@ -101,6 +101,31 @@ def test_k1_near_equal_rows(cuda, metric):
     _assert_topk_close(d, i, d_p, i_p)
 
 
+# the scans' batch edges: the small-batch threshold and the warpgroup's 64
+# queries, at ragged and whole D, with n_valid < N, at each k_pad
+BATCH_EDGES = [(B, D, k) for B in (1, 2, B_SMALL, B_SMALL + 1, 63, 65)
+               for D in (7, 18, 50, 128, 512) for k in (100, 200, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,k", BATCH_EDGES)
+def test_k1_batch_edges_match_plain_and_repeat_their_bits(cuda, B, D, k):
+    metric = ("l2", "ip")[(B + D) % 2]
+    g = torch.Generator(device=cuda).manual_seed(B * 1000 + D)
+    q = torch.randn(B, D, generator=g, device=cuda)
+    x = torch.randn(5003, D, generator=g, device=cuda)
+    ops.reset_launches()
+    d, i = ops.distance_topk(q, x, k, metric, n_valid=4001)
+    d2, i2 = ops.distance_topk(q, x, k, metric, n_valid=4001)
+    assert ops.KERNEL_LAUNCHES["distance_topk"] == 2
+    k_pad = max(128, 1 << (k - 1).bit_length())
+    assert ops.LAUNCHES_BY_SHAPE["distance_topk"] == {(B, 4001, D, k_pad): 2}
+    d_p, i_p = ref.distance_topk_blocked(q, x, k, metric, n_valid=4001)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d2) and torch.equal(i, i2)
+    _assert_topk_close(d, i, d_p, i_p)
+
+
 @pytest.mark.cuda
 def test_k1_rejects_large_k(cuda):
     q = torch.randn(2, 8, device=cuda)
@@ -172,6 +197,33 @@ def test_k2_matches_plain(cuda, metric, B, N, D, k, n_valid):
     if metric == "l2":
         d_k = d_k + (q * q).sum(-1, keepdim=True)
     assert torch.equal(torch.where(torch.isinf(d_k), -1, i_k), i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,k", BATCH_EDGES)
+def test_k2_batch_edges_bit_equal_plain_and_repeat_their_bits(cuda, B, D, k):
+    from repro_torch.quant.codec import quantize_q8, quantize_queries_q8_t
+
+    metric = ("l2", "ip")[(B + D) % 2]
+    rng = np.random.default_rng(B * 1000 + D)
+    qc = quantize_q8(rng.standard_normal((5003, D)).astype(np.float32), metric)
+    codes, norms2 = torch.from_numpy(qc.codes).to(cuda), torch.from_numpy(qc.norms2).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32)).to(cuda)
+    q_codes, q_scale = quantize_queries_q8_t(q, torch.from_numpy(qc.scales).to(cuda))
+    runs = [ops.distance_topk_q8_codes(q_codes, codes, q_scale, norms2, k, metric, n_valid=4001)
+            for _ in range(2)]
+    d_p, i_p = ref.distance_topk_q8_blocked(q_codes, codes, q_scale, norms2, k, metric,
+                                            n_valid=4001)
+    torch.cuda.synchronize()
+    (d, i), (d2, i2) = runs
+    assert torch.equal(d, d2) and torch.equal(i, i2)
+
+    def scores_of(r, ids):
+        idx = torch.from_numpy(ids.astype(np.int64)).to(cuda)
+        return ref.q8_score_matrix(q_codes[r: r + 1], codes[idx], q_scale[r: r + 1],
+                                   norms2[idx], metric)[0].cpu().numpy()
+
+    _assert_q8_topk(d, i, d_p, i_p, scores_of)
 
 
 @pytest.mark.cuda

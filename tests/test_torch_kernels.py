@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import distance_topk as k1
 from repro_torch.kernels.distance_topk import TILE_N, split_plan
 
 
@@ -146,6 +147,91 @@ def test_split_plan_covers_rows(B, n_valid, k_pad):
     assert 1 <= nsplit <= 65535
     assert chunk % TILE_N == 0
     assert (nsplit - 1) * chunk < n_valid <= nsplit * chunk
+
+
+@pytest.mark.parametrize("k_pad", [128, 256, 512])
+@pytest.mark.parametrize("B,n_valid", [(1, 1), (1, 3), (2, 255), (3, 5003), (4, 99_999),
+                                       (1, 1_000_000), (3, 1_000_001), (4, 33_554_432)])
+def test_small_plan_covers_rows_in_whole_groups(B, n_valid, k_pad):
+    """The small-batch scan's chunks: every row once, each chunk starting on
+    a whole 4-row group (a 16-byte multiple of any row), at most k_pad
+    chunks (their bounds' slots) and one wave of one block a SM."""
+    nsplit, chunk = k1.small_plan(B, n_valid, sm_count=132, k_pad=k_pad)
+    assert 1 <= nsplit <= min(k_pad, 132)
+    assert chunk % k1.SMALL_GROUP == 0
+    starts = [s * chunk for s in range(nsplit)]
+    assert all(s % 4 == 0 for s in starts)
+    covered = sum(min(s + chunk, n_valid) - s for s in starts)
+    assert covered == n_valid and starts[-1] < n_valid  # no empty chunk, no row twice
+    assert nsplit == 1 or chunk >= k1.SMALL_MIN_ROWS
+
+
+@pytest.mark.parametrize("B,path", [(1, 1), (2, 1), (k1.B_SMALL - 1, 1), (k1.B_SMALL, 1),
+                                    (k1.B_SMALL + 1, 0), (63, 0), (65, 0), (4096, 0)])
+def test_the_batch_alone_chooses_the_scan(B, path):
+    for D in (7, 50, 128, 512):
+        nsplit, chunk, got = k1.launch_plan(B, D, 124_606, sm_count=132, k_pad=128)
+        assert got == path
+        want = (k1.small_plan if path else split_plan)(B, 124_606, 132, 128)
+        assert (nsplit, chunk) == want
+
+
+def test_small_batch_refuses_rows_wider_than_its_stage():
+    k1.launch_plan(k1.B_SMALL, k1.SMALL_D_MAX, 5000, 132, 128)
+    with pytest.raises(ValueError, match="D="):
+        k1.launch_plan(k1.B_SMALL, k1.SMALL_D_MAX + 1, 5000, 132, 128)
+    assert k1.launch_plan(k1.B_SMALL + 1, 4096, 5000, 132, 128)[2] == 0
+
+
+def test_launches_by_shape_add_up_to_the_launch_counts(monkeypatch):
+    """K1's and K2's launches are counted by (B, N = n_valid, D, k_pad)
+    beside ``KERNEL_LAUNCHES``; the counts by shape sum to it, and
+    ``reset_launches`` clears both."""
+    stub = lambda q, *a, k_pad, **kw: (torch.empty(q.shape[0], k_pad),
+                                       torch.empty(q.shape[0], k_pad, dtype=torch.int32))
+    monkeypatch.setattr(ops, "distance_topk_cuda", stub)
+    monkeypatch.setattr(ops, "distance_topk_q8_cuda", stub)
+    ops.reset_launches()
+    calls = [(1, 1000, 50, 128, 999), (440, 124_606, 128, 128, 124_606),
+             (1, 1000, 50, 128, 999), (3, 64, 8, 256, 40)]
+    for B, N, D, k_pad, nv in calls:
+        ops._k1_launch(torch.zeros(B, D), torch.zeros(N, D), k_pad, nv, "l2")
+    for B, N, D, k_pad, nv in calls[:2]:
+        ops._k2_launch(torch.zeros(B, D, dtype=torch.int8), torch.zeros(N, D, dtype=torch.int8),
+                       torch.ones(B), torch.zeros(N), k_pad, nv, "ip")
+    k1s, k2s = ops.LAUNCHES_BY_SHAPE["distance_topk"], ops.LAUNCHES_BY_SHAPE["distance_topk_q8"]
+    assert k1s == {(1, 999, 50, 128): 2, (440, 124_606, 128, 128): 1, (3, 40, 8, 256): 1}
+    assert k2s == {(1, 999, 50, 128): 1, (440, 124_606, 128, 128): 1}
+    assert sum(k1s.values()) == ops.KERNEL_LAUNCHES["distance_topk"] == 4
+    assert sum(k2s.values()) == ops.KERNEL_LAUNCHES["distance_topk_q8"] == 2
+    ops.reset_launches()
+    assert not any(ops.LAUNCHES_BY_SHAPE.values()) and not any(ops.KERNEL_LAUNCHES.values())
+
+
+# K1's small-batch scan (csrc/distance_topk.cu, small_scan_kernel) sums in
+# float32 on the CUDA cores: lane l of a warp takes dimensions l, l + 32,
+# ... of a row, keeping its part of ||x||^2 and of each q.x, and the warp's
+# 32 parts of ||x||^2 - 2 q.x are added in a fixed tree.  Emulated here.
+def _small_scan_scores(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    B, D = q.shape
+    parts = torch.zeros(32, B, x.shape[0])
+    for lane in range(32):
+        nrm = torch.zeros(x.shape[0])
+        dot = torch.zeros(B, x.shape[0])
+        for d in range(lane, D, 32):  # one fmaf a dimension, in order
+            nrm = torch.addcmul(nrm, x[:, d], x[:, d])
+            dot = torch.addcmul(dot, q[:, d, None], x[None, :, d])
+        parts[lane] = nrm[None, :] - 2 * dot
+    for o in (16, 8, 4, 2, 1):  # lanes l and l ^ o, the lower half kept
+        parts = parts[:o] + parts[o:2 * o]
+    return parts[0]
+
+
+@pytest.mark.parametrize("D", [7, 18, 50, 128, 512])
+def test_small_scan_sums_hold_the_parity_contract(D):
+    q, x = _rand(4, 300, D, seed=D)
+    s = _small_scan_scores(torch.from_numpy(q), torch.from_numpy(x)).numpy()
+    assert np.allclose(s, _l2_scores_f64(q, x), rtol=3e-4, atol=3e-4)
 
 
 # K1 scores on the tensor cores as a 3xTF32 split (csrc/distance_topk.cu):
