@@ -94,23 +94,24 @@ Phases, each printed as JSON records; any failure exits non-zero:
    until it fits the host and the card): QPS, p50/p99 batch latency, the
    route/candidates/merge split, recall@100 on 1,000 queries.
 2c. K3 vs plain: ``ops.flash_attention`` on CUDA tensors against
-   ``ref.flash_attention_ref`` on the same tensors, float32 and bfloat16,
-   D in {16, 32, 64, 128}, causal and bidirectional: S in {1, 100, 128,
-   200, 1025, 4096} at BH in {1, 15, 30}, and the kernel's tile edges S in
-   {15, 17, 63, 65, 1000, 4097} at BH in {1, 7}; MLA's instance (q . k
-   head dim 192, v 128) at S in {1, 65, 1000, 4097}, BH in {1, 16}; one
-   bfloat16 case with v
-   scaled by 8 (outputs past 4, where a bf16 ulp is 3.1e-2).  Max abs error
-   <= 3e-5 (float32) and <= 3e-2 (bfloat16; times the v scale), the
-   reference's own limits; bfloat16 also within ``ref.bf16_agreement`` <= 1
-   of the plain version in float32 on the same inputs (half a bf16 ulp plus
-   1e-4).  float32 also with v scaled by 8 (the limit scaled by 8) and with
-   q scaled by 4 (a peaky softmax) at every D, and on inputs 4 bytes off
-   the 16-byte grid, which the launcher refuses and ``ops.flash_attention``
-   copies first.  Then K3 / plain / SDPA milliseconds and the bound at
-   (32, 8192, 128) causal bf16, seeded: the head dim of codeqwen1.5-7b and
-   qwen2-72b; and at (16, 32768, 192 -> 128) causal bf16, seeded, with the
-   backend SDPA picked for v's head dim other than q's.
+   ``ref.flash_attention_ref`` on the same tensors, float32 and bfloat16, D
+   in {16, 32, 64, 128}, causal and bidirectional: S in {1, 100, 128, 200,
+   1025, 4096} at BH in {1, 15, 30}, and the kernel's tile edges S in {15,
+   17, 63, 65, 1000, 4097} at BH in {1, 7} (float32 also S in {31, 33, 127,
+   129}, and MLA's instance at S in {15, 17, 31, 33, 63, 127, 129}); MLA's
+   instance (q . k head dim 192, v 128) at S in {1, 65, 1000, 4097}, BH in
+   {1, 16}; one bfloat16 case with v scaled by 8 (outputs past 4, where a
+   bf16 ulp is 3.1e-2).  Max abs error <= 3e-5 (float32) and <= 3e-2
+   (bfloat16; times the v scale), the reference's own limits; bfloat16 also
+   within ``ref.bf16_agreement`` <= 1 of the plain version in float32 on the
+   same inputs (half a bf16 ulp plus 1e-4).  float32 also with v scaled by 8
+   (the limit scaled by 8) and with q scaled by 4 (a peaky softmax) at every
+   D, and on inputs 4 bytes off the 16-byte grid, which the launcher refuses
+   and ``ops.flash_attention`` copies first.  Then K3 / plain / SDPA
+   milliseconds and the bound at (32, 8192, 128) causal bf16, seeded: the
+   head dim of codeqwen1.5-7b and qwen2-72b; and at (16, 32768, 192 -> 128)
+   causal bf16, seeded, with the backend SDPA picked for v's head dim other
+   than q's.
 2d. K3-bwd vs plain: K3 with its row log-sum-exp (``flash_attention_cuda(...,
    with_lse=True)``) and ``ops.flash_attention_bwd`` on CUDA tensors
    against ``ref.flash_attention_ref`` / ``ref.flash_attention_bwd_ref`` run
@@ -2304,9 +2305,15 @@ def phase_flash_vs_plain() -> dict:
         "shapes": [(dtype, D, D, S, causal, BH, 1.0, 1.0) for dtype in dtypes for D in dims
                    for S in (1, 100, 128, 200, 1025, 4096) for causal in (True, False)
                    for BH in (1, 15, 30)],
+        # float32 also at its kv tiles (64 rows up to D = 64, 32 at 128, 16 at
+        # MLA's (192, 128)) and q blocks (128 rows up to D = 64, 64 past it)
         "tile_edges": [(dtype, D, D, S, causal, BH, 1.0, 1.0) for dtype in dtypes for D in dims
-                       for S in (15, 17, 63, 65, 1000, 4097) for causal in (True, False)
-                       for BH in (1, 7)],
+                       for S in (15, 17, 63, 65, 1000, 4097)
+                       + ((31, 33, 127, 129) if dtype == f32 else ())
+                       for causal in (True, False) for BH in (1, 7)]
+                      + [(f32, 192, 128, S, causal, BH, 1.0, 1.0)
+                         for S in (15, 17, 31, 33, 63, 127, 129) for causal in (True, False)
+                         for BH in (1, 7)],
         # MLA's instance: q . k over 192 dims (128 nope + 64 rope), v 128
         "mla_head_dims": [(dtype, 192, 128, S, causal, BH, 1.0, 1.0) for dtype in dtypes
                           for S in (1, 65, 1000, 4097) for causal in (True, False)

@@ -36,7 +36,7 @@ the sharded cells (ROADMAP §1 item 10.4): the sharding rules
 (``distributed/sharding_rules.py``: DTensor placements over a named
 mesh), every family's cells with ``build_cell`` / ``smoke``
 (``configs/families.py``) and the dry run on a fake world
-(``launch/dryrun.py``).
-
-Not ported: the static checkers (item 10.6).
+(``launch/dryrun.py``); and the checkers (``analysis``, item 10.6: lock
+discipline, race stress, the host-sync lint, the CUDA-launcher and scale
+checks, the footprint model).  Every module of ``repro`` is ported.
 """

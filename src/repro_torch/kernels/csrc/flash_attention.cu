@@ -21,22 +21,22 @@
 // an SM, against 4,096 bf16 flops a clock), so the softmax has to run while
 // the tensor cores work, not between their products.
 //
-// Both paths: the tensor cores' f32 accumulation truncates, so no chain of
-// MMAs runs longer than one kv tile: a tile's p @ v starts from zero and is
+// Both paths run warpgroup MMAs (wgmma) fed by TMA in a warp-specialised
+// block.  The tensor cores' f32 accumulation truncates, so no chain of MMAs
+// runs longer than one kv tile: a tile's p @ v starts from zero and is
 // folded into acc with one rounded fmaf (acc * corr + tile), as the TPU
 // kernel adds each block's product.  Row max and row sum of the online
-// softmax are shuffles over the 4 lanes that share a row of the m16n8
-// accumulator layout (wgmma's 64-row accumulator is four of them, one a
-// warp).  The exponent runs in base 2 (ex2.approx.ftz, 2^-22 relative error;
-// outputs below 2^-126 flush to 0) with scale * log2(e) folded into the
-// score.  Blocks take q tiles in reverse order, so that the longest causal
-// rows start first.  kv tiles wholly above the diagonal are never loaded,
-// and only tiles that cross the diagonal or S are masked.  Any S is taken
-// with no padding copy: rows past S are not written.  The guards of the TPU
-// kernel: m_safe = 0 for a fully masked row, corr = 0 while m is -inf, l
-// floored at 1e-30 in the final division.  No atomics and no split over
-// kv: an output row is one warpgroup's work in a fixed order, so a launch
-// repeats its bits.
+// softmax are shuffles over the 4 lanes that share a row of a warp's
+// quarter of wgmma's 64-row accumulator.  The exponent runs in base 2
+// (ex2.approx.ftz, 2^-22 relative error; outputs below 2^-126 flush to 0)
+// with scale * log2(e) folded into the score.  Blocks take q tiles in
+// reverse order, so that the longest causal rows start first.  kv tiles
+// wholly above the diagonal are never loaded, and only tiles that cross the
+// diagonal or S are masked.  Any S is taken with no padding copy: rows past
+// S are not written.  The guards of the TPU kernel: m_safe = 0 for a fully
+// masked row, corr = 0 while m is -inf, l floored at 1e-30 in the final
+// division.  No atomics and no split over kv: an output row is one
+// warpgroup's work in a fixed order, so a launch repeats its bits.
 //
 // bfloat16 (flash_fwd_wgmma_kernel): warpgroup MMAs fed by TMA
 // (csrc/wgmma.cuh), the block K3-bwd runs (flash_attention_bwd.cu).
@@ -79,38 +79,38 @@
 //    a panel at a time, to free 32 registers), part of the exponents on the
 //    FMA pipe at D = 64.
 //
-// float32 (flash_fwd_tf32_kernel): 3xTF32 (csrc/tf32.cuh) on mma.sync.  A
-// block owns one q tile of one (batch, head), each of its 8 warps 16 q rows
-// in the m16n8 accumulator layout; q . k^T and p @ v run as mma.sync on the
-// tensor cores; p never leaves registers.  One TF32 product keeps 10
-// mantissa bits and misses the float32 limit of 3e-5 by 30-150x; the split
-// (a = hi + lo, products lo.hi + hi.lo + hi.hi, lo.lo dropped, rounded with
-// two integer operations) meets it.
-//  * Both products are mma.sync m16n8k8 tf32.  A score tile is one chain of
-//    DQK / 8 k-steps of three MMAs (past DQK = 64 the small terms of all k-steps
-//    come first); a tile's p @ v one chain of BK / 8.
-//  * p in registers: the m16n8 accumulator holds columns 2t, 2t + 1 in lane
-//    (g, t), where an m16n8k8 A fragment wants columns t, t + 4.  p @ v sums
-//    over kv, so the kv index is permuted instead of the data: the A
-//    fragment is (c0, c2, c1, c3), and v is stored with kv row 2t of each
-//    k-step at t and 2t + 1 at t + 4 (kv_pos).  No shuffle, no round trip
-//    through shared memory.  Each warp splits its own p.
-//  * k and v are split once per block, not once per warp: a kv tile lands
-//    in raw planes by 16-byte cp.async copies (rows at or past S
-//    zero-fill), then all 256 threads split it into hi and lo planes (v
-//    transposed, in kv_pos order, so both operands load with ldmatrix), and
-//    the next tile's copies go out while the warps compute on the planes.
-//    The split pass is ALU work (5 operations an element) that stalls the
-//    block's MMAs, so 8 warps (128 q rows) share each split tile: at
-//    (15, 4096, 64) on an H100 SXM (700 W) they took 0.655 ms where 4
-//    warps took 0.707, and a per-warp split in registers 0.73
-//    (tools/k3_time.py, PERF.md).  One block an SM (245 registers a
-//    thread and 102 KB of shared memory at D = 64).  Past D = 64 the kv
-//    tile is 32 rows; at (192, 128) the planes take 224 KB of the 227 KB a
-//    block may hold (F32Tile's static_assert).
-//  * q's hi + lo fragments are split once and stay in registers up to
-//    DQK = 64; past it q is read from shared memory and split per k-step.
-//  * float32 inputs must be 16-byte aligned (the copies are 16 bytes).
+// float32 (flash_fwd_tf32_wgmma_kernel): tf32 warpgroup MMAs fed by TMA,
+// every product a 3xTF32 split (csrc/tf32.cuh: a = hi + lo, hi = tf32(a),
+// lo = tf32(a - hi); lo.hi + hi.lo + hi.hi, small terms first, lo.lo
+// dropped).  One TF32 product keeps 10 mantissa bits and misses the float32
+// limit of 3e-5 by 30-150x; the split meets it.  The block is K3-bwd's
+// float32 block (csrc/tf32_wgmma.cuh holds its pieces for both kernels):
+//  * A producer warpgroup and consumer warpgroups of 64 q rows: two up to
+//    DQK = 64 (setmaxnreg 72 / 216: at K3-bwd's 56 the producer's split of
+//    a 64-row tile spilled), one past it, where q's planes take the room
+//    of a second one.
+//  * The producer's first thread loads q once and keeps 2 raw kv tiles in
+//    flight (3-D tensor maps over (BH, S, D) in float32, so rows past S
+//    zero-fill inside a head); its 128 threads split q once (hi in place,
+//    lo beside it) and each kv tile into a stage of the plane ring: k's hi
+//    and lo planes as stored, the K-major B of the scores, and v's hi and
+//    lo planes transposed, the K-major B of p v (tf32 wgmma reads shared
+//    memory K-major only), kv in kpos order.  The two parts are handed on
+//    under two full / empty pairs, so that the split of tile i + 1 runs
+//    under the consumers' softmax and p v of tile i.
+//  * s = q k^T: all lo.hi k-steps, then hi.lo, then hi.hi, one chain a
+//    tile.  q's hi terms are A fragments in registers, read once (RS), and
+//    only lo.hi reads q's lo plane: at D = 128 and (192, 128) that beat
+//    all three products reading shared memory (SS) by 10% and 19%, though
+//    it spills 4-8 and 168 bytes there (PERF.md).
+//  * p goes from the accumulators into tf32 hi and lo A fragments: a tf32
+//    fragment holds columns t, t + 4 of a k-step where the accumulator
+//    holds 2t, 2t + 1, so v's transposed planes hold kv row 2t of each 8
+//    at k position t and 2t + 1 at t + 4 (kpos).  p v runs from zero in
+//    column chunks of up to 64, each folded into acc with one fmaf.
+//  * kv tiles of 64 rows up to DQK = 64 (one plane stage, 193 KB), 32 at
+//    128 (one stage, 193 KB), 16 at (192, 128) (two stages, 217 KB).
+//  * float32 inputs must be 16-byte aligned (TMA).
 //
 // For training the caller may pass an lse buffer (BH, S) float32: each row's
 // log-sum-exp of the scaled scores in natural-log units, with the same
@@ -134,7 +134,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
-#include "tf32.cuh"
+#include "tf32_wgmma.cuh"
 #include "wgmma.cuh"
 
 // the instances, each defined in its own unit
@@ -155,6 +155,50 @@ using namespace mma;
 // fully masked row, taken as 0 like m_safe) and the floored row sum den
 __device__ __forceinline__ float row_lse(float m, float den) {
   return ((isfinite(m) ? m : 0.f) + log2f(den)) * 0.6931471805599453f;
+}
+
+// scale (base 2), mask, and the online-softmax update of one score tile of
+// a warpgroup's 64 rows (first row r0), in place: sc becomes p, (m, l)
+// advance, and corr is each of the thread's rows' factor for acc.  Only a
+// tile that crosses S or the diagonal is masked.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0, int S, int causal, int r0,
+                                             int row_a, int col_t, float scale_log2) {
+  const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > r0);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * scale_log2;
+      if (edge) {
+        const int col = k0 + 8 * j + col_t + (e & 1);
+        const int row = row_a + (e >> 1) * 8;
+        if (col >= S || (causal && col > row)) x = -INFINITY;
+      }
+      sc[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float m_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    m_safe[r] = isfinite(m_new) ? m_new : 0.f;
+    corr[r] = isfinite(m[r]) ? ex2(m[r] - m_safe[r]) : 0.f;
+    m[r] = m_new;
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(sc[4 * j + e] - m_safe[e >> 1]);  // 0 where masked
+      sc[4 * j + e] = p;
+      ps[e >> 1] += p;
+    }
+  l[0] = l[0] * corr[0] + ps[0];
+  l[1] = l[1] * corr[1] + ps[1];
 }
 
 #ifdef REPRO_K3_BF16
@@ -210,50 +254,6 @@ struct Tiles {
   // (192, 128): 214,088 bytes
   static_assert(BYTES <= 232448, "the tiles fit the 227 KB a block may hold");
 };
-
-// scale (base 2), mask, and the online-softmax update of one score tile of
-// a warpgroup's 64 rows (first row r0), in place: sc becomes p, (m, l)
-// advance, and corr is each of the thread's rows' factor for acc.  Only a
-// tile that crosses S or the diagonal is masked.
-template <int BK>
-__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], int k0, int S, int causal, int r0,
-                                             int row_a, int col_t, float scale_log2) {
-  const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > r0);
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = sc[4 * j + e] * scale_log2;
-      if (edge) {
-        const int col = k0 + 8 * j + col_t + (e & 1);
-        const int row = row_a + (e >> 1) * 8;
-        if (col >= S || (causal && col > row)) x = -INFINITY;
-      }
-      sc[4 * j + e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  float m_safe[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m_new = fmaxf(m[r], quad_max(mx[r]));
-    m_safe[r] = isfinite(m_new) ? m_new : 0.f;
-    corr[r] = isfinite(m[r]) ? ex2(m[r] - m_safe[r]) : 0.f;
-    m[r] = m_new;
-  }
-  float ps[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = ex2(sc[4 * j + e] - m_safe[e >> 1]);  // 0 where masked
-      sc[4 * j + e] = p;
-      ps[e >> 1] += p;
-    }
-  l[0] = l[0] * corr[0] + ps[0];
-  l[1] = l[1] * corr[1] + ps[1];
-}
 
 // tile = p v from zero for a warpgroup's 64 rows: p as its hi and lo A
 // fragments, v (BK rows, DV columns) MN-major at descriptor vt, one chain a
@@ -478,328 +478,162 @@ cudaError_t launch_bf16(K3_LAUNCH_ARGS) {
 #ifdef REPRO_K3_F32
 // ---------------------------------------------------------------- float32
 
-using tf32::mma_tf32;
-using tf32::split_tf32;
-
-constexpr int F32_WARPS = 8;  // 16 q rows each
-constexpr int F32_BQ = 16 * F32_WARPS;
-constexpr int F32_THREADS = 32 * F32_WARPS;
-
-// The float32 kernel's tiles.  kv tiles of 64 rows, or 32 past DQK = 64,
-// where 64 rows of raw and split planes beside q's own plane would pass the
-// 227 KB a block may hold.  q's hi + lo fragments stay in registers up to
-// DQK = 64 (64 registers there) and are read from shared memory and split
-// per k-step past it.  Word offsets into shared memory:
-//   raw k         (BK, LD)   the cp.async targets, float32 as loaded
-//   raw v         (BK, LDV)
-//   k hi, k lo    (BK, LD)   the split of k, in k's layout
-//   vT hi, vT lo  (DV, LDT)  the split of v, transposed, kv in k-step order
-//   q         (F32_BQ, LD)   staged once; in the k planes when it is split
-//                            into registers, else a plane of its own
-// LD, LDV and LDT are 4 mod 32 words, so each ldmatrix phase (8 rows of 16
-// bytes) hits 8 distinct bank groups, and so do the split pass's
-// transposed stores (32 lanes on 32 consecutive kv rows).
-template <int DQK, int DV>
-struct F32Tile {
-  static constexpr int BK = DQK <= 64 ? 64 : 32;
-  static constexpr bool QREG = DQK <= 64;
-  static constexpr int LD = DQK + 4;
-  static constexpr int LDV = DV + 4;
-  static constexpr int LDT = BK + 4;
-  static constexpr int RAW_K = 0;
-  static constexpr int RAW_V = RAW_K + BK * LD;
-  static constexpr int K_HI = RAW_V + BK * LDV;
-  static constexpr int K_LO = K_HI + BK * LD;
-  static constexpr int VT_HI = K_LO + BK * LD;
-  static constexpr int VT_LO = VT_HI + DV * LDT;
-  static constexpr int SPLIT_END = VT_LO + DV * LDT;
-  static constexpr int Q = QREG ? K_HI : SPLIT_END;
-  static constexpr int WORDS = QREG ? SPLIT_END : SPLIT_END + F32_BQ * LD;
-  static_assert(!QREG || F32_BQ * LD <= SPLIT_END - K_HI, "q is staged in the split planes");
-  static_assert(BK % 32 == 0 && BK * DQK / 4 % F32_THREADS == 0 && BK * DV / 4 % F32_THREADS == 0,
-                "whole 16-byte pieces a thread");
-  // (192, 128): 57,344 words, 229,376 bytes
-  static_assert(WORDS * 4 <= 232448, "the planes fit the 227 KB a block may hold");
+// The float32 block (see the header), described for tf32_wgmma.cuh's
+// producer: the walked pair (a, b) is (k, v), the owned rows are q's.
+template <int DQK_, int DV_>
+struct FwdTiles {
+  static constexpr int DQK = DQK_, DV = DV_;
+  using A = tf32::F32Panels<DQK>;
+  using B = tf32::F32Panels<DV>;
+  // consumer warpgroups of 64 q rows: two where q's planes leave room for
+  // the rings, one past DQK = 64
+  static constexpr int C = DQK >= 128 ? 1 : 2;
+  static constexpr int BR = 64 * C;  // q rows a block
+  static constexpr int THREADS = tf32::WG * (1 + C);
+  // setmaxnreg with two consumers (72 x 128 + 2 x 216 x 128 = 168 x 384):
+  // the producer's split of a 64-row tile spilled at K3-bwd's 56
+  static constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
+  // kv rows a tile (the N of the scores, the K of p v): fewer as q's planes grow
+  static constexpr int BT = DQK + DV > 256 ? 16 : DQK == 128 ? 32 : 64;
+  static constexpr int KW = BT < 32 ? BT : 32;  // k positions of a transposed panel row
+  static constexpr int RBT = 4 * KW;            // its bytes
+  static constexpr int OWN_A = BR * DQK * 4;    // bytes of q's hi plane, of its lo plane
+  static constexpr int OWN_B = 0;
+  static constexpr int TILE_A = BT * DQK * 4;   // bytes of one plane of a k tile, of a v tile
+  static constexpr int TILE_B = BT * DV * 4;
+  static constexpr int ROWS = 0;
+  static constexpr int RAWS = 2;  // raw stages (TMA's landing ring)
+  // the planes the producer writes: k hi and lo as stored (the K-major B of
+  // the scores), v hi and lo transposed (the K-major B of p v)
+  static constexpr bool STORED_B = false, TRANS_A = false, TRANS_B = true, ROWS_RIDE = false;
+  static constexpr int A_LO = TILE_A, TB_HI = 2 * TILE_A, TB_LO = TB_HI + TILE_B;
+  static constexpr int PLANES = TB_LO + TILE_B;  // bytes of a stage of the plane ring
+  // byte offsets from the 1024-aligned base: q hi, q lo, the raw ring (k,
+  // v), the plane ring, the barriers
+  static constexpr int RAW0 = 2 * OWN_A;
+  static constexpr int RAW = TILE_A + TILE_B;  // bytes of a raw stage
+  static constexpr int PLANE0 = RAW0 + RAWS * RAW;
+  static constexpr int STAGES = tf32::SMEM_LIMIT - (PLANE0 + 1024 + 128) >= 2 * PLANES ? 2 : 1;
+  static constexpr int BARS = PLANE0 + STAGES * PLANES;
+  static constexpr int BYTES = BARS + (RAWS + 4 * STAGES + 2) * 8 + 1024;
+  // D = 64: 197,696 bytes (1 plane stage); (192, 128): 222,304 (2)
+  static_assert(BYTES <= tf32::SMEM_LIMIT, "the tiles fit the 227 KB a block may hold");
+  static_assert(OWN_A % 1024 == 0 && TILE_A % 1024 == 0 && TILE_B % 1024 == 0,
+                "every plane on a 1024-byte boundary (the 128-byte swizzle)");
 };
 
-// position of kv row r in the vT planes: in each k-step of 8 rows, row 2t
-// sits at t and row 2t + 1 at t + 4, the order in which a score tile's
-// m16n8 accumulator holds p as an m16n8k8 A fragment (columns 2t, 2t + 1)
-__device__ __forceinline__ int kv_pos(int r) { return (r & ~7) | ((r & 1) << 2) | ((r >> 1) & 3); }
-
-// rows [row0, row0 + ROWS) of a (S, D) float32 matrix into a tile of row
-// stride LD words, in 16-byte copies; rows at or past S zero-fill
-template <int D, int LD, int ROWS>
-__device__ __forceinline__ void load_rows_f32(uint32_t* dst, const float* src, int row0, int S,
-                                              int tid) {
-  constexpr int CH = D / 4;
-  static_assert(ROWS * CH % F32_THREADS == 0, "whole chunks per thread");
-#pragma unroll
-  for (int j = 0; j < ROWS * CH / F32_THREADS; ++j) {
-    const int i = tid + j * F32_THREADS;
-    const int r = i / CH, ch = i % CH;
-    const bool in = row0 + r < S;
-    cp_async16(smem_addr(dst + r * LD + ch * 4), src + (size_t)(in ? row0 + r : 0) * D + ch * 4,
-               in);
-  }
-}
-
-// the landed raw k and v tile into its hi and lo planes, once for the block
-template <int DQK, int DV>
-__device__ __forceinline__ void split_tile(uint32_t* sm, int tid) {
-  using T = F32Tile<DQK, DV>;
-  constexpr int CH = DQK / 4;
-  constexpr int PER = T::BK * CH / F32_THREADS;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = tid + j * F32_THREADS;
-    const int off = (i / CH) * T::LD + (i % CH) * 4;
-    const uint4 a = *reinterpret_cast<const uint4*>(sm + T::RAW_K + off);
-    uint4 hi, lo;
-    split_tf32(a.x, hi.x, lo.x);
-    split_tf32(a.y, hi.y, lo.y);
-    split_tf32(a.z, hi.z, lo.z);
-    split_tf32(a.w, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(sm + T::K_HI + off) = hi;
-    *reinterpret_cast<uint4*>(sm + T::K_LO + off) = lo;
-  }
-  // v: a warp takes 32 consecutive kv rows of one 4-column piece
-  constexpr int PER_V = T::BK * (DV / 4) / F32_THREADS;
-#pragma unroll
-  for (int j = 0; j < PER_V; ++j) {
-    const int i = tid + j * F32_THREADS;
-    const int w = i >> 5;
-    const int r = (w % (T::BK / 32)) * 32 + (i & 31), ch = w / (T::BK / 32);
-    const uint4 a = *reinterpret_cast<const uint4*>(sm + T::RAW_V + r * T::LDV + ch * 4);
-    const uint32_t x[4] = {a.x, a.y, a.z, a.w};
-    const int col = (ch * 4) * T::LDT + kv_pos(r);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uint32_t hi, lo;
-      split_tf32(x[e], hi, lo);
-      sm[T::VT_HI + col + e * T::LDT] = hi;
-      sm[T::VT_LO + col + e * T::LDT] = lo;
-    }
-  }
-}
-
 template <int DQK, int DV, bool LSE>
-__global__ void __launch_bounds__(F32_THREADS)
-    flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ lse, int S, int causal, float scale_log2) {
-  using T = F32Tile<DQK, DV>;
-  constexpr int BKT = T::BK, LD = T::LD, LDV = T::LDV, LDT = T::LDT;
-  constexpr int KD = DQK / 8;  // k-steps of q k^T
-  constexpr int ND = DV / 8;   // n8 tiles of the output
-  constexpr int NS = BKT / 8;  // n8 tiles of a score tile, and k-steps of p v
-  static_assert(DQK % 16 == 0 && DV % 16 == 0, "pairs of n8 tiles");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* sm = reinterpret_cast<uint32_t*>(smem_raw);
+__global__ void __launch_bounds__(FwdTiles<DQK, DV>::THREADS, 1)
+    flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                                float* __restrict__ lse, int S, int causal, float scale_log2) {
+  using T = FwdTiles<DQK, DV>;
+  using PA = typename T::A;
+  constexpr int BT = T::BT, BR = T::BR;
+  constexpr int NW = DV < 64 ? DV : 64;  // columns of one p v product
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const tf32::F32Ring<T> ring(f32_smem);
+  const int bh = blockIdx.y;
+  const int q0 = ((S + BR - 1) / BR - 1 - (int)blockIdx.x) * BR;
+  const int kv_end = causal ? min(S, q0 + BR) : S;
+  const int n = (kv_end + BT - 1) / BT;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int nq = (S + F32_BQ - 1) / F32_BQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * F32_BQ;
-  const size_t rows = (size_t)blockIdx.y * (size_t)S;  // this (batch, head)'s first row
-  const float* kb = k + rows * DQK;
-  const float* vb = v + rows * DV;
-  const int kv_end = causal ? min(S, q0 + F32_BQ) : S;
-  const int n_tiles = (kv_end + BKT - 1) / BKT;
+  const int wgi = threadIdx.x / tf32::WG;
+  if (wgi == 0) {  // producer: the loads, and the split of q and of every kv tile
+    if constexpr (T::C > 1) wg::regs_dec<T::PRODUCER_REGS>();
+    tf32::f32_producer<T>(ring, &tq, nullptr, &tk, &tv, nullptr, q0, 0, n, bh, 0);
+  } else {
+    if constexpr (T::C > 1) wg::regs_inc<T::CONSUMER_REGS>();
+    // warp-uniform (a shuffle shows the compiler), so that the descriptors
+    // below live in uniform registers
+    const int c = __shfl_sync(0xffffffffu, wgi, 0) - 1;
+    const uint32_t base = __shfl_sync(0xffffffffu, ring.base, 0);
+    const int t = threadIdx.x % tf32::WG, lane = t & 31;
+    const int r0 = q0 + 64 * c;                          // this warpgroup's first q row
+    const int row_a = r0 + (t >> 5) * 16 + (lane >> 2);  // a thread's rows: row_a, row_a + 8
+    const int col_t = 2 * (lane & 3);
+    const uint64_t q_lo = wg::rows_desc<PA::RB>(base + T::OWN_A) + (64 * c * PA::RB >> 4);
+    const uint64_t plane_k = wg::rows_desc<PA::RB>(base + T::PLANE0);
+    const uint64_t plane_t = wg::rows_desc<T::RBT>(base + T::PLANE0);
+    // the kv tiles this warpgroup's rows see (causal: up to its last row)
+    const int n_c = causal ? min(n, (r0 + 63) / BT + 1) : n;
+    float acc[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+    wg::mbar_wait(ring.own, 0);
+    uint32_t qa[DQK / 8][4];  // q's hi terms as A fragments, read once
+    tf32::load_a_tf32<PA, BR>(qa, ring.ptr, 64 * c, t >> 5, lane);
 
-  // one copy group: q and kv tile 0
-  load_rows_f32<DQK, LD, F32_BQ>(sm + T::Q, q + rows * DQK, q0, S, tid);
-  load_rows_f32<DQK, LD, BKT>(sm + T::RAW_K, kb, 0, S, tid);
-  load_rows_f32<DV, LDV, BKT>(sm + T::RAW_V, vb, 0, S, tid);
-  cp_async_commit();
-
-  // ldmatrix lane addresses (bytes): q rows as A fragments (rows g, g + 8;
-  // words t, t + 4); k rows and vT rows as the B fragments of two n8 tiles
-  const uint32_t q_addr = smem_addr(
-      sm + T::Q + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 4);
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_word = ((lane >> 3) & 1) * 4;
-  const uint32_t kh_addr = smem_addr(sm + T::K_HI + b_row * LD + b_word);
-  const uint32_t kl_addr = smem_addr(sm + T::K_LO + b_row * LD + b_word);
-  const uint32_t vh_addr = smem_addr(sm + T::VT_HI + b_row * LDT + b_word);
-  const uint32_t vl_addr = smem_addr(sm + T::VT_LO + b_row * LDT + b_word);
-
-  // this warp's 16 q rows as hi + lo A fragments, for the whole kv loop
-  uint32_t qh[T::QREG ? KD : 1][4], ql[T::QREG ? KD : 1][4];
-  if constexpr (T::QREG) {
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, q_addr + 32 * kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(a[i], qh[kk][i], ql[kk][i]);
-    }
-  }
-
-  // a thread's rows in the m16n8 layout: g and g + 8 of the warp's 16
-  const int row_a = q0 + warp * 16 + (lane >> 2);
-  const int col_t = 2 * (lane & 3);
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this thread's part of the row sums
-
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile it is in the raw planes; no warp reads the split planes (or q) now
-    split_tile<DQK, DV>(sm, tid);
-    __syncthreads();  // the split planes hold tile it; the raw planes are free
-    if (it + 1 < n_tiles) {
-      load_rows_f32<DQK, LD, BKT>(sm + T::RAW_K, kb, (it + 1) * BKT, S, tid);
-      load_rows_f32<DV, LDV, BKT>(sm + T::RAW_V, vb, (it + 1) * BKT, S, tid);
-      cp_async_commit();
-    }
-    const int k0 = it * BKT;
-
-    // s = q k^T for this warp's 16 rows: one chain of KD k-steps of three
-    // MMAs per n8 tile.  Each MMA truncates the running sum, so the longer
-    // chains past DQK = 64 take every small term (lo.hi, hi.lo) in a first pass
-    // and the hi.hi terms in a second: 16 truncations at the score's full
-    // magnitude, not 48 (the worst f32 error at q x 4 fell from 2.2e-5 to
-    // 1.5e-5 on an H100).  At D <= 64 the second pass would cost 6% of the
-    // kernel for 13% of the error.
-    constexpr bool TWO_PASS = KD > 8;
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < (TWO_PASS ? 2 : 1) * KD; ++kk) {
-      const int ks = kk % KD;
-      const bool small = !TWO_PASS || kk < KD, big = !TWO_PASS || kk >= KD;
-      uint32_t ah[4], al[4];
-      if constexpr (T::QREG) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ah[i] = qh[ks][i], al[i] = ql[ks][i];
+    for (int i = 0; i < n; ++i) {
+      const int s = i % T::STAGES, ph = (i / T::STAGES) & 1;
+      const uint64_t st = (uint64_t)(s * T::PLANES) >> 4;
+      const bool sees = i < n_c;
+      float sc[BT / 2];  // a score tile, then its p
+      wg::mbar_wait(ring.full + 8 * s, ph);
+      if (sees) {
+        wg::fence_operand(sc);
+        wg::fence();
+        tf32::scores_tf32_rs<PA, BR, BT>(sc, qa, q_lo, plane_k + st, plane_k + st + (T::A_LO >> 4));
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(sc);
+        wg::fence_operand(qa);
+      }
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ring.empty + 8 * s);  // k's planes are read
+      if (sees) {
+        float corr[2];
+        softmax_tile<BT>(sc, m, l, corr, i * BT, S, causal, r0, row_a, col_t, scale_log2);
+        // acc = acc * corr + tile, one rounding: the TPU kernel's add of a block
+        wg::mbar_wait(ring.full_t + 8 * s, ph);
+        tf32::accumulate_tf32<T, DV, NW>(
+            acc, sc, plane_t + st + (T::TB_HI >> 4), plane_t + st + (T::TB_LO >> 4),
+            [&](float a, float x, int e) { return fmaf(a, corr[(e >> 1) & 1], x); });
       } else {
-        uint32_t a[4];
-        ldmatrix_x4(a, q_addr + 32 * ks);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+        wg::mbar_wait(ring.full_t + 8 * s, ph);
       }
-#pragma unroll
-      for (int jp = 0; jp < NS / 2; ++jp) {
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4(bh, kh_addr + 4 * (jp * 16 * LD + ks * 8));
-        if (small) ldmatrix_x4(bl, kl_addr + 4 * (jp * 16 * LD + ks * 8));
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float(&c)[4] = s[2 * jp + h];
-          if (small) {
-            mma_tf32(c, al, bh[2 * h], bh[2 * h + 1]);
-            mma_tf32(c, ah, bl[2 * h], bl[2 * h + 1]);
-          }
-          if (big) mma_tf32(c, ah, bh[2 * h], bh[2 * h + 1]);
-        }
-      }
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(ring.empty_t + 8 * s);  // v's planes are read
     }
 
-    // scale (base 2), mask, and the online-softmax update
-    const bool edge = k0 + BKT > S || (causal && k0 + BKT - 1 > q0);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float t = s[j][e] * scale_log2;
-        if (edge) {
-          const int col = k0 + j * 8 + col_t + (e & 1);
-          const int row = row_a + (e >> 1) * 8;
-          if (col >= S || (causal && col > row)) t = -INFINITY;
-        }
-        s[j][e] = t;
-        mx[e >> 1] = fmaxf(mx[e >> 1], t);
-      }
-    float m_safe[2], corr[2];
+    float* ob = o + (size_t)bh * S * DV;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      m_safe[r] = isfinite(m_new) ? m_new : 0.f;
-      corr[r] = isfinite(m[r]) ? ex2(m[r] - m_safe[r]) : 0.f;
-      m[r] = m_new;
+      const float den = fmaxf(quad_sum(l[r]), 1e-30f);  // all lanes shuffle
+      const int row = row_a + 8 * r;
+      if (row >= S) continue;
+      if constexpr (LSE)
+        if ((lane & 3) == 0) lse[(size_t)bh * S + row] = row_lse(m[r], den);
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<float2*>(&ob[(size_t)row * DV + 8 * j + col_t]) =
+            make_float2(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
     }
-    float ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = ex2(s[j][e] - m_safe[e >> 1]);  // 0 where masked
-        s[j][e] = p;
-        ps[e >> 1] += p;
-      }
-    l[0] = l[0] * corr[0] + ps[0];
-    l[1] = l[1] * corr[1] + ps[1];
-
-    // t = p v from zero, k-step c being score tile c: its accumulator is
-    // the A fragment a0 = c0, a1 = c2, a2 = c1, a3 = c3 over kv in vT's
-    // order (kv_pos), so p never leaves registers
-    float t[ND][4];
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NS; ++c) {
-      const float pa[4] = {s[c][0], s[c][2], s[c][1], s[c][3]};
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_tf32(__float_as_uint(pa[i]), ah[i], al[i]);
-#pragma unroll
-      for (int dp = 0; dp < ND / 2; ++dp) {
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4(bh, vh_addr + 4 * (dp * 16 * LDT + c * 8));
-        ldmatrix_x4(bl, vl_addr + 4 * (dp * 16 * LDT + c * 8));
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float(&d)[4] = t[2 * dp + h];
-          mma_tf32(d, al, bh[2 * h], bh[2 * h + 1]);
-          mma_tf32(d, ah, bl[2 * h], bl[2 * h + 1]);
-          mma_tf32(d, ah, bh[2 * h], bh[2 * h + 1]);
-        }
-      }
-    }
-    // acc = acc * corr + t, one rounding, as the TPU kernel adds each block
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], corr[e >> 1], t[j][e]);
-  }
-
-  float* ob = o + rows * DV;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float den = fmaxf(quad_sum(l[r]), 1e-30f);  // all lanes shuffle
-    const int row = row_a + 8 * r;
-    if (row >= S) continue;
-    if constexpr (LSE)
-      if ((lane & 3) == 0) lse[rows + row] = row_lse(m[r], den);
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<float2*>(&ob[(size_t)row * DV + j * 8 + col_t]) =
-          make_float2(acc[j][2 * r] / den, acc[j][2 * r + 1] / den);
   }
 }
 
 template <int DQK, int DV, bool LSE>
 cudaError_t launch_f32(K3_LAUNCH_ARGS) {
-  const int smem = (int)(F32Tile<DQK, DV>::WORDS * sizeof(uint32_t));
+  using T = FwdTiles<DQK, DV>;
+  CUtensorMap m[3];
+  constexpr CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!(wg::tensor_map<typename T::A, T::BT>(&m[0], q, BH, S, type) &&
+        wg::tensor_map<typename T::A, T::BT>(&m[1], k, BH, S, type) &&
+        wg::tensor_map<typename T::B, T::BT>(&m[2], v, BH, S, type)))
+    return cudaErrorInvalidValue;
   static bool attr_set = false;
-  cudaError_t e = mma::allow_smem(flash_fwd_tf32_kernel<DQK, DV, LSE>, smem, attr_set);
+  cudaError_t e =
+      mma::allow_smem(flash_fwd_tf32_wgmma_kernel<DQK, DV, LSE>, T::BYTES, attr_set);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + F32_BQ - 1) / F32_BQ, BH);
-  flash_fwd_tf32_kernel<DQK, DV, LSE><<<grid, F32_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, S, causal, (float)(scale * 1.4426950408889634));
+  const dim3 grid((S + T::BR - 1) / T::BR, BH);
+  flash_fwd_tf32_wgmma_kernel<DQK, DV, LSE><<<grid, T::THREADS, T::BYTES, stream>>>(
+      m[0], m[1], m[2], static_cast<float*>(o), lse, S, causal,
+      (float)(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
 #endif  // REPRO_K3_F32

@@ -78,8 +78,11 @@
 // float32 (bwd_dkdv_tf32_kernel, bwd_dq_tf32_kernel): the same walk on
 // tf32 warpgroup MMAs, every product a 3xTF32 split (csrc/tf32.cuh: a =
 // hi + lo, hi = tf32(a), lo = tf32(a - hi); lo.hi + hi.lo + hi.hi, small
-// terms first, lo.lo dropped).  A single TF32 product keeps 10 mantissa
-// bits, 30-150x over the float32 limit (flash_attention.cu).
+// terms first, lo.lo dropped).  The block's pieces (the split, the
+// producer, the scores and the products against transposed planes) are in
+// csrc/tf32_wgmma.cuh, which K3's float32 forward runs too.  A single TF32
+// product keeps 10 mantissa bits, 30-150x over the float32 limit
+// (flash_attention.cu).
 //  * tf32 wgmma reads shared memory K-major only: s and dp read the owned
 //    and walked rows as stored, but dv += p^T dO, dk += ds^T q and dq +=
 //    ds k sum over the walked rows, so they read a transposed copy of the
@@ -130,7 +133,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
-#include "tf32.cuh"
+#include "tf32_wgmma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -548,23 +551,17 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 
 // ---------------------------------------------------------------- float32
 
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
-
-// a float32 matrix of D columns as panels of one swizzle row each
-template <int D>
-struct F32Panels {
-  static constexpr int CW = D < 32 ? D : 32;  // floats of a panel row
-  static constexpr int NP = D / CW;           // panels
-  static constexpr int RB = 4 * CW;           // bytes of a panel row (64 or 128)
-};
-
-// the N of one accumulating wgmma into a sum of D columns; 32 at D >= 128,
-// where dk/dv's registers spill: fewer spills than at 64, and 4% faster
-// when measured (D = 128)
-template <int D>
-__host__ __device__ constexpr int f32_nw() {
-  return D < 64 ? D : D >= 128 ? 32 : 64;
-}
+// the float32 block's pieces (panels, the split, the scores, the products
+// against the transposed planes, the ring and its producer warpgroup):
+// csrc/tf32_wgmma.cuh, shared with K3's forward
+using tf32::accumulate_tf32;
+using tf32::F32Panels;
+using tf32::F32Ring;
+using tf32::f32_nw;
+using tf32::f32_producer;
+using tf32::load_a_tf32;
+using tf32::scores_tf32;
+using tf32::scores_tf32_rs;
 
 // the float32 path's block (see the header); DKDV: the dk/dv kernel, else
 // dq.  A pair of matrices is (a, b): a of DQK columns (k or q), b of DV
@@ -587,6 +584,9 @@ struct F32Tiles {
   static constexpr int TILE_B = BT * DV * 4;
   static constexpr int ROWS = BT * 8;                 // a walked tile's (lse2, delta) pairs
   static constexpr int RAWS = 2;                      // raw stages (TMA's landing ring)
+  // the planes the producer writes: a and b as stored, a transposed, b
+  // transposed for dk/dv; the (lse2, delta) pairs ride with dk/dv's tiles
+  static constexpr bool STORED_B = true, TRANS_A = true, TRANS_B = DKDV, ROWS_RIDE = DKDV;
   // a stage of the plane ring: a hi, a lo, b hi, b lo as stored, then the
   // transposed a hi, a lo and, for dk/dv, b hi, b lo (byte offsets)
   static constexpr int A_LO = TILE_A, B_HI = 2 * TILE_A, B_LO = B_HI + TILE_B;
@@ -601,178 +601,27 @@ struct F32Tiles {
   static constexpr int RAW = TILE_A + TILE_B;          // bytes of a raw stage
   static constexpr int PLANE0 = RAW0 + RAWS * RAW;
   static constexpr int FIXED = PLANE0 + (RAWS + 1) * ROWS + 1024 + 128;
-  static constexpr int STAGES = SMEM_LIMIT - FIXED >= 2 * (PLANES + ROWS) ? 2 : 1;
+  static constexpr int STAGES = tf32::SMEM_LIMIT - FIXED >= 2 * (PLANES + ROWS) ? 2 : 1;
   static constexpr int ROWBUFS = STAGES + 1;
   static constexpr int ROWS0 = PLANE0 + STAGES * PLANES;
   static constexpr int BARS = ROWS0 + (RAWS + ROWBUFS) * ROWS;
   static constexpr int BYTES = BARS + (RAWS + 4 * STAGES + 2) * 8 + 1024;
-  static_assert(BYTES <= SMEM_LIMIT, "the float32 block's shared memory");
+  static_assert(BYTES <= tf32::SMEM_LIMIT, "the float32 block's shared memory");
   static_assert(OWN_A % 1024 == 0 && OWN_B % 1024 == 0 && TILE_A % 1024 == 0 &&
                     TILE_B % 1024 == 0,
                 "every plane on a 1024-byte boundary (the 128-byte swizzle)");
 };
 
-// setmaxnreg with two consumers: 56 x 128 + 2 x 224 x 128 = 168 x 384
-constexpr int F32_PRODUCER_REGS = 56, F32_CONSUMER_REGS = 224;
+// acc += x . the walked tile: each column chunk's product folded in with
+// one rounded add
+struct AddFold {
+  __device__ __forceinline__ float operator()(float a, float t, int) const { return a + t; }
+};
 
-// the byte offset of logical offset w in rows of RB bytes under the TMA
-// swizzle (an involution: it also maps a physical offset to its logical one)
-template <int RB>
-__device__ __forceinline__ int swz(int w) {
-  constexpr int M = RB == 128 ? 7 : RB == 64 ? 3 : 1;
-  return w ^ (((w >> 7) & M) << 4);
-}
-
-// a transposed plane's k position of walked row r: in each 8 rows, row 2t
-// at t and row 2t + 1 at t + 4, so that an accumulator tile read as tf32 A
-// fragments (columns 2t, 2t + 1 where the fragment holds t, t + 4) meets
-// its rows of B
-__device__ __forceinline__ int kpos(int r) {
-  return (r & ~7) | ((r & 1) << 2) | ((r >> 1) & 3);
-}
-
-__device__ __forceinline__ float4 split4(float4 x, float4& lo) {
-  uint32_t h[4], l[4];
-  const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tf32::split_tf32(__float_as_uint(xs[i]), h[i], l[i]);
-  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
-                   __uint_as_float(l[3]));
-  return make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
-                     __uint_as_float(h[3]));
-}
-
-// the producer warpgroup's split of one walked matrix of D columns (panels
-// P): the raw tile at src (BT rows, TMA's layout) into hi and lo planes of
-// the same layout (STORED) or of its transpose (D rows of BT k positions in
-// kpos order, panels of KW); thread t of 128.  A warp takes 32 rows of one
-// 16-byte column chunk (at BT < 32, BT rows of 32 / BT chunks), so at
-// BT = 32 its reads and writes hit distinct banks.
-template <typename T, typename P, bool STORED>
-__device__ __forceinline__ void split_walked(const unsigned char* src, unsigned char* hi,
-                                             unsigned char* lo, int t) {
-  constexpr int D = P::NP * P::CW;
-  constexpr int CHUNKS = T::BT * D / 4;
-  static_assert(CHUNKS % WG_THREADS == 0, "whole passes");
-#pragma unroll
-  for (int it = 0; it < CHUNKS / WG_THREADS; ++it) {
-    const int e = t + it * WG_THREADS;
-    const int r = e % T::BT, cc = e / T::BT;  // row, 4-column chunk
-    const int off =
-        (cc / (P::CW / 4)) * T::BT * P::RB + swz<P::RB>(r * P::RB + (cc % (P::CW / 4)) * 16);
-    float4 l;
-    const float4 h = split4(*reinterpret_cast<const float4*>(src + off), l);
-    if constexpr (STORED) {
-      *reinterpret_cast<float4*>(hi + off) = h;
-      *reinterpret_cast<float4*>(lo + off) = l;
-    } else {
-      const int kp = kpos(r);
-      const float hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = 4 * cc + i;
-        const int o = (kp / T::KW) * D * T::RBT + swz<T::RBT>(n * T::RBT + (kp % T::KW) * 4);
-        *reinterpret_cast<float*>(hi + o) = hs[i];
-        *reinterpret_cast<float*>(lo + o) = ls[i];
-      }
-    }
-  }
-}
-
-// s (64 x BT) = 64 owned rows . tile^T to float32 grade over the K = D
-// columns of panels P: lo.hi, hi.lo, hi.hi over every k-step, small terms
-// first.  Descriptors: the owned hi and lo planes (BR rows) at the
-// warpgroup's first row, the walked tile's hi and lo planes, all K-major.
-// Started with wgmma.fence, left uncommitted.
-template <typename P, int BR, int BT>
-__device__ __forceinline__ void scores_tf32(float (&s)[BT / 2], uint64_t a_hi, uint64_t a_lo,
-                                            uint64_t b_hi, uint64_t b_lo) {
-  constexpr int KS = P::NP * P::CW / 8, RB = P::RB;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    wg::mma_ss_tf32<BT>(s, a_lo + wg::k_off<RB, BR>(kk), b_hi + wg::k_off<RB, BT>(kk), kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    wg::mma_ss_tf32<BT>(s, a_hi + wg::k_off<RB, BR>(kk), b_lo + wg::k_off<RB, BT>(kk), 1);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    wg::mma_ss_tf32<BT>(s, a_hi + wg::k_off<RB, BR>(kk), b_hi + wg::k_off<RB, BT>(kk), 1);
-}
-
-// the same with the owned rows' hi terms as tf32 A fragments in registers
-// (a_hi, from load_a_tf32): lo.hi reads the owned lo plane (SS), hi.lo and
-// hi.hi only the walked tile (RS), a third of the shared-memory reads of
-// scores_tf32's
-template <typename P, int BR, int BT>
-__device__ __forceinline__ void scores_tf32_rs(float (&s)[BT / 2],
-                                               const uint32_t (&a_hi)[P::NP * P::CW / 8][4],
-                                               uint64_t a_lo, uint64_t b_hi, uint64_t b_lo) {
-  constexpr int KS = P::NP * P::CW / 8, RB = P::RB;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    wg::mma_ss_tf32<BT>(s, a_lo + wg::k_off<RB, BR>(kk), b_hi + wg::k_off<RB, BT>(kk), kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) wg::mma_rs_tf32<BT>(s, a_hi[kk], b_lo + wg::k_off<RB, BT>(kk));
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) wg::mma_rs_tf32<BT>(s, a_hi[kk], b_hi + wg::k_off<RB, BT>(kk));
-}
-
-// the tf32 A fragments of 64 rows from r0 of an owned plane (BR rows of
-// panels P, TMA's layout, at generic address `plane`), this warp's 16 of
-// them: for k-step kk, a[kk] = (row g, column t), (g + 8, t), (g, t + 4),
-// (g + 8, t + 4)
-template <typename P, int BR>
-__device__ __forceinline__ void load_a_tf32(uint32_t (&a)[P::NP * P::CW / 8][4],
-                                            const unsigned char* plane, int r0, int warp,
-                                            int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < P::NP * P::CW / 8; ++kk)
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int row = r0 + 16 * warp + g + 8 * (f & 1), col = 8 * kk + t + 4 * (f >> 1);
-      a[kk][f] = *reinterpret_cast<const uint32_t*>(
-          plane + (col / P::CW) * BR * P::RB + swz<P::RB>(row * P::RB + (col % P::CW) * 4));
-    }
-}
-
-// acc (64 x D) += x tile (64 x BT, the accumulator layout) . the walked
-// tile (BT rows, D columns), read from its transposed hi and lo planes
-// (descriptors bt_hi, bt_lo).  x is split into tf32 hi and lo A fragments
-// (c0, c2, c1, c3 of each 8 columns: kpos's order); each NW-column
-// product starts from zero and folds into acc with one rounded add.
 template <typename T, int D>
-__device__ __forceinline__ void accumulate_tf32(float (&acc)[D / 2], const float (&x)[T::BT / 2],
-                                                uint64_t bt_hi, uint64_t bt_lo) {
-  constexpr int KS = T::BT / 8, NW = f32_nw<D>(), KP = T::KW / 8;
-  uint32_t hi[KS][4], lo[KS][4];
-#pragma unroll
-  for (int j = 0; j < KS; ++j)
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-      tf32::split_tf32(__float_as_uint(x[4 * j + (f == 1 ? 2 : f == 2 ? 1 : f)]), hi[j][f],
-                       lo[j][f]);
-#pragma unroll
-  for (int nc = 0; nc < D / NW; ++nc) {
-    float t[NW / 2];
-    const auto at = [&](int c) -> uint64_t {
-      return ((c / KP) * D * T::RBT + nc * NW * T::RBT + (c % KP) * 32) >> 4;
-    };
-    wg::fence();
-#pragma unroll
-    for (int c = 0; c < KS; ++c) wg::mma_rs_tf32<NW>(t, lo[c], bt_hi + at(c), c > 0);
-#pragma unroll
-    for (int c = 0; c < KS; ++c) wg::mma_rs_tf32<NW>(t, hi[c], bt_lo + at(c));
-#pragma unroll
-    for (int c = 0; c < KS; ++c) wg::mma_rs_tf32<NW>(t, hi[c], bt_hi + at(c));
-    wg::commit();
-    wg::wait<0>();
-    wg::fence_operand(t);
-    wg::fence_operand(hi);
-    wg::fence_operand(lo);
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) acc[nc * NW / 2 + i] += t[i];
-  }
+__device__ __forceinline__ void accumulate_f32(float (&acc)[D / 2], const float (&x)[T::BT / 2],
+                                               uint64_t bt_hi, uint64_t bt_lo) {
+  accumulate_tf32<T, D, f32_nw<D>()>(acc, x, bt_hi, bt_lo, AddFold());
 }
 
 // this thread's rows of acc * mul into out (S, D) float32; rows past S skipped
@@ -788,125 +637,6 @@ __device__ __forceinline__ void store_rows_f32(float* out, const float (&acc)[D 
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<float2*>(&out[(size_t)row * D + 8 * j + col_t]) =
           make_float2(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
-  }
-}
-
-// the float32 block's shared memory, 1024-aligned, and its barriers:
-// raw[r] (TMA's arrival, one expect_tx); for each stage of the plane ring
-// two full / empty pairs, one for the planes as stored (the scores read
-// them) and one for the transposed planes (the products into dk, dv and
-// dq read them): full (the producer's split, one arrival), empty (one
-// arrival per consumer warp); own_raw (the owned pair's TMA), own (the
-// owned pair split)
-template <typename T>
-struct F32Ring {
-  uint32_t base, raw, full, empty, full_t, empty_t, own_raw, own;
-  unsigned char* ptr;  // generic address of base
-  __device__ __forceinline__ F32Ring(unsigned char* smem) {
-    const uint32_t a = wg::smem_u32(smem);
-    base = (a + 1023) & ~1023u;
-    ptr = smem + (base - a);
-    raw = base + T::BARS;
-    full = raw + 8 * T::RAWS;
-    empty = full + 8 * T::STAGES;
-    full_t = empty + 8 * T::STAGES;
-    empty_t = full_t + 8 * T::STAGES;
-    own_raw = empty_t + 8 * T::STAGES;
-    own = own_raw + 8;
-  }
-  // the (lse2, delta) pairs of walked tile i beside the plane ring
-  __device__ __forceinline__ unsigned char* rows(int i) const {
-    return ptr + T::ROWS0 + (T::RAWS + i % T::ROWBUFS) * T::ROWS;
-  }
-  __device__ __forceinline__ void init() const {
-    for (int r = 0; r < T::RAWS; ++r) wg::mbar_init(raw + 8 * r, 1);
-    for (int s = 0; s < T::STAGES; ++s) {
-      wg::mbar_init(full + 8 * s, 1);
-      wg::mbar_init(empty + 8 * s, 4 * T::C);
-      wg::mbar_init(full_t + 8 * s, 1);
-      wg::mbar_init(empty_t + 8 * s, 4 * T::C);
-    }
-    wg::mbar_init(own_raw, 1);
-    wg::mbar_init(own, 1);
-    wg::mbar_fence_init();
-  }
-};
-
-// The producer warpgroup of both float32 kernels.  Its first thread loads
-// the owned pair (a, b: k, v or q, dO) into the owned hi planes and keeps
-// RAWS walked tiles in flight in the raw ring; the 128 threads split the
-// owned pair in place (hi) and into the lo planes once, then each walked
-// tile into a stage of the plane ring in two parts, each handed on under
-// its own full / empty pair: the planes as stored with the tile's (lse2,
-// delta) pairs, as soon as the consumers' scores are done with the
-// previous tile's, then the transposed planes (a; b too for dk/dv), once
-// their products are.  So the split overlaps the consumers' scores,
-// softmax and products.  Walked tile i covers rows (first + i) * BT.
-template <typename T>
-__device__ __forceinline__ void f32_producer(const F32Ring<T>& ring, const CUtensorMap* ma,
-                                             const CUtensorMap* mb, const CUtensorMap* wa,
-                                             const CUtensorMap* wb, const float2* rows,
-                                             int own0, int first, int n, int bh, int S_pad) {
-  using PA = typename T::A;
-  using PB = typename T::B;
-  constexpr int BT = T::BT;
-  constexpr bool DKDV = T::PLANES > T::TB_HI;
-  const int t = threadIdx.x;
-  const auto load_walked = [&](int i) {
-    const int r = i % T::RAWS, w0 = (first + i) * BT;
-    const uint32_t bar = ring.raw + 8 * r, dst = ring.base + T::RAW0 + r * T::RAW;
-    wg::mbar_expect_tx(bar, T::RAW + (DKDV ? T::ROWS : 0));
-    load_rows_tma<PA, BT>(dst, wa, bar, w0, BT, bh);
-    load_rows_tma<PB, BT>(dst + T::TILE_A, wb, bar, w0, BT, bh);
-    if constexpr (DKDV)
-      wg::bulk_load(ring.base + T::ROWS0 + r * T::ROWS, rows + (size_t)bh * S_pad + w0, T::ROWS,
-                    bar);
-  };
-  if (t == 0) {
-    wg::mbar_expect_tx(ring.own_raw, T::OWN_A + T::OWN_B);
-    load_rows_tma<PA, BT>(ring.base, ma, ring.own_raw, own0, T::BR, bh);
-    load_rows_tma<PB, BT>(ring.base + 2 * T::OWN_A, mb, ring.own_raw, own0, T::BR, bh);
-    for (int i = 0; i < T::RAWS && i < n; ++i) load_walked(i);
-  }
-  unsigned char* const p = ring.ptr;
-  wg::mbar_wait(ring.own_raw, 0);
-  // the owned pair: hi in place, lo beside it
-  for (int m = 0; m < 2; ++m) {
-    const int at = m ? 2 * T::OWN_A : 0, size = m ? T::OWN_B : T::OWN_A;
-    for (int off = 16 * t; off < size; off += 16 * WG_THREADS) {
-      float4* x = reinterpret_cast<float4*>(p + at + off);
-      float4 l;
-      *x = split4(*x, l);
-      *reinterpret_cast<float4*>(p + at + size + off) = l;
-    }
-  }
-  wg::fence_proxy_async();
-  wg::bar_sync<1, WG_THREADS>();
-  if (t == 0) wg::mbar_arrive(ring.own);
-
-  for (int i = 0; i < n; ++i) {
-    const int r = i % T::RAWS, s = i % T::STAGES, ph = ((i / T::STAGES) & 1) ^ 1;
-    const unsigned char* raw = p + T::RAW0 + r * T::RAW;
-    unsigned char* pl = p + T::PLANE0 + s * T::PLANES;
-    wg::mbar_wait(ring.raw + 8 * r, (i / T::RAWS) & 1);
-    wg::mbar_wait(ring.empty + 8 * s, ph);
-    split_walked<T, PA, true>(raw, pl, pl + T::A_LO, t);
-    split_walked<T, PB, true>(raw + T::TILE_A, pl + T::B_HI, pl + T::B_LO, t);
-    if (DKDV && t < BT / 2)
-      reinterpret_cast<float4*>(ring.rows(i))[t] =
-          reinterpret_cast<const float4*>(p + T::ROWS0 + r * T::ROWS)[t];
-    wg::fence_proxy_async();
-    wg::bar_sync<1, WG_THREADS>();
-    if (t == 0) wg::mbar_arrive(ring.full + 8 * s);
-    wg::mbar_wait(ring.empty_t + 8 * s, ph);
-    split_walked<T, PA, false>(raw, pl + T::TA_HI, pl + T::TA_LO, t);
-    if constexpr (DKDV) split_walked<T, PB, false>(raw + T::TILE_A, pl + T::TB_HI, pl + T::TB_LO, t);
-    wg::fence_proxy_async();
-    wg::bar_sync<1, WG_THREADS>();  // the raw stage is read, the planes written
-    if (t == 0) {
-      wg::mbar_arrive(ring.full_t + 8 * s);
-      if (i + T::RAWS < n) load_walked(i + T::RAWS);
-    }
   }
 }
 
@@ -937,10 +667,10 @@ __global__ void __launch_bounds__(F32Tiles<DQK, DV, true>::THREADS, 1)
 
   const int wgi = threadIdx.x / WG_THREADS;
   if (wgi == 0) {
-    if constexpr (T::C > 1) wg::regs_dec<F32_PRODUCER_REGS>();
+    if constexpr (T::C > 1) wg::regs_dec<tf32::PRODUCER_REGS>();
     f32_producer<T>(ring, &tk, &tv, &tq, &tdo, rows, kv0, first, n, bh, S_pad);
   } else {
-    if constexpr (T::C > 1) wg::regs_inc<F32_CONSUMER_REGS>();
+    if constexpr (T::C > 1) wg::regs_inc<tf32::CONSUMER_REGS>();
     // warp-uniform (a shuffle shows the compiler), as in the bf16 kernels
     const int c = __shfl_sync(0xffffffffu, wgi, 0) - 1;
     const uint32_t base = __shfl_sync(0xffffffffu, ring.base, 0);
@@ -1002,9 +732,9 @@ __global__ void __launch_bounds__(F32Tiles<DQK, DV, true>::THREADS, 1)
 
         // dv += p^T dO and dk += ds^T q
         wg::mbar_wait(ring.full_t + 8 * s, ph);
-        accumulate_tf32<T, DV>(dv_acc, sT, plane_t + st + (T::TB_HI >> 4),
+        accumulate_f32<T, DV>(dv_acc, sT, plane_t + st + (T::TB_HI >> 4),
                                plane_t + st + (T::TB_LO >> 4));
-        accumulate_tf32<T, DQK>(dk_acc, dpT, plane_t + st + (T::TA_HI >> 4),
+        accumulate_f32<T, DQK>(dk_acc, dpT, plane_t + st + (T::TA_HI >> 4),
                                 plane_t + st + (T::TA_LO >> 4));
       } else {
         wg::mbar_wait(ring.full_t + 8 * s, ph);
@@ -1044,10 +774,10 @@ __global__ void __launch_bounds__(F32Tiles<DQK, DV, false>::THREADS, 1)
 
   const int wgi = threadIdx.x / WG_THREADS;
   if (wgi == 0) {
-    if constexpr (T::C > 1) wg::regs_dec<F32_PRODUCER_REGS>();
+    if constexpr (T::C > 1) wg::regs_dec<tf32::PRODUCER_REGS>();
     f32_producer<T>(ring, &tq, &tdo, &tk, &tv, rows, q0, 0, n, bh, S_pad);
   } else {
-    if constexpr (T::C > 1) wg::regs_inc<F32_CONSUMER_REGS>();
+    if constexpr (T::C > 1) wg::regs_inc<tf32::CONSUMER_REGS>();
     const int c = __shfl_sync(0xffffffffu, wgi, 0) - 1;  // warp-uniform, as in dkdv
     const uint32_t base = __shfl_sync(0xffffffffu, ring.base, 0);
     const int t = threadIdx.x % WG_THREADS, lane = t & 31;
@@ -1121,7 +851,7 @@ __global__ void __launch_bounds__(F32Tiles<DQK, DV, false>::THREADS, 1)
 
         // dq += ds k
         wg::mbar_wait(ring.full_t + 8 * s, ph);
-        accumulate_tf32<T, DQK>(dq_acc, sc, plane_t + st + (T::TA_HI >> 4),
+        accumulate_f32<T, DQK>(dq_acc, sc, plane_t + st + (T::TA_HI >> 4),
                                 plane_t + st + (T::TA_LO >> 4));
       } else {
         wg::mbar_wait(ring.full_t + 8 * s, ph);

@@ -1,9 +1,10 @@
 // The pieces shared by K3 (flash_attention.cu), its gradient
-// (flash_attention_bwd.cu) and csrc/wgmma.cuh: cp.async copies, ldmatrix,
-// the base-2 exponent, the split of a float32 pair into two bf16 terms, the
-// 4-lane row reductions of the m16n8 accumulator layout (also each warp's
-// quarter of a wgmma accumulator), and the dynamic shared memory a kernel
-// may take.
+// (flash_attention_bwd.cu) and csrc/wgmma.cuh: ldmatrix (K3-bwd's bf16 A
+// fragments), the base-2 exponent, the split of a float32 pair into two
+// bf16 terms (wgmma.cuh's split_frags), the 4-lane row reductions of the
+// m16n8 accumulator layout (also each warp's quarter of a wgmma
+// accumulator: K3's softmax), and the dynamic shared memory a kernel may
+// take.
 
 #pragma once
 
@@ -15,22 +16,6 @@ namespace mma {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, asynchronously; zero-fills when !in
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {

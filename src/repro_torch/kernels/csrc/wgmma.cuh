@@ -1,13 +1,13 @@
-// The Hopper pieces of K3 (flash_attention.cu, its bfloat16 forward), K3-bwd
+// The Hopper pieces of K3 (flash_attention.cu), K3-bwd
 // (flash_attention_bwd.cu) and the scan of K1 and K2 (scan.cuh):
 // mbarriers (arrivals by threads, by TMA's byte counts and by cp.async),
 // TMA tile loads and 1-D bulk copies, the tensor maps behind them, the
 // shared-memory matrix descriptors that match the TMA box's swizzle,
 // warpgroup MMAs with A from shared memory or registers: m64nNk16 f32 +=
 // bf16 x bf16 (the bfloat16 paths), m64nNk8 f32 += tf32 x tf32 (3xTF32
-// products: K3-bwd's float32 path, K1's scores) and m64nNk32 s32 += s8 x s8
-// (K2's exact int8 dots), setmaxnreg and named barriers.  Written in inline
-// PTX, as mma.cuh is; sm_90a only.
+// products: K3's and K3-bwd's float32 paths, K1's scores) and m64nNk32
+// s32 += s8 x s8 (K2's exact int8 dots), setmaxnreg and named barriers.
+// Written in inline PTX, as mma.cuh is; sm_90a only.
 //
 // Layout.  A matrix tile of R rows and D columns is stored as panels of
 // one swizzle row each (RB = 128, 64 or 32 bytes: CW = RB / 2 bf16 or
@@ -311,7 +311,8 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
 // memory.  The accumulator layout is mma_ss's.
 template <int N>
 __device__ __forceinline__ void mma_ss_tf32(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
-  static_assert(N == 8 || N == 16 || N == 32, "m64n8k8, m64n16k8 or m64n32k8");
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64,
+                "m64n8k8, m64n16k8, m64n32k8 or m64n64k8");
   if constexpr (N == 8) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
@@ -338,6 +339,20 @@ __device__ __forceinline__ void mma_ss_tf32(float (&d)[N / 2], uint64_t a, uint6
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
           "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(acc));
   }
 }

@@ -2,12 +2,14 @@
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::_flash_fwd_kernel``.  Both dtypes run
-on the tensor cores at float32 grade.  bfloat16 runs Hopper's warpgroup
-MMAs (``wgmma``) in a warp-specialised block: a producer warpgroup streams
-k and v tiles by TMA through a ring of shared-memory stages, two consumer
-warpgroups of 64 q rows each take turns on the tensor cores, and p @ v
-splits p into two bf16 terms (hi + lo) from the score accumulators.
-float32 runs ``mma.sync`` as a 3xTF32 split of every operand.  This module
+on the tensor cores at float32 grade, on Hopper's warpgroup MMAs
+(``wgmma``) in a warp-specialised block: a producer warpgroup brings k and
+v tiles by TMA into a ring of shared-memory stages for consumer
+warpgroups of 64 q rows each.  bfloat16: two consumers take turns on the
+tensor cores, and p @ v splits p into two bf16 terms (hi + lo) from the
+score accumulators.  float32: every product is a 3xTF32 split of its
+operands; the producer warpgroup splits q once and each kv tile into tf32
+hi and lo planes (v's transposed), as K3-bwd's float32 path does.  This module
 checks the inputs, allocates the output and launches on PyTorch's current
 stream.
 Nothing here runs at import: the library is built and loaded at the first

@@ -23,13 +23,16 @@ def test_every_source_exists_with_its_headers():
 def test_includes_are_followed_through_headers():
     # K1 includes scan.cuh, which includes topk.cuh and Hopper's pieces (TMA,
     # wgmma, the one set of mbarrier helpers), which include the bf16 MMA
-    # pieces; K3 and K3-bwd the bf16 MMA pieces, the split and Hopper's
+    # pieces; K3 and K3-bwd the bf16 MMA pieces, Hopper's, and their float32
+    # block (tf32_wgmma.cuh), which includes the split
     assert _build.includes("distance_topk.cu") == ["mma.cuh", "scan.cuh", "tf32.cuh",
                                                    "topk.cuh", "wgmma.cuh"]
     assert _build.includes("distance_topk_q8.cu") == ["mma.cuh", "scan.cuh", "topk.cuh",
                                                       "wgmma.cuh"]
-    assert _build.includes("flash_attention.cu") == ["mma.cuh", "tf32.cuh", "wgmma.cuh"]
-    assert _build.includes("flash_attention_bwd.cu") == ["mma.cuh", "tf32.cuh", "wgmma.cuh"]
+    assert _build.includes("flash_attention.cu") == ["mma.cuh", "tf32.cuh", "tf32_wgmma.cuh",
+                                                     "wgmma.cuh"]
+    assert _build.includes("flash_attention_bwd.cu") == ["mma.cuh", "tf32.cuh",
+                                                         "tf32_wgmma.cuh", "wgmma.cuh"]
 
 
 @pytest.fixture()
@@ -49,6 +52,7 @@ def _paths(csrc):
     ("mma.cuh", set(_build.SOURCES)),
     ("wgmma.cuh", set(_build.SOURCES)),
     ("tf32.cuh", {"distance_topk.cu", "flash_attention.cu", "flash_attention_bwd.cu"}),
+    ("tf32_wgmma.cuh", {"flash_attention.cu", "flash_attention_bwd.cu"}),
     ("topk.cuh", {"distance_topk.cu", "distance_topk_q8.cu"}),
     ("scan.cuh", {"distance_topk.cu", "distance_topk_q8.cu"}),
     ("distance_topk_q8.cu", {"distance_topk_q8.cu"}),
@@ -107,6 +111,11 @@ def test_k3_builds_its_entry_and_each_dtype_as_its_own_unit(monkeypatch):
     # bfloat16 runs the wgmma kernel: the mma.sync one and its MMA are gone
     assert "flash_fwd_wgmma_kernel" in text
     assert "flash_fwd_mma_kernel" not in text and "mma_bf16(" not in text
+    # so does float32, on the block K3-bwd's float32 path runs: the mma.sync
+    # kernel, its MMA and its copies are gone
+    assert "flash_fwd_tf32_wgmma_kernel" in text and '#include "tf32_wgmma.cuh"' in text
+    assert "flash_fwd_tf32_kernel" not in text
+    assert "mma_tf32(" not in text and "cp_async" not in text
     before = _build.library_path("flash_attention.cu")
     monkeypatch.setitem(_build.UNITS, "flash_attention.cu", units[:2])
     assert _build.library_path("flash_attention.cu") != before

@@ -442,16 +442,62 @@ def test_k3_rejects_unsupported_inputs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("BH,S,D,causal", [(15, 2048, 64, True), (7, 1000, 128, False),
-                                           (3, 65, 16, True)])
+                                           (3, 65, 16, True), (7, 1000, 192, True)])
 def test_k3_float32_launches_are_bit_equal(cuda, BH, S, D, causal):
     """Two launches on the same inputs give the same bits: no atomics, no
-    order that depends on timing."""
+    order that depends on timing.  D = 192 is MLA's instance, v of 128."""
     g = torch.Generator(device=cuda).manual_seed(S + D)
-    q, k, v = (torch.randn(BH, S, D, generator=g, device=cuda) for _ in range(3))
+    q, k = (torch.randn(BH, S, D, generator=g, device=cuda) for _ in range(2))
+    v = torch.randn(BH, S, 128 if D == 192 else D, generator=g, device=cuda)
     a = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5)
     b = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# K3's float32 instances, and the edges of their tiles: kv tiles of 64 rows
+# up to D = 64, 32 at 128 and 16 at (192, 128); q blocks of 128 rows up to
+# D = 64 (two consumer warpgroups), 64 past it
+K3_F32_INSTANCES = [(16, 16), (32, 32), (64, 64), (128, 128), (192, 128)]
+K3_F32_EDGES = [15, 17, 31, 33, 63, 65, 127, 129]
+
+
+def _k3_f32_inputs(cuda, BH, S, D, Dv, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (torch.randn(BH, S, D, generator=g, device=cuda) for _ in range(2))
+    return q, k, torch.randn(BH, S, Dv, generator=g, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", K3_F32_INSTANCES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_k3_f32_output_with_lse_is_bit_equal_to_output_without(cuda, D, Dv, causal):
+    """float32: the lse instance only adds the store: its output is the
+    other instance's bit for bit, and its lse is the plain version's."""
+    q, k, v = _k3_f32_inputs(cuda, 5, 1000, D, Dv, seed=D + Dv)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5, with_lse=True)
+    bare = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5)
+    _, lse_plain = ref.flash_attention_ref(q, k, v, causal=causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    assert float((lse - lse_plain).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", K3_F32_INSTANCES)
+@pytest.mark.parametrize("S", K3_F32_EDGES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_k3_f32_tile_edges_match_plain(cuda, D, Dv, S, causal):
+    """float32 at every instance, S one row either side of each kv tile and
+    q block size: within 3e-5 of the plain version, in one launch."""
+    q, k, v = _k3_f32_inputs(cuda, 3, S, D, Dv, seed=S * D + Dv)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.KERNEL_LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (3, S, Dv)
+    assert float((out - want).abs().max()) <= 3e-5
 
 
 # K3's bfloat16 instances ((D, Dv): D = Dv in 16-128 and MLA's (192, 128))

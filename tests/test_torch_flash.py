@@ -193,33 +193,55 @@ def test_bf16_agreement_rejects_shape_mismatch():
 # K3's float32 path (csrc/flash_attention.cu) runs both products on the
 # tensor cores as a 3xTF32 split: each operand a = hi + lo with hi = tf32(a)
 # and lo = tf32(a - hi), and a product is lo.hi + hi.lo + hi.hi.  Emulated
-# here with its 64-row kv tiles, its base-2 online softmax with the TPU
-# kernel's guards, and each tile's p @ v folded into acc.  A TF32 value keeps
+# here at its kv tiles (``k3_f32_block_k``) in the kernel's order: a score
+# tile is one chain of k-steps of 8, every lo.hi step, then every hi.lo,
+# then every hi.hi; p @ v starts from zero each tile, in the same order
+# over the tile's kv rows, and is folded into acc with one rounded
+# multiply-add (exact in float64 before its one rounding to float32); the
+# base-2 online softmax keeps the TPU kernel's guards.  A TF32 value keeps
 # the top 10 mantissa bits of a float32, rounded to nearest even.
+def k3_f32_block_k(D: int, Dv: int) -> int:
+    """Rows of K3's float32 kv tile (``FwdTiles::BT``)."""
+    return 16 if D + Dv > 256 else 32 if D == 128 else 64
+
+
 def _tf32(a: torch.Tensor) -> torch.Tensor:
     b = a.contiguous().view(torch.int32)
     b = (b + 0x0FFF + ((b >> 13) & 1)) & ~0x1FFF
     return b.view(torch.float32)
 
 
+def _chain(terms) -> torch.Tensor:
+    """One float32 chain of k-steps of 8: for each (x, y) in turn, every
+    k-step's x[..., 8 j:8 j + 8] @ y[..., 8 j:8 j + 8, :] added in order."""
+    acc = None
+    for x, y in terms:
+        for j in range(0, x.shape[-1], 8):
+            part = x[..., j:j + 8] @ y[..., j:j + 8, :]
+            acc = part if acc is None else acc + part
+    return acc
+
+
 def _dot_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ah, bh = _tf32(a), _tf32(b)
     al, bl = _tf32(a - ah), _tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
+    return _chain([(al, bh), (ah, bl), (ah, bh)])
 
 
 def _dot_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _tf32(a) @ _tf32(b)
+    return _chain([(_tf32(a), _tf32(b))])
 
 
-def _emulated_k3(q, k, v, causal, dot, block_k=64):
-    """K3's float32 arithmetic over (BH, S, D) float32 tensors, with the
-    products done by ``dot``."""
+def _emulated_k3(q, k, v, causal, dot, block_k=None):
+    """K3's float32 arithmetic over (BH, S, D) q, k and (BH, S, Dv) v,
+    float32, with the products done by ``dot``."""
     BH, S, D = q.shape
+    Dv = v.shape[-1]
+    block_k = block_k or k3_f32_block_k(D, Dv)
     scale_log2 = math.log2(math.e) / math.sqrt(D)
     rows = torch.arange(S)[:, None]
     m = torch.full((BH, S), -math.inf)
-    l, acc = torch.zeros(BH, S), torch.zeros(BH, S, D)
+    l, acc = torch.zeros(BH, S), torch.zeros(BH, S, Dv)
     for k0 in range(0, S, block_k):
         kt, vt = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
         s = dot(q, kt.transpose(1, 2)) * scale_log2
@@ -230,7 +252,7 @@ def _emulated_k3(q, k, v, causal, dot, block_k=64):
         corr = torch.where(torch.isfinite(m), torch.exp2(m - m_safe), 0.0)
         p = torch.exp2(s - m_safe[..., None])
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + dot(p, vt)
+        acc = (acc.double() * corr.double()[..., None] + dot(p, vt).double()).float()
         m = m_new
     return acc / l.clamp_min(1e-30)[..., None]
 
@@ -240,14 +262,20 @@ TF32_CASES = [c + (1.0,) for c in CASES] + [(1, 256, 2, 64, True, 4.0),
                                             (1, 200, 2, 128, False, 4.0)]
 
 
-def _emulation_vs_pallas(B, S, H, D, causal, q_scale, dot):
-    q, k, v = _qkv(B, S, H, D, seed=B * 1000 + S + D)
-    q = q * np.float32(q_scale)
-    want = np.asarray(jax_flash_bhsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                     causal=causal, interpret=True))
-    fold = lambda a: torch.from_numpy(a).permute(0, 2, 1, 3).reshape(B * H, S, D)
+def _emulation_vs_pallas(B, S, H, D, causal, q_scale, dot, Dv=None):
+    """Max abs error of the emulation against the Pallas kernel in interpret
+    mode.  The Pallas kernel takes v of q's head dim only, so a narrower v
+    (MLA's (192, 128)) runs it with v padded by zero columns (attention is
+    linear in each column of v)."""
+    Dv = Dv or D
+    q, k, v = _qkv(B, S, H, D, seed=B * 1000 + S + D + Dv)
+    q, v = q * np.float32(q_scale), np.ascontiguousarray(v[..., :Dv])
+    v_pad = np.pad(v, ((0, 0), (0, 0), (0, 0), (0, D - Dv)))
+    want = np.asarray(jax_flash_bhsd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v_pad),
+                                     causal=causal, interpret=True))[..., :Dv]
+    fold = lambda a: torch.from_numpy(a).permute(0, 2, 1, 3).reshape(B * H, S, a.shape[-1])
     got = _emulated_k3(fold(q), fold(k), fold(v), causal, dot)
-    got = got.reshape(B, H, S, D).permute(0, 2, 1, 3).numpy()
+    got = got.reshape(B, H, S, Dv).permute(0, 2, 1, 3).numpy()
     return float(np.abs(got - want).max())
 
 
@@ -259,6 +287,32 @@ def test_3xtf32_emulation_matches_pallas_interpret(B, S, H, D, causal, q_scale):
 @pytest.mark.parametrize("B,S,H,D,causal,q_scale", TF32_CASES)
 def test_single_tf32_product_misses_the_float32_limit(B, S, H, D, causal, q_scale):
     assert _emulation_vs_pallas(B, S, H, D, causal, q_scale, _dot_tf32) > F32_TOL
+
+
+# every float32 instance at the edges of its kv tile (64 rows up to D = 64,
+# 32 at 128, 16 at (192, 128)) and of its q block (128 rows up to D = 64,
+# 64 past it), MLA's (192, 128) among them, and q scaled by 4
+TF32_INSTANCE_CASES = [(1, S, 1, D, D, causal, 1.0) for D in (16, 32, 64) for S in (63, 129)
+                       for causal in (True, False)] + [
+    (1, S, 1, 128, 128, causal, 1.0) for S in (33, 65) for causal in (True, False)] + [
+    (1, S, 1, 192, 128, causal, 1.0) for S in (17, 65) for causal in (True, False)] + [
+    (1, 129, 2, 64, 64, True, 4.0), (1, 65, 2, 128, 128, True, 4.0),
+    (1, 100, 2, 192, 128, True, 4.0), (1, 100, 2, 192, 128, False, 4.0)]
+
+
+@pytest.mark.parametrize("B,S,H,D,Dv,causal,q_scale", TF32_INSTANCE_CASES)
+def test_3xtf32_emulation_matches_pallas_interpret_at_every_instance(B, S, H, D, Dv, causal,
+                                                                     q_scale):
+    assert k3_f32_block_k(D, Dv) in (16, 32, 64)
+    assert _emulation_vs_pallas(B, S, H, D, causal, q_scale, _dot_3xtf32, Dv) < F32_TOL
+
+
+@pytest.mark.parametrize("B,S,H,D,Dv,causal,q_scale", [
+    (1, 129, 2, 64, 64, True, 4.0), (1, 65, 2, 128, 128, True, 4.0),
+    (1, 100, 2, 192, 128, False, 4.0)])
+def test_single_tf32_product_misses_the_float32_limit_at_wide_instances(B, S, H, D, Dv, causal,
+                                                                        q_scale):
+    assert _emulation_vs_pallas(B, S, H, D, causal, q_scale, _dot_tf32, Dv) > F32_TOL
 
 
 def test_tf32_emulation_keeps_ten_mantissa_bits():

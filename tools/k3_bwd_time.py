@@ -13,7 +13,9 @@ backward (``ref.flash_attention_bwd_ref`` in float32 on the same inputs)
 at a few bf16 shapes, tile edges included: ``ref.bf16_agreement`` <= 1 on
 dq, dk and dv, and two launches bit-equal (a SOURCE whose file name has
 ``diag`` in it is a diagnostic build that may drop part of the work: its
-checks are reported, not enforced).  Each is timed with CUDA events
+checks are reported, not enforced); every check also reports whether the
+source's dq, dk and dv are bit-equal to the first source's.  D = 192 in a
+check is MLA's instance, v of 128.  Each is timed with CUDA events
 in turns (first to last, then last to first) at the training step's layer
 (60, 4096, 64) and at one codeqwen1.5-7b sequence's (32, 4096, 128), both
 causal bf16, beside PyTorch's SDPA backward on the same inputs
@@ -48,12 +50,14 @@ from repro_torch.kernels.flash_attention import _DTYPE, flash_attention_cuda  # 
 OUT = ROOT / "build" / "k3_bwd_time"
 SHAPES = [(60, 4096, 64), (32, 4096, 128)]
 CHECKS = [(1, 1, 64, True), (2, 127, 64, True), (2, 129, 64, False), (3, 1000, 16, True),
-          (3, 1000, 32, False), (2, 33, 128, True), (3, 1025, 128, False), (4, 4096, 64, True)]
+          (3, 1000, 32, False), (2, 33, 128, True), (3, 1025, 128, False), (4, 4096, 64, True),
+          (3, 65, 192, True), (2, 1000, 192, False)]
 # float32: (BH, S, D, causal, q scale, v scale); a peaky softmax (q x 4) and
 # large values (v x 8), as phase 2c gives K3's float32 forward
 CHECKS_F32 = [(1, 1, 64, True, 1, 1), (2, 127, 64, True, 1, 1), (2, 129, 64, False, 4, 1),
               (3, 1000, 16, True, 1, 8), (3, 1000, 32, False, 4, 1), (2, 33, 128, True, 1, 8),
-              (3, 1025, 128, False, 4, 1), (4, 4096, 64, True, 4, 1)]
+              (3, 1025, 128, False, 4, 1), (4, 4096, 64, True, 4, 1), (3, 65, 192, True, 1, 1),
+              (2, 1000, 192, False, 4, 1)]
 F32_TOL = 1e-4
 RECORDS = []
 
@@ -77,16 +81,17 @@ def build(i: int, source: Path):
         w in ln for w in ("Compiling entry", "registers", "spill", "Performance", "arning"))]
     emit({"source": str(source), "build_s": seconds, "ptxas": ptxas})
     fn = ctypes.CDLL(str(out)).repro_flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def run(q, k, v, o, do, lse, causal=True):
         BH, S, D = q.shape
         scale = 1.0 / D ** 0.5
-        grads = [torch.empty_like(q) for _ in range(3)]
+        grads = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
         scratch = torch.empty(BH * (-(-S // 128) * 128) * 2, device=q.device)
         rc = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, scratch, *grads)), BH, S, D,
-                _DTYPE[q.dtype], int(causal), scale, torch.cuda.current_stream().cuda_stream)
+                v.shape[-1], _DTYPE[q.dtype], int(causal), scale,
+                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{source}: cudaError {rc}")
         return grads
@@ -95,8 +100,9 @@ def build(i: int, source: Path):
 
 
 def inputs(gen, BH, S, D, dtype, causal=True, q_scale=1, v_scale=1):
-    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
-                   for _ in range(4))
+    Dv = 128 if D == 192 else D
+    q, k, v, do = (torch.randn(BH, S, d, generator=gen, device="cuda").to(dtype)
+                   for d in (D, D, Dv, Dv))
     q, v = q * q_scale, v * v_scale
     out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=D ** -0.5, with_lse=True)
     return q, k, v, out, do, lse
@@ -149,7 +155,14 @@ def main() -> int:
     kernels = [build(i, s) for i, s in enumerate(sources)]
     gen = torch.Generator(device="cuda")
     f = lambda t: t.float()
-    for source, run in zip(sources, kernels):
+    first = {}  # the first source's grads by check
+
+    def same_as_first(i, key, got) -> bool:
+        if i == 0:
+            first[key] = got
+        return all(torch.equal(a, b) for a, b in zip(got, first[key]))
+
+    for i, (source, run) in enumerate(zip(sources, kernels)):
         gen.manual_seed(0)  # every source sees the same inputs
         for BH, S, D, causal in CHECKS:
             q, k, v, o, do, lse = inputs(gen, BH, S, D, torch.bfloat16, causal)
@@ -159,7 +172,8 @@ def main() -> int:
             agree = max(ref.bf16_agreement(a, w) for a, w in zip(got, want))
             same = all(torch.equal(a, b) for a, b in zip(got, run(q, k, v, o, do, lse, causal)))
             emit({"source": str(source), "check": [BH, S, D, causal], "bf16_agreement": agree,
-                  "deterministic": same})
+                  "deterministic": same,
+                  "bit_equal_to_first": same_as_first(i, ("bf16", BH, S, D, causal), got)})
             if not (agree <= 1.0 and same) and "diag" not in source.name:
                 raise AssertionError(f"{source} at {(BH, S, D, causal)}: agreement {agree}, "
                                      f"deterministic {same}")
@@ -177,7 +191,8 @@ def main() -> int:
                       for a, w, sc in zip(got, want, scales))
             same = all(torch.equal(a, b) for a, b in zip(got, run(q, k, v, o, do, lse, causal)))
             emit({"source": str(source), "check_f32": [BH, S, D, causal, qs, vs],
-                  "rel_err": rel, "deterministic": same})
+                  "rel_err": rel, "deterministic": same,
+                  "bit_equal_to_first": same_as_first(i, ("f32", BH, S, D, causal, qs, vs), got)})
             if not (rel <= F32_TOL and same) and "diag" not in source.name:
                 raise AssertionError(f"{source} at {(BH, S, D, causal, qs, vs)} float32: "
                                      f"rel. err {rel}, deterministic {same}")

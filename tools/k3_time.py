@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time versions of K3's source against each other on one CUDA card, at the
-bfloat16 shapes of the port's main paths and the float32 shapes of the LM
-serving cell.
+bfloat16 and float32 shapes of the port's main paths (the float32 ones:
+the LM serving cell and the card-vs-CPU checks of 6b, 6c and 6d).
 
-    python3 tools/k3_time.py [--out PATH] [SOURCE.cu ...]
+    python3 tools/k3_time.py [--out PATH] [--quick] [--f32-only] [SOURCE.cu ...]
 
 Each SOURCE is a version of ``src/repro_torch/kernels/csrc/flash_attention.cu``
 (default: that file alone), compiled with the package's nvcc flags and its
@@ -14,13 +14,15 @@ splits into the package's translation units (``_build.UNITS``, the
 the package builds it; one that does not is one unit.  The build's seconds,
 ``-Xptxas -v`` report (registers, spills, and the warnings that wgmmas were
 serialized) and the counts of ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)
-instructions in its SASS (``cuobjdump``) are printed.
+instructions in its SASS (``cuobjdump``) are printed, and the float32
+unit's registers and spilled bytes kernel by kernel.
 
 Each is then checked against the plain version (``ref.flash_attention_ref``):
-float32 at a few shapes within 3e-5; bfloat16 at every instance (D = Dv in
-16-128 and (192, 128)), causal and not, at the tile edges, within 3e-2 and
-``ref.bf16_agreement`` <= 1 against the plain version in float32, with
-the lse output bit-equal to the output without.  The first SOURCE must
+float32 at every instance, at tile edges and with q x 4, within 3e-5;
+bfloat16 at every instance (D = Dv in 16-128 and (192, 128)), causal and
+not, at the tile edges, within 3e-2 and ``ref.bf16_agreement`` <= 1
+against the plain version in float32, with the lse output bit-equal to the
+output without.  The first SOURCE must
 hold these; the others are reported with their error (a diagnostic build
 may drop part of the work).
 
@@ -31,11 +33,14 @@ called by the port), with the shape's bound: operations (BH S^2 (D + Dv)
 causal flops over 989 TFLOP/s bf16 or 165 TFLOP/s float32-grade) or bytes
 over 3.35 TB/s, the larger.  Prints one JSON line per record (a check
 only when it fails, and each source's worst) and writes every record to
-PATH (default ``build/k3_time/k3_time.json``).
+PATH (default ``build/k3_time/k3_time.json``).  The plain version is timed
+once at each float32 shape.  ``--quick`` stops after the checks: a first
+run of a new version; ``--f32-only`` times the float32 shapes alone.
 """
 
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -66,12 +71,21 @@ SHAPES = [
     (16, 2048, 192, 128, BF16, "6c MLA engine bucket"),
     (15, 4096, 64, 64, F32, "serving's 4096 bucket"),
     (15, 2048, 64, 64, F32, "serving's 2048 bucket"),
+    (16, 2048, 128, 128, F32, "6c GQA card-vs-CPU check"),
+    (16, 2048, 192, 128, F32, "6c MLA card-vs-CPU check"),
+    (16, 1100, 128, 128, F32, "6d GQA card-vs-CPU check"),
+    (16, 1100, 192, 128, F32, "6d MLA card-vs-CPU check"),
+    (15, 1100, 64, 64, F32, "6b card-vs-CPU check"),
 ]
-# float32 (BH, S, D, causal, q scale): tile edges, the serving shape, and q
-# scaled by 4 (a peaky softmax, where the scores' rounding shows most)
-CHECKS = [(1, 1, 16, True, 1.0), (7, 65, 32, False, 1.0), (7, 1000, 64, True, 1.0),
-          (3, 1025, 128, False, 1.0), (15, 4096, 64, True, 1.0)] + [
-    (7, 4097, D, causal, 4.0) for D in (16, 32, 64, 128) for causal in (True, False)]
+# float32 (BH, S, D, Dv, causal, q scale): tile edges, the serving shape,
+# MLA's (192, 128), and q scaled by 4 (a peaky softmax, where the scores'
+# rounding shows most)
+CHECKS = [(1, 1, 16, 16, True, 1.0), (7, 65, 32, 32, False, 1.0), (7, 1000, 64, 64, True, 1.0),
+          (3, 1025, 128, 128, False, 1.0), (15, 4096, 64, 64, True, 1.0),
+          (3, 33, 128, 128, True, 1.0), (3, 129, 64, 64, False, 1.0),
+          (3, 17, 192, 128, True, 1.0), (7, 1000, 192, 128, True, 1.0)] + [
+    (7, 4097, D, D, causal, 4.0) for D in (16, 32, 64, 128) for causal in (True, False)] + [
+    (7, 4097, 192, 128, causal, 4.0) for causal in (True, False)]
 # bfloat16 (BH, S, D, Dv, causal): every instance at the edges of the
 # 64-row tiles and past 4096
 BF16_CHECKS = [(3, S, D, Dv, causal) for D, Dv in INSTANCES
@@ -87,6 +101,29 @@ def emit(rec: dict, show: bool = True) -> None:
         print(json.dumps(rec), flush=True)
 
 
+def ptxas_entries(log: str) -> list[dict]:
+    """Each kernel entry of an ``-Xptxas -v`` log with its registers and
+    spilled bytes (demangled where ``c++filt`` is found)."""
+    entries, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"entry": m.group(1)}
+            entries.append(cur)
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                                  r"spill loads", ln)):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            cur["registers"] = int(m.group(1))
+    filt = shutil.which("c++filt")
+    if filt and entries:
+        names = subprocess.run([filt], input="\n".join(e["entry"] for e in entries),
+                               capture_output=True, text=True).stdout.splitlines()
+        for e, name in zip(entries, names):
+            e["entry"] = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return entries
+
+
 def build(i: int, source: Path):
     out = OUT / f"k3_{i}.so"
     text = source.read_text()
@@ -98,7 +135,8 @@ def build(i: int, source: Path):
          "-c", "-o", str(OUT / f"k3_{i}_{u}.o"), str(source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), OUT / f"k3_{i}_{u}.o")
         for u, defines in enumerate(units)]
-    log = "".join(p.communicate()[0] for p, _ in procs)
+    unit_logs = [p.communicate()[0] for p, _ in procs]
+    log = "".join(unit_logs)
     if any(p.returncode for p, _ in procs):
         raise RuntimeError(f"nvcc failed for {source}:\n{log}")
     link = subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-shared", "-o", str(out),
@@ -122,6 +160,10 @@ def build(i: int, source: Path):
           "spills": sorted({ln for ln in ptxas if "spill" in ln and not ln.startswith("0 bytes")}),
           **counts})
     emit({"source": str(source), "ptxas": ptxas}, show=False)
+    for defines, unit_log in zip(units, unit_logs):
+        if "-DREPRO_K3_F32" in defines or units == ((),):
+            emit({"source": str(source), "unit": " ".join(defines) or "all",
+                  "entries": ptxas_entries(unit_log)})
     fn = ctypes.CDLL(str(out)).repro_flash_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -144,18 +186,20 @@ def build(i: int, source: Path):
 def check(i: int, source: Path, run, gen) -> None:
     worst = {"max_abs_err_f32": 0.0, "max_abs_err_bf16": 0.0, "max_bf16_agreement": 0.0,
              "failed": 0}
-    for BH, S, D, causal, q_scale in CHECKS:
-        q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda") for _ in range(3))
+    for BH, S, D, Dv, causal, q_scale in CHECKS:
+        q, k = (torch.randn(BH, S, D, generator=gen, device="cuda") for _ in range(2))
+        v = torch.randn(BH, S, Dv, generator=gen, device="cuda")
         q = q * q_scale
         err = float((run(q, k, v, causal) - ref.flash_attention_ref(q, k, v, causal=causal))
                     .abs().max())
         ok = err <= F32_TOL
         worst["max_abs_err_f32"] = max(worst["max_abs_err_f32"], err)
         worst["failed"] += not ok
-        emit({"source": str(source), "check": [BH, S, D, causal, q_scale], "dtype": "float32",
-              "max_abs_err": err, "within_limit": ok}, show=not ok)
+        emit({"source": str(source), "check": [BH, S, D, Dv, causal, q_scale],
+              "dtype": "float32", "max_abs_err": err, "within_limit": ok}, show=not ok)
         if i == 0 and not ok:
-            raise AssertionError(f"{source} at {(BH, S, D, causal, q_scale)}: max abs err {err}")
+            raise AssertionError(f"{source} at {(BH, S, D, Dv, causal, q_scale)}: "
+                                 f"max abs err {err}")
     for BH, S, D, Dv, causal in BF16_CHECKS:
         q, k = (torch.randn(BH, S, D, generator=gen, device="cuda").to(BF16) for _ in range(2))
         v = torch.randn(BH, S, Dv, generator=gen, device="cuda").to(BF16)
@@ -185,8 +229,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     args = sys.argv[1:]
     out_path = OUT / "k3_time.json"
-    if args[:1] == ["--out"]:
-        out_path, args = Path(args[1]), args[2:]
+    if "--out" in args:
+        i = args.index("--out")
+        out_path, args = Path(args[i + 1]), args[:i] + args[i + 2:]
+    quick, f32_only = "--quick" in args, "--f32-only" in args
+    args = [a for a in args if a not in ("--quick", "--f32-only")]
     sources = [Path(s).resolve() for s in args] or [_build.CSRC / "flash_attention.cu"]
     OUT.mkdir(parents=True, exist_ok=True)
     out_path.parent.mkdir(parents=True, exist_ok=True)
@@ -199,7 +246,8 @@ def main() -> int:
         gen.manual_seed(0)  # every source sees the same inputs
         check(i, source, run, gen)
     order = list(range(len(sources)))
-    for BH, S, D, Dv, dtype, what in SHAPES:
+    shapes = [] if quick else [s for s in SHAPES if s[4] == F32 or not f32_only]
+    for BH, S, D, Dv, dtype, what in shapes:
         q, k = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype) for _ in range(2))
         v = torch.randn(BH, S, Dv, generator=gen, device="cuda").to(dtype)
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -215,6 +263,10 @@ def main() -> int:
                   "sdpa_ms": cuda_ms(sdpa, iters=iters), "bound_ms": 1e3 * max(t_ops, t_bytes),
                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                   "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms})
+        if dtype == F32:  # the plain version once a float32 shape (it repeats K3's arithmetic)
+            plain = lambda: ref.flash_attention_ref(q, k, v, causal=True, scale=D ** -0.5)
+            emit({"shape": [BH, S, D, Dv], "dtype": str(dtype), "what": what,
+                  "plain_ms": cuda_ms(plain, iters=2, warmup=1)})
     out_path.write_text("\n".join(json.dumps(r) for r in RECORDS) + "\n")
     return 0
 
